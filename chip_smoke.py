@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU (an H100) and hold
+its CUDA kernels against their plain PyTorch versions.
+
+Run from the root of a checkout:
+
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --kernels  # card, build and kernel checks only
+
+Phases (any failed check exits non-zero; no phase catches its own
+failure):
+
+1. card: ``nvidia-smi`` name and power limit, torch's device name, count;
+2. build: the three kernels from ``src/repro_torch/kernels/csrc`` for
+   ``sm_90a``, with the build time and the ``-Xptxas -v`` report;
+3. kernels against their plain versions at the main path's shapes
+   (d = 109,210): ``g_t``/``residual'`` bit for bit, ages, counts,
+   histograms, signs and energies exactly; timed with CUDA events;
+4. the main path at full width: the FL round on the 109,210-parameter
+   prototype CNN over 50 EMNIST-shaped synthetic clients — (a) 5 coherent
+   rounds, (b) 5 one-bit rounds, (c) 3 coherent rounds with error
+   feedback — with exact launch counts, finite weights and losses and the
+   round-0 full refresh;
+5. the same rounds (2 each of (a) and (b)) with the kernels and with the
+   plain versions from one generator seed: identical ages, weights within
+   1e-6;
+6. a profile of 2 rounds each of (a) and (b): device time per round,
+   the device's busy share and the largest kernels (report only);
+7. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+   line ``{"ok": true, "device": {...}}``.
+
+Imports neither JAX nor the JAX package.  Writes the full kernel timings to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+D = 109_210                         # prototype CNN on 28x28x1, 26 classes
+N_CLIENTS, CHUNK, H, B = 50, 10, 5, 20
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def _same(a, b, what: str) -> float:
+    """Exact equality (bit for bit, NaN matches NaN) -> max |a - b| (0)."""
+    import torch
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{what}: shape/dtype {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    check(bool(torch.equal(nan_a, nan_b)), f"{what}: NaN positions differ")
+    if a.dtype == torch.float32:
+        same = torch.equal(a[~nan_a].view(torch.int32),
+                           b[~nan_b].view(torch.int32))
+    else:
+        same = torch.equal(a, b)
+    diff = (a[~nan_a] - b[~nan_b]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bool(same), f"{what}: kernel and plain differ (max abs {err})")
+    return err
+
+
+def _time_ms(fn, blocks: int = 50, per_block: int = 20):
+    """(device ms, eager ms) per call.  Device: ``per_block`` calls
+    captured in one CUDA graph, replayed ``blocks`` times between CUDA
+    events, median per call — the host's Python and launch overhead is out
+    of it.  Eager: the same calls launched from Python, which at these
+    sizes mostly measures the host."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_block):
+            fn()
+    out = []
+    for run in (graph.replay, lambda: [fn() for _ in range(per_block)]):
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(blocks):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        out.append(statistics.median(a.elapsed_time(b) for a, b in pairs)
+                   / per_block)
+    return out[0], out[1]
+
+
+def _bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _record(err, ms, n_bytes, bound, by):
+    return {"max_abs_err": err, "ms": ms["kernel"][0],
+            "plain_ms": ms["plain"][0], "eager_ms": ms["kernel"][1],
+            "plain_eager_ms": ms["plain"][1], "bound_ms": bound,
+            "bound_by": by, "bytes": n_bytes}
+
+
+def kernel_phase(dev):
+    """Every kernel variant at the main path's shapes, kernel vs plain."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+
+    def vec(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=dev)
+
+    g = (rng.standard_t(3, size=D) * 0.1).astype(np.float32)
+    g[rng.choice(D, 100, replace=False)] = 0.0
+    g[rng.choice(D, 100, replace=False)] = -0.0
+    age = rng.integers(0, 131, size=D).astype(np.float32)
+    for start in (137, 4096, 50_001, 99_999):
+        age[start:start + 97] = -1.0                 # interior pad runs
+    age[-5:] = -1.0
+    fresh = np.where(rng.random(D) < 0.5, 1.0, -1.0).astype(np.float32)
+    bad = g.copy()
+    pos = rng.choice(D, 300, replace=False)
+    bad[pos[:100]], bad[pos[100:200]], bad[pos[200:]] = np.nan, np.inf, -np.inf
+    bad_fresh = fresh.copy()
+    bad_fresh[rng.choice(D, 30, replace=False)] = np.nan
+    t = {"g": vec(g), "g_prev": vec(rng.normal(size=D)), "age": vec(age),
+         "res": vec(rng.normal(size=D) * 0.05), "fresh": vec(fresh),
+         "bad": vec(bad), "bad_fresh": vec(bad_fresh)}
+    finite = np.abs(g)
+    thetas = [(0.0, 0.0), (float(np.quantile(finite, 0.9)), 40.5),
+              (float("inf"), 60.5)]
+
+    records = {}
+
+    def fairk_case(name, stats, res, fresh_key, g_key, sanitize, n_in, n_out):
+        errs = []
+        for tm, ta in thetas:
+            kw = dict(residual=t["res"] if res else None,
+                      fresh=t[fresh_key] if fresh_key else None,
+                      sanitize=sanitize)
+            fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+            outs = {m: fn(t[g_key], t["g_prev"], t["age"], tm, ta, mode=m,
+                          **kw) for m in ("kernel", "plain")}
+            k_out, p_out = outs["kernel"], outs["plain"]
+            errs.append(_same(k_out[0], p_out[0], f"{name} g_t"))
+            errs.append(_same(k_out[1], p_out[1], f"{name} age'"))
+            if res:
+                errs.append(_same(k_out[2], p_out[2], f"{name} residual'"))
+            if stats:
+                for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+                    errs.append(_same(k_out[3][key], p_out[3][key],
+                                      f"{name} {key}"))
+                if tm == 0.0:
+                    check(float(k_out[3]["n_sel"]) > 0.9 * D,
+                          f"{name}: theta=0 selected {k_out[3]['n_sel']}")
+        tm, ta = (torch.tensor(v, device=dev) for v in thetas[1])
+        kw = dict(residual=t["res"] if res else None,
+                  fresh=t[fresh_key] if fresh_key else None,
+                  sanitize=sanitize)
+        fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+        ms = {m: _time_ms(lambda m=m: fn(t[g_key], t["g_prev"], t["age"],
+                                         tm, ta, mode=m, **kw))
+              for m in ("kernel", "plain")}
+        n_bytes = 4 * D * (n_in + n_out) + (4 * 258 if stats else 0) + 8
+        bound, by = _bound_ms(n_bytes, (12 + (3 if res else 0)) * D)
+        records[name] = _record(max(errs), ms, n_bytes, bound, by)
+
+    fairk_case("fairk_update[stats]", True, False, None, "g", False, 3, 2)
+    fairk_case("fairk_update[stats+fresh]", True, False, "fresh", "g", False,
+               4, 2)
+    fairk_case("fairk_update[stats+res]", True, True, None, "g", False, 4, 3)
+    fairk_case("fairk_update[res]", False, True, None, "g", False, 4, 3)
+    fairk_case("fairk_update[stats+sanitize]", True, True, "bad_fresh",
+               "bad", True, 5, 3)
+
+    noise = vec(rng.normal(size=D) * 2.0)
+    for n in (10, 50):
+        v = rng.normal(size=(n, D)).astype(np.float32)
+        v = np.where(rng.random((n, D)) < 0.05, 0.0, np.sign(v))
+        v[rng.random((n, D)) < 0.05] = -0.0
+        votes = torch.as_tensor(v.astype(np.float32), device=dev)
+        for noisy in (False, True):
+            nz = noise if noisy else None
+            name = f"sign_mv[{n}x{D}{'+noise' if noisy else ''}]"
+            ks, ke = ops.sign_mv(votes, nz, mode="kernel")
+            ps, pe = ops.sign_mv(votes, nz, mode="plain")
+            err = max(_same(ks, ps, f"{name} signs"),
+                      _same(ke, pe, f"{name} energy"))
+            ms = {m: _time_ms(lambda m=m: ops.sign_mv(votes, nz, mode=m))
+                  for m in ("kernel", "plain")}
+            n_bytes = 4 * n * D + 8 * D + (4 * D if noisy else 0)
+            bound, by = _bound_ms(n_bytes, 2 * n * D)
+            records[name] = _record(err, ms, n_bytes, bound, by)
+    energy = vec(2.0 * rng.integers(-25, 26, size=D))
+    for noisy in (False, True):
+        nz = noise if noisy else None
+        name = f"sign_from_energy[{D}{'+noise' if noisy else ''}]"
+        ks, ke = ops.sign_from_energy(energy, nz, mode="kernel")
+        ps, pe = ops.sign_from_energy(energy, nz, mode="plain")
+        err = max(_same(ks, ps, f"{name} signs"),
+                  _same(ke, pe, f"{name} energy"))
+        ms = {m: _time_ms(lambda m=m: ops.sign_from_energy(energy, nz,
+                                                           mode=m))
+              for m in ("kernel", "plain")}
+        n_bytes = 4 * D * (3 + (1 if noisy else 0))
+        bound, by = _bound_ms(n_bytes, 2 * D)
+        records[name] = _record(err, ms, n_bytes, bound, by)
+    torch.cuda.synchronize()
+    for name, rec in records.items():
+        print(f"kernel {name}: exact match; device {rec['ms'] * 1e3:.2f} us "
+              f"(plain {rec['plain_ms'] * 1e3:.2f} us), eager "
+              f"{rec['eager_ms'] * 1e3:.2f} us (plain "
+              f"{rec['plain_eager_ms'] * 1e3:.2f} us), bound "
+              f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']}",
+              flush=True)
+    return records
+
+
+# --------------------------------------------------------------------------
+# phases 4 and 5: the main path
+# --------------------------------------------------------------------------
+
+def make_task(dev):
+    """EMNIST-shaped synthetic data split over 50 clients with Dir(0.3),
+    and the full-width prototype CNN from a seeded generator."""
+    import torch
+    from repro_torch.data import partition, synthetic
+    from repro_torch.models import cnn
+
+    spec = synthetic.DatasetSpec("emnist-like", (28, 28, 1), 26, 26_000,
+                                 2_000)
+    (xtr, ytr), (xte, yte) = synthetic.make_dataset(spec, seed=0)
+    parts = partition.dirichlet_partition(ytr, N_CLIENTS, 0.3, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params0 = cnn.init_prototype_cnn(gen, (28, 28, 1), 26, (24, 32, 48), 192,
+                                     device=dev)
+    check(cnn.param_count(params0) == D,
+          f"prototype CNN has {cnn.param_count(params0)} parameters, not {D}")
+    xte_t = torch.as_tensor(xte, device=dev)
+    yte_t = torch.as_tensor(yte, device=dev)
+
+    def loss_fn(p, x, y):
+        return cnn.softmax_xent(cnn.prototype_cnn(p, x), y)
+
+    def eval_fn(p):
+        with torch.no_grad():
+            logits = cnn.prototype_cnn(p, xte_t)
+            return {"acc": float(cnn.accuracy(logits, yte_t)),
+                    "loss": float(cnn.softmax_xent(logits, yte_t))}
+
+    def sample_round(t):
+        return partition.client_batches(xtr, ytr, parts, B, H, seed=t)
+
+    return params0, loss_fn, eval_fn, sample_round
+
+
+def run_configs():
+    from repro_torch.core.oac import ChannelConfig
+    from repro_torch.fl import FLConfig
+    common = dict(n_clients=N_CLIENTS, local_steps=H, batch_size=B,
+                  backend="packed", client_chunk=CHUNK, seed=0)
+    coherent = dict(compression_ratio=0.1, local_lr=0.05, global_lr=0.05,
+                    channel=ChannelConfig(fading="rayleigh", mean=1.0,
+                                          noise_std=0.1), **common)
+    return {
+        "a_coherent": FLConfig(rounds=5, **coherent),
+        "b_one_bit": FLConfig(rounds=5, one_bit=True, compression_ratio=0.2,
+                              local_lr=0.003, global_lr=0.003,
+                              channel=ChannelConfig(fading="none", mean=1.0,
+                                                    noise_std=2.0),
+                              **common),
+        "c_coherent_ef": FLConfig(rounds=3, error_feedback=True, **coherent),
+    }
+
+
+def reset_counters():
+    from repro_torch.kernels import fairk_update, sign_mv
+    fairk_update.LAUNCHES = 0
+    sign_mv.SIGN_MV_LAUNCHES = 0
+    sign_mv.SIGN_FROM_ENERGY_LAUNCHES = 0
+
+
+def read_counters():
+    from repro_torch.kernels import fairk_update, sign_mv
+    return {"fairk_update": fairk_update.LAUNCHES,
+            "sign_mv": sign_mv.SIGN_MV_LAUNCHES,
+            "sign_from_energy": sign_mv.SIGN_FROM_ENERGY_LAUNCHES}
+
+
+def main_path_phase(dev, task):
+    import math
+    import torch
+    from repro_torch.fl import train
+
+    params0, loss_fn, eval_fn, sample_round = task
+    launches = {"fairk_update": 0, "sign_mv": 0, "sign_from_energy": 0}
+    summary = {}
+    for name, fl in run_configs().items():
+        reset_counters()
+        t0 = time.perf_counter()
+        hist = train(fl, params0, loss_fn, sample_round, eval_fn=eval_fn,
+                     eval_every=1, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counters()
+        rounds = fl.rounds
+        want = {"fairk_update": rounds,
+                "sign_mv": rounds * (N_CLIENTS // CHUNK) if fl.one_bit else 0,
+                "sign_from_energy": rounds if fl.one_bit else 0}
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        for key in launches:
+            launches[key] += got[key]
+        st = hist["state"]
+        tensors = {"w": st.w, "g": st.g, "age": st.age,
+                   "sel_count": st.sel_count, "residual": st.residual,
+                   **{f"theta.{k}": v for k, v in st.theta.items()}}
+        for key, val in tensors.items():
+            check(val.is_cuda, f"{name}: state tensor {key} on {val.device}")
+        check(bool(torch.isfinite(st.w).all()), f"{name}: non-finite w")
+        check(all(math.isfinite(x) for x in hist["loss"]),
+              f"{name}: non-finite loss {hist['loss']}")
+        n_sel = hist["n_selected"]
+        check(n_sel[0] == D, f"{name}: round 0 selected {n_sel[0]}, not {D}")
+        check(all(1 <= x <= D for x in n_sel[1:]),
+              f"{name}: selected counts {n_sel}")
+        print(f"main path {name}: {rounds} rounds, launches {got}, "
+              f"round ms {[round(x, 3) for x in hist['round_ms']]}, "
+              f"selected {n_sel}, k {hist['k']}, test loss "
+              f"{[round(x, 4) for x in hist['loss']]}, final test acc "
+              f"{hist['acc'][-1]:.4f}, wall {wall:.2f} s", flush=True)
+        summary[name] = {"round_ms": hist["round_ms"], "n_selected": n_sel,
+                         "k": hist["k"], "acc": hist["acc"],
+                         "loss": hist["loss"], "launches": got}
+    return launches, summary
+
+
+def parity_phase(dev, task):
+    """2 rounds each of (a) and (b) with the kernels and with the plain
+    versions, same generator seed, cuDNN deterministic and TF32 off."""
+    import dataclasses
+    import torch
+    from repro_torch.fl import train
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    params0, loss_fn, _, sample_round = task
+    configs = run_configs()
+    for name in ("a_coherent", "b_one_bit"):
+        fl = dataclasses.replace(configs[name], rounds=2)
+        runs = {mode: train(fl, params0, loss_fn, sample_round,
+                            device=dev, kernel_mode=mode)["state"]
+                for mode in (None, "plain")}
+        k_st, p_st = runs[None], runs["plain"]
+        check(bool(torch.equal(k_st.age, p_st.age)),
+              f"{name}: kernel and plain ages differ")
+        w_err = float((k_st.w - p_st.w).abs().max())
+        check(w_err <= 1e-6, f"{name}: kernel and plain w differ by {w_err}")
+        print(f"parity {name}: ages identical, max |w_kernel - w_plain| = "
+              f"{w_err}", flush=True)
+
+
+def profile_phase(dev, task, summary):
+    """Where a round's device time goes: 2 rounds each of (a) and (b)
+    under ``torch.profiler`` (CPU + CUDA), after the main path warmed up.
+    Sums the device time of the kernels and copies themselves (not of the
+    operators that launched them, which would count it twice), lists the
+    largest, and estimates the device's busy share as kernel time per
+    round over the main path's median steady-state round time (the
+    profiler slows the host, so its own window would understate it).
+    Report only: nothing here is checked."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fl import train
+
+    params0, loss_fn, _, sample_round = task
+    out = {}
+    for name in ("a_coherent", "b_one_bit"):
+        fl = dataclasses.replace(run_configs()[name], rounds=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train(fl, params0, loss_fn, sample_round, device=dev)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            rows.append((ev.self_device_time_total / 1e3, ev.key, ev.count))
+        rows.sort(reverse=True)
+        per_round = sum(r[0] for r in rows) / fl.rounds
+        ours = {key: ms for ms, key, _ in rows
+                if any(k in key for k in ("fairk_kernel", "sign_mv_kernel",
+                                          "sign_from_energy_kernel"))}
+        steady = statistics.median(summary[name]["round_ms"][1:])
+        out[name] = {"profiled_wall_ms": wall_ms,
+                     "device_ms_per_round": per_round,
+                     "steady_round_ms": steady,
+                     "busy_share": per_round / steady,
+                     "ours_ms": ours,
+                     "top": [(ms, key[:90], n) for ms, key, n in rows[:10]]}
+        print(f"profile {name}: device {per_round:.2f} ms per round "
+              f"(kernels and copies) vs steady round {steady:.2f} ms -> "
+              f"busy share {per_round / steady:.3f}; ported kernels "
+              f"{sum(ours.values()) / fl.rounds:.4f} ms per round; profiled "
+              f"window {wall_ms:.1f} ms", flush=True)
+        for ms, key, n in rows[:10]:
+            print(f"  {ms / fl.rounds:8.3f} ms/round  x{n // fl.rounds:<5d} "
+                  f"{key[:90]}", flush=True)
+    return out
+
+
+def main(argv) -> None:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail("src/repro_torch not found: run chip_smoke.py from the root of "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from repro_torch.device import resolve_device, set_numerics
+    from repro_torch.kernels import build
+
+    dev = resolve_device(None)
+    set_numerics(dev)
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"card: {card} | torch: {kind} | devices: {count} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    build.build(force=True)
+    print(f"build: {build.BUILD_INFO['seconds']:.2f} s -> "
+          f"{build.BUILD_INFO['library']}", flush=True)
+    for src, report in build.BUILD_INFO["ptxas"].items():
+        lines = [ln for ln in report.splitlines() if "ptxas" in ln]
+        print(f"ptxas {src}:\n  " + "\n  ".join(lines), flush=True)
+
+    records = kernel_phase(dev)
+    if "--kernels" in argv:
+        print("kernels only: the main path was not driven", flush=True)
+        return
+    task = make_task(dev)
+    launches, summary = main_path_phase(dev, task)
+    for key, n in launches.items():
+        check(n > 0, f"kernel {key} was not launched on the main path")
+    parity_phase(dev, task)
+    profile = profile_phase(dev, task, summary)
+    check("jax" not in sys.modules, "JAX was imported")
+    check(not any(m == "repro" or m.startswith("repro.")
+                  for m in sys.modules), "the JAX package was imported")
+
+    main_variant = {"fairk_update": "fairk_update[stats]",
+                    "sign_mv": f"sign_mv[{CHUNK}x{D}]",
+                    "sign_from_energy": f"sign_from_energy[{D}+noise]"}
+    sources = {
+        "fairk_update": ("src/repro_torch/kernels/csrc/fairk_update.cu",
+                         "src/repro/kernels/fairk_update.py:91"),
+        "sign_mv": ("src/repro_torch/kernels/csrc/sign_mv.cu",
+                    "src/repro/kernels/sign_mv.py:25"),
+        "sign_from_energy": ("src/repro_torch/kernels/csrc/sign_mv.cu",
+                             "src/repro/kernels/sign_mv.py:41"),
+    }
+    kernels = []
+    for name, variant in main_variant.items():
+        rec = records[variant]
+        same = [r["max_abs_err"] for v, r in records.items()
+                if v.startswith(name + "[")]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": sources[name][0],
+                        "replaces": sources[name][1],
+                        "launches": launches[name],
+                        "max_abs_err": max(same), "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "library_ms": None,
+                        "variant": variant})
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "kind": kind, "build": {
+            k: v for k, v in build.BUILD_INFO.items() if k != "ptxas"},
+         "variants": records, "main_path": summary, "profile": profile,
+         "kernels": kernels},
+        indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

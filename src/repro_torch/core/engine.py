@@ -1,0 +1,271 @@
+"""The FAIR-k selection engine on the packed backend (the subset of
+``repro.core.engine`` that the FL round needs).
+
+``SelectionEngine.select_and_merge(g, g_prev, age)`` runs one server
+phase: thresholds (θ_M, θ_A) from the carried statistics alone, then ONE
+fused kernel pass (``kernels.ops.fairk_stats_update``) that selects
+(Eq. 11), merges (Eq. 8), advances the age (Eq. 10), folds the
+error-feedback residual and emits the counts and histograms the next
+round's thresholds come from.  The exact, threshold and sharded backends,
+the sampled-quantile bootstrap, the traced split of the adaptive
+controller and async lag are not ported yet (ROADMAP Queue 1); asking for
+them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels.ref import knuth_jitter
+
+Tensor = torch.Tensor
+
+BACKENDS = ("exact", "threshold", "sharded", "packed")
+POLICIES = ("fairk", "topk", "roundrobin", "toprand", "agetopk", "randk")
+# FAIR-k-family policies expressible as (θ_M, θ_A) thresholds
+THRESHOLD_POLICIES = ("fairk", "topk", "roundrobin")
+AGE_CAP = packing.AGE_CAP
+
+_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item {item})"
+
+
+def jitter_from_ids(ids: Tensor) -> Tensor:
+    """Deterministic per-coordinate jitter in [0, 1): the Knuth hash of
+    the coordinate index (bit-identical to the kernel's recomputation)."""
+    return knuth_jitter(ids)
+
+
+def index_jitter(n: int, offset: int = 0, device=None) -> Tensor:
+    """Jitter for coordinates [offset, offset + n)."""
+    return jitter_from_ids(torch.arange(offset, offset + n, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Backend-independent FAIR-k settings (field names and defaults of
+    ``repro.core.engine.EngineConfig``).  ``kernel_mode``: None (the kernel
+    on CUDA tensors, the plain version on CPU tensors) | "kernel" |
+    "plain"."""
+    policy: str = "fairk"
+    backend: str = "exact"
+    rho: float = 0.1
+    k_m_frac: float = 0.75
+    r_frac: float = 1.5
+    k: Optional[int] = None
+    k_m: Optional[int] = None
+    r: Optional[int] = None
+    sample_cap: int = 65536
+    exact_theta: bool = False
+    global_thresholds: bool = False
+    noise_std: float = 0.0
+    n_clients: int = 1
+    kernel_mode: Optional[str] = None
+    fused_stats: bool = False
+    warm_start: bool = False
+    warm_alpha: float = 0.5
+    warm_clip: float = 2.0
+    warm_tol: float = 0.25
+    warm_streak: int = 3
+    reduce_axes: Tuple[str, ...] = ()
+
+
+def budgets_for(cfg: EngineConfig, d_budget: int) -> Tuple[int, int, int]:
+    """(k, k_M, r) for ``d_budget`` real coordinates, with the Remark-1
+    policy specialisations applied (top-k: k_M = k; round robin: k_M = 0)."""
+    k = cfg.k if cfg.k is not None else max(2, round(cfg.rho * d_budget))
+    k_m = cfg.k_m if cfg.k_m is not None else int(round(cfg.k_m_frac * k))
+    if cfg.policy == "topk":
+        k_m = k
+    if cfg.policy == "roundrobin":
+        k_m = 0
+    r = cfg.r if cfg.r is not None else max(k, round(cfg.r_frac * k))
+    return k, k_m, r
+
+
+class SelectionEngine:
+    """``select_and_merge`` on the packed backend with fused statistics and
+    warm-start thresholds.  ``layout`` is a ``packing.PackedLayout``; the
+    budgets count its ``d_valid`` real coordinates."""
+
+    def __init__(self, cfg: EngineConfig, d: int,
+                 layout: Optional[packing.PackedLayout] = None):
+        if cfg.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {cfg.backend!r}; choose from "
+                             f"{BACKENDS}")
+        if cfg.policy not in POLICIES:
+            raise ValueError(f"unknown policy {cfg.policy!r}; choose from "
+                             f"{POLICIES}")
+        if cfg.backend != "packed":
+            item = {"exact": 2, "threshold": 3}.get(cfg.backend, 11)
+            raise NotImplementedError(
+                f"backend {cfg.backend!r} is "
+                + _NOT_PORTED.format(item=item))
+        if cfg.policy not in THRESHOLD_POLICIES:
+            raise ValueError(
+                f"policy {cfg.policy!r} needs index arithmetic — only "
+                f"{THRESHOLD_POLICIES} run on the packed backend")
+        if not (cfg.fused_stats and cfg.warm_start) or cfg.exact_theta:
+            raise NotImplementedError(
+                "the packed backend runs with fused_stats=True, "
+                "warm_start=True and exact_theta=False here; the "
+                "sampled-quantile and order-statistic thresholds are "
+                + _NOT_PORTED.format(item=3))
+        if cfg.reduce_axes:
+            raise NotImplementedError(
+                "reduce_axes (the sharded launch path) is "
+                + _NOT_PORTED.format(item=11))
+        if layout is None:
+            raise ValueError("packed backend needs a PackedLayout")
+        if d != layout.d_packed:
+            raise ValueError(f"d={d} != layout.d_packed={layout.d_packed}")
+        self.cfg = cfg
+        self.d = d
+        self.layout = layout
+        self.d_budget = layout.d_valid
+
+    # -- budgets ------------------------------------------------------------
+
+    def budgets(self) -> Tuple[int, int, int]:
+        """(k, k_M, r) with the Remark-1 policy specialisations applied."""
+        return budgets_for(self.cfg, self.d_budget)
+
+    def _rho_parts(self) -> Tuple[float, float]:
+        k, k_m, _ = self.budgets()
+        return k / self.d_budget, (k_m / k if k else 0.0)
+
+    # -- fused server phase -------------------------------------------------
+
+    def select_and_merge(self, g: Tensor, g_prev: Tensor, age: Tensor, *,
+                         noise: Optional[Tensor] = None,
+                         tstate: Optional[Dict[str, Tensor]] = None,
+                         residual: Optional[Tensor] = None,
+                         fresh: Optional[Tensor] = None,
+                         k_m_frac=None, age_lag: Optional[int] = None,
+                         erase: Optional[Tensor] = None,
+                         sanitize: bool = False
+                         ) -> Tuple[Tensor, Tensor, Dict[str, Any]]:
+        """One server phase: select on ``g``, merge fresh values over stale
+        ``g_prev`` (Eq. 8), advance the age (Eq. 10).  Returns f32
+        ``(g_t, age', stats)``; ``stats["tstate"]`` is the successor
+        threshold state.
+
+        ``noise``: the standard-normal (d,) draw of the channel noise
+        (JAX draws it from the round's key inside the engine); with
+        ``noise_std`` > 0 the selected coordinates get
+        ``noise_std / n_clients · noise``.  ``residual``: the
+        error-feedback accumulator, successor in ``stats["residual"]``.
+        ``fresh``: transmitted values when they differ from the score
+        (the one-bit majority-vote signs).  ``sanitize`` keeps non-finite
+        scores out of both stages; ``erase`` (> 0) demotes coordinates to
+        NaN first, and needs ``sanitize``."""
+        if k_m_frac is not None:
+            raise NotImplementedError("a traced k_m_frac (the adaptive "
+                                      "controller) is "
+                                      + _NOT_PORTED.format(item=5))
+        if age_lag:
+            raise NotImplementedError("age_lag (async rounds) is "
+                                      + _NOT_PORTED.format(item=7))
+        if tstate is None:
+            raise NotImplementedError(
+                "the packed round without a carried tstate needs the "
+                "sampled-quantile bootstrap, which is "
+                + _NOT_PORTED.format(item=3))
+        if tuple(g.shape) != (self.d,):
+            raise ValueError(f"expected shape ({self.d},), got "
+                             f"{tuple(g.shape)}")
+        if self.cfg.noise_std > 0.0 and noise is None:
+            raise ValueError("noise_std > 0 needs a noise draw (identical "
+                             "noise every round is not a channel)")
+        if erase is not None and not sanitize:
+            raise ValueError("erase needs sanitize=True — erased "
+                             "coordinates degrade through the NaN path")
+        if erase is not None:
+            g = torch.where(erase > 0.0,
+                            torch.full_like(g, float("nan"),
+                                            dtype=torch.float32),
+                            g.to(torch.float32))
+        return self._packed_update(g, g_prev, age, noise, tstate, residual,
+                                   fresh, sanitize)
+
+    def _stats_thresholds(self, tstate) -> Tuple[Tensor, Tensor, Tensor]:
+        """(θ_M, θ_A, streak') from the carried statistics alone: the
+        warm-corrected thresholds once the streak is established, else the
+        histogram estimates (zero reads of the gradient buffer)."""
+        cfg = self.cfg
+        k, k_m, _ = self.budgets()
+        rho, km_frac = self._rho_parts()
+        hist_tm, hist_ta = packing.hist_thresholds(
+            tstate["mag_hist"], tstate["age_hist"], rho=rho,
+            k_m_frac=km_frac)
+        pred_tm, pred_ta = packing.warm_corrected_thresholds(
+            tstate, k=k, k_m=k_m, alpha=cfg.warm_alpha, clip=cfg.warm_clip)
+        on_track = self._on_track(tstate, k)
+        use_warm = on_track & (tstate["streak"] >= cfg.warm_streak)
+        tm = torch.where(use_warm, pred_tm, hist_tm)
+        ta = torch.where(use_warm, pred_ta, hist_ta)
+        streak = self._streak_update(tstate, on_track, tm, ta, pred_tm,
+                                     pred_ta)
+        return tm, ta, streak
+
+    def _on_track(self, tstate, k) -> Tensor:
+        """Trust gate 1: last round's count stayed inside the budget
+        tolerance."""
+        return ((tstate["init"] > 0.0)
+                & ((tstate["n_sel"] - k).abs() <= self.cfg.warm_tol * k))
+
+    def _streak_update(self, tstate, on_track, tm, ta, pred_tm, pred_ta
+                       ) -> Tensor:
+        """Trust gate 2: the warm predictor must keep agreeing with the
+        measured thresholds."""
+        def both(a, b):
+            return torch.isinf(a) & torch.isinf(b)
+        ratio_tol = 1.0 + self.cfg.warm_tol
+        pred_ok = (
+            (both(ta, pred_ta) | ((ta - pred_ta).abs() <= 0.75))
+            & (both(tm, pred_tm)
+               | ((pred_tm <= tm * ratio_tol) & (pred_tm * ratio_tol >= tm))))
+        return torch.where(on_track & pred_ok, tstate["streak"] + 1.0,
+                           torch.zeros_like(tstate["streak"]))
+
+    def _packed_update(self, g, g_prev, age, noise, tstate, residual=None,
+                       fresh=None, sanitize=False):
+        """One fused FAIR-k pass over the whole packed buffer: the round's
+        only read of (g, residual)."""
+        from repro_torch.kernels import ops    # kernels import core
+        cfg = self.cfg
+        k, _, _ = self.budgets()
+        # the fused-stats warm branch of the reference's _packed_thresholds
+        theta_m, theta_a, streak = self._stats_thresholds(tstate)
+        g_t, age_next, res_next, kstats = ops.fairk_stats_update(
+            g, g_prev, age, theta_m, theta_a, residual=residual,
+            fresh=fresh, mode=cfg.kernel_mode, sanitize=sanitize)
+        n_sel, n_sel_m = kstats["n_sel"], kstats["n_sel_m"]
+        mag_hist, age_hist = kstats["mag_hist"], kstats["age_hist"]
+        if sanitize:
+            # a fully erased round emits empty histograms; substitute the
+            # truth (nothing refreshed: ages advance one bin, magnitudes
+            # unobserved) so the next round does not read them as the
+            # cold-start full-refresh signal
+            keep = (age_hist.sum() <= 0.0) & (tstate["init"] > 0.0)
+            mag_hist = torch.where(keep, tstate["mag_hist"], mag_hist)
+            age_hist = torch.where(
+                keep, packing.advance_age_hist(tstate["age_hist"]), age_hist)
+        if cfg.noise_std > 0.0:
+            sel = (age_next == 0.0).to(torch.float32)
+            g_t = g_t + sel * (cfg.noise_std / cfg.n_clients) * noise
+        one = torch.ones((), dtype=torch.float32, device=g.device)
+        tstate_next = {"theta_m": theta_m, "theta_a": theta_a,
+                       "n_sel_m": n_sel_m, "n_sel": n_sel, "init": one,
+                       "streak": streak, "mag_hist": mag_hist,
+                       "age_hist": age_hist}
+        stats = {"theta_m": theta_m, "theta_a": theta_a,
+                 "n_selected": n_sel, "k": k, "tstate": tstate_next,
+                 "n_sel_m": n_sel_m, "mag_hist": mag_hist,
+                 "age_hist": age_hist}
+        if res_next is not None:
+            stats["residual"] = res_next
+        return g_t, age_next, stats

@@ -1,0 +1,346 @@
+"""OAC-FL training loop (paper Algorithm 1) on the packed backend.
+
+One round: every client runs ``H`` local SGD steps (Eq. 4) and returns
+its accumulated gradient (Eq. 5); the clients stream through the round in
+chunks of ``client_chunk``, each chunk batched with
+``torch.func.vmap(torch.func.grad(...))`` and folded into a (d,)
+accumulator, so the (N, d) matrix is never live.  The coherent uplink
+superposes the faded gradients (Eq. 7); the one-bit FSK-MV uplink
+(Sec. V-B) reduces each chunk's ±1 votes with the ``sign_mv`` kernel and
+detects the majority with ``sign_from_energy``.  Then one fused FAIR-k
+pass selects (Eq. 11), merges (Eq. 8) and advances the age (Eq. 10), and
+the global model steps (Eq. 9).
+
+Randomness: PyTorch cannot reproduce JAX's threefry streams, so a round
+takes its draws as tensors — the coherent round the fading ``h`` (N,) and
+the standard-normal channel noise ``z`` (d,), the one-bit round ``z``
+alone.  ``train`` draws them from a ``torch.Generator`` seeded with
+``fl.seed``; the tests hand both packages the same numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import oac, packing, quantize
+from repro_torch.core.engine import (EngineConfig, SelectionEngine,
+                                     budgets_for, index_jitter)
+from repro_torch.core.oac import ChannelConfig
+from repro_torch.device import DeviceLike, resolve_device, set_numerics
+from repro_torch.kernels import ops
+from repro_torch.models.cnn import ravel_params
+
+Tensor = torch.Tensor
+
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {item})"
+
+
+@dataclasses.dataclass(frozen=True)
+class FLConfig:
+    """Field names and defaults of ``repro.fl.trainer.FLConfig``.  The
+    fields whose JAX defaults are objects of modules not ported yet
+    (``controller``, ``faults``) default to None here, meaning off."""
+    n_clients: int = 50
+    local_steps: int = 5            # H
+    batch_size: int = 50            # B
+    local_lr: float = 0.01          # eta_l
+    global_lr: float = 0.01         # eta
+    rounds: int = 200
+    policy: str = "fairk"
+    backend: str = "exact"          # only "packed" is ported
+    compression_ratio: float = 0.1  # rho = k / d
+    k_m_frac: float = 0.75          # k_M / k
+    r_frac: float = 1.5
+    channel: ChannelConfig = oac.PAPER_DEFAULT
+    one_bit: bool = False           # FSK-MV prototype uplink (Sec. V-B)
+    error_feedback: bool = False    # server-side EF on the packed backend
+    adaptive_km: bool = False
+    async_lag: int = 0
+    scan_rounds: int = 0
+    controller: Any = None
+    faults: Any = None
+    watchdog: Any = None
+    population: Any = None
+    wireless: Any = None
+    client_chunk: Optional[int] = None
+    seed: int = 0
+
+    def budgets(self, d: int) -> Tuple[int, int, int]:
+        """(k, k_M, r) — the engine's rounding and Remark-1 pinning."""
+        return budgets_for(EngineConfig(
+            policy="fairk" if self.policy == "fairk_auto" else self.policy,
+            rho=self.compression_ratio, k_m_frac=self.k_m_frac,
+            r_frac=self.r_frac), d)
+
+
+@dataclasses.dataclass
+class ServerState:
+    """Flat server buffers carried across rounds (single-leaf packed layout,
+    lane=1, no pads)."""
+    w: Tensor                        # flat global model (d,)
+    g: Tensor                        # last reconstructed gradient (d,)
+    age: Tensor                      # AoU vector (d,)
+    sel_count: Tensor                # per-entry participation counter
+    residual: Tensor = None          # EF accumulator (d,)
+    theta: Dict[str, Tensor] = None  # packing.init_threshold_state()
+    ctrl: Dict[str, Tensor] = None   # adaptive controller (not ported)
+    round: int = 0
+
+
+def check_supported(fl: FLConfig) -> None:
+    """Raise ``NotImplementedError`` for any setting outside the slice."""
+    unsupported = [
+        (fl.backend != "packed",
+         f"backend {fl.backend!r} " + _NOT_PORTED.format(
+             item={"exact": 2, "threshold": 3}.get(fl.backend, 2))),
+        (fl.faults is not None, "fault injection "
+         + _NOT_PORTED.format(item=8)),
+        (fl.watchdog is not None, "the watchdog "
+         + _NOT_PORTED.format(item=8)),
+        (fl.population is not None, "the client population "
+         + _NOT_PORTED.format(item=8)),
+        (fl.wireless is not None, "the wireless channel "
+         + _NOT_PORTED.format(item=8)),
+        (fl.async_lag != 0, "async_lag " + _NOT_PORTED.format(item=7)),
+        (fl.scan_rounds > 1, "scan_rounds " + _NOT_PORTED.format(item=7)),
+        (fl.adaptive_km or fl.policy == "fairk_auto",
+         "the adaptive k_m controller " + _NOT_PORTED.format(item=5)),
+        (fl.controller is not None, "the controller config "
+         + _NOT_PORTED.format(item=5)),
+        (fl.policy not in ("fairk", "topk", "roundrobin", "fairk_auto"),
+         f"policy {fl.policy!r} (index arithmetic, exact backend) "
+         + _NOT_PORTED.format(item=2)),
+    ]
+    for bad, what in unsupported:
+        if bad:
+            raise NotImplementedError(what)
+
+
+def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
+                 device: DeviceLike = None,
+                 kernel_mode: Optional[str] = None) -> Callable:
+    """Build the one-round function
+
+        fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate, draws)
+          -> (w', g_t, age', sel_count', residual', sel_mask, tstate',
+              None, metrics)
+
+    ``loss_fn(params, x, y) -> scalar`` is the per-client loss on a
+    parameter tree; ``xs``/``ys`` are (N, H, B, ...) tensors; ``draws``
+    holds ``"z"`` (d,) and, on the coherent uplink, ``"h"`` (N,).
+    ``kernel_mode`` goes to every kernel dispatcher (``kernels.ops``).
+    ``fl_round.server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+    residual, tstate, draws)`` is the round after the superposition, for
+    feeding it an aggregate computed elsewhere."""
+    check_supported(fl)
+    dev = resolve_device(device)
+    set_numerics(dev)
+    n, big_h, lr = fl.n_clients, fl.local_steps, fl.local_lr
+    chunk = fl.client_chunk if fl.client_chunk is not None else n
+    if not 1 <= chunk <= n or n % chunk:
+        raise ValueError(f"client_chunk={fl.client_chunk} must be in "
+                         f"[1, n_clients] and divide n_clients={n}")
+    k, k_m, r = fl.budgets(d)
+    layout = packing.PackedLayout([d], lane=1)
+    engine = SelectionEngine(
+        EngineConfig(policy="fairk" if fl.policy == "fairk_auto"
+                     else fl.policy, backend="packed", k=k, k_m=k_m, r=r,
+                     # one-bit: the channel perturbs the vote energy, not
+                     # the merged values — engine noise off
+                     noise_std=0.0 if fl.one_bit else fl.channel.noise_std,
+                     n_clients=n, kernel_mode=kernel_mode, fused_stats=True,
+                     warm_start=True), d, layout=layout)
+    frac_static = k_m / k if k else 0.0
+
+    def flat_loss(w_flat: Tensor, x: Tensor, y: Tensor) -> Tensor:
+        return loss_fn(unravel(w_flat), x, y)
+
+    batched_grad = torch.func.vmap(torch.func.grad(flat_loss))
+
+    def clients(w: Tensor, xs: Tensor, ys: Tensor) -> Tensor:
+        """H local SGD steps for a chunk of clients -> their accumulated
+        gradients (Eq. 5), (chunk, d)."""
+        w_c = w.unsqueeze(0).expand(xs.shape[0], -1)
+        for s in range(big_h):
+            w_c = w_c - lr * batched_grad(w_c, xs[:, s], ys[:, s])
+        return (w.unsqueeze(0) - w_c) / lr
+
+    def clients_fold(w, xs, ys, residual, h):
+        """Stream the clients chunk by chunk -> ``(agg, ef_sum)``: the
+        coherent aggregate ``Σ_n h_n ǧ_n / N`` or the one-bit vote energy
+        ``Σ_n sign(ǧ_n (+ residual))``, and under one-bit EF the sum
+        ``Σ_n (ǧ_n + residual)`` (else None)."""
+        one_bit_ef = fl.one_bit and fl.error_feedback
+        acc = torch.zeros(d, dtype=torch.float32, device=dev)
+        ef_sum = (torch.zeros(d, dtype=torch.float32, device=dev)
+                  if one_bit_ef else None)
+        for c0 in range(0, n, chunk):
+            g = clients(w, xs[c0:c0 + chunk], ys[c0:c0 + chunk])
+            if fl.one_bit:
+                eff = g + residual.unsqueeze(0) if one_bit_ef else g
+                votes = quantize.one_bit(eff).contiguous()
+                acc = acc + ops.sign_mv(votes, mode=kernel_mode)[1]
+                if one_bit_ef:
+                    ef_sum = ef_sum + eff.sum(dim=0)
+            else:
+                acc = acc + h[c0:c0 + chunk] @ g
+        return (acc if fl.one_bit else acc / n), ef_sum
+
+    def server_phase(w, agg, ef_sum, g_prev, age, sel_count, residual,
+                     tstate, draws: Dict[str, Tensor]):
+        """Everything after the superposition: one-bit detection, the
+        fused FAIR-k pass, the EF residual and the model step (Eq. 9)."""
+        ef = fl.error_feedback
+        if fl.one_bit:
+            noise = (fl.channel.noise_std * draws["z"]
+                     if fl.channel.noise_std > 0.0 else None)
+            fresh_sign, energy = ops.sign_from_energy(agg, noise=noise,
+                                                      mode=kernel_mode)
+            # noiseless energies tie at even integers: break |energy| ties
+            # with the sub-unit index jitter (levels sit 2 apart)
+            score = energy.abs() + index_jitter(d, device=dev)
+            g_t, age_next, stats = engine.select_and_merge(
+                score, g_prev, age, fresh=fresh_sign, tstate=tstate)
+            sel_mask = (age_next == 0.0).to(torch.float32)
+            if ef:
+                # unsent mass of the mean effective gradient
+                residual = (ef_sum / n) * (1.0 - sel_mask)
+        else:
+            g_t, age_next, stats = engine.select_and_merge(
+                agg, g_prev, age, noise=draws.get("z"), tstate=tstate,
+                residual=residual if ef else None)
+            sel_mask = (age_next == 0.0).to(torch.float32)
+            if ef:
+                residual = stats["residual"]
+        w_next = w - fl.global_lr * g_t                          # Eq. (9)
+        sel_count = sel_count + sel_mask
+        metrics = {"mean_aou": age_next.mean(), "max_aou": age_next.max(),
+                   "km_frac": torch.tensor(frac_static, device=dev),
+                   "n_selected": stats["n_selected"]}
+        return (w_next, g_t, age_next, sel_count, residual, sel_mask,
+                stats["tstate"], None, metrics)
+
+    def fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate,
+                 draws: Dict[str, Tensor]):
+        agg, ef_sum = clients_fold(w, xs, ys, residual, draws.get("h"))
+        return server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+                            residual, tstate, draws)
+
+    fl_round.server_phase = server_phase
+    return fl_round
+
+
+def init_server(init_params: Any, fl: Optional[FLConfig] = None,
+                device: DeviceLike = None
+                ) -> Tuple[ServerState, Callable]:
+    """Flat server state for a parameter tree -> (state, unravel)."""
+    dev = resolve_device(device)
+    params = {key: _to(v, dev) for key, v in init_params.items()}
+    flat, unravel = ravel_params(params)
+    d = flat.shape[0]
+
+    def zeros():
+        return torch.zeros(d, dtype=torch.float32, device=dev)
+
+    state = ServerState(w=flat.to(torch.float32), g=zeros(), age=zeros(),
+                        sel_count=zeros(), residual=zeros(),
+                        theta=packing.init_threshold_state(dev), ctrl=None)
+    return state, unravel
+
+
+def _to(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return torch.as_tensor(tree, dtype=torch.float32, device=dev)
+
+
+def draw_round(gen: torch.Generator, fl: FLConfig, d: int,
+               device: torch.device) -> Dict[str, Tensor]:
+    """One round's random numbers from ``gen``: ``h`` (N,) fading on the
+    coherent uplink, ``z`` (d,) standard-normal channel noise."""
+    draws = {}
+    if not fl.one_bit:
+        draws["h"] = oac.sample_fading(gen, fl.n_clients, fl.channel, device)
+    draws["z"] = torch.randn(d, generator=gen, dtype=torch.float32,
+                             device=device)
+    return draws
+
+
+def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
+          sample_round: Callable[[int], Tuple[np.ndarray, np.ndarray]],
+          eval_fn: Optional[Callable] = None, eval_every: int = 20,
+          verbose: bool = False, device: DeviceLike = None,
+          kernel_mode: Optional[str] = None) -> Dict[str, Any]:
+    """Run ``fl.rounds`` communication rounds.
+
+    ``loss_fn(params, x, y) -> scalar``; ``sample_round(t) -> (xs, ys)``
+    numpy client batches (N, H, B, ...); ``eval_fn(params) -> dict`` of
+    metrics (e.g. ``acc``, ``loss``).  Returns a history dict: the eval
+    curve, per-round mean/max AoU, ``n_selected`` and ``round_ms`` (CUDA
+    events on the card, the host clock on the CPU), the final parameters
+    and the final ``ServerState``."""
+    dev = resolve_device(device)
+    state, unravel = init_server(init_params, fl, dev)
+    d = state.w.shape[0]
+    fl_step = make_fl_step(fl, unravel, loss_fn, d, dev, kernel_mode)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(fl.seed)
+    history: Dict[str, Any] = {"round": [], "acc": [], "loss": [],
+                               "k": fl.budgets(d)[0], "d": d}
+    w, g, age, sel_count = state.w, state.g, state.age, state.sel_count
+    residual, tstate = state.residual, state.theta
+    per_round = {"mean_aou": [], "max_aou": [], "km_frac": [],
+                 "n_selected": []}
+    cuda = dev.type == "cuda"
+    marks = []
+
+    def mark():
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+
+    for t in range(fl.rounds):
+        xs, ys = sample_round(t)
+        xs = torch.as_tensor(np.asarray(xs), device=dev)
+        ys = torch.as_tensor(np.asarray(ys), device=dev)
+        draws = draw_round(gen, fl, d, dev)
+        mark()
+        (w, g, age, sel_count, residual, _, tstate, _, rm) = fl_step(
+            w, g, age, sel_count, xs, ys, residual, tstate, draws)
+        mark()
+        for key in per_round:
+            per_round[key].append(rm[key])
+        if eval_fn is not None and ((t + 1) % eval_every == 0 or t == 0
+                                    or t == fl.rounds - 1):
+            metrics = eval_fn(unravel(w))
+            history["round"].append(t + 1)
+            history["acc"].append(float(metrics.get("acc", np.nan)))
+            history["loss"].append(float(metrics.get("loss", np.nan)))
+            if verbose:
+                print(f"  round {t+1:4d}  acc={history['acc'][-1]:.4f}  "
+                      f"meanAoU={float(rm['mean_aou']):.2f}", flush=True)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        history["round_ms"] = [marks[i].elapsed_time(marks[i + 1])
+                               for i in range(0, len(marks), 2)]
+    else:
+        history["round_ms"] = [1e3 * (marks[i + 1] - marks[i])
+                               for i in range(0, len(marks), 2)]
+    for key, vals in per_round.items():
+        history[key] = (torch.stack([v.reshape(()) for v in vals])
+                        .cpu().tolist() if vals else [])
+    history["sel_count"] = sel_count.cpu().numpy()
+    history["final_age"] = age.cpu().numpy()
+    history["params"] = unravel(w)
+    history["state"] = ServerState(w=w, g=g, age=age, sel_count=sel_count,
+                                   residual=residual, theta=tstate,
+                                   round=fl.rounds)
+    return history

@@ -1,0 +1,118 @@
+"""Dispatchers for the port's kernels, mirroring ``repro.kernels.ops``.
+
+``mode``: ``None`` launches the CUDA kernel on a CUDA tensor and uses the
+plain PyTorch version (``kernels.ref``) on a CPU tensor; ``"kernel"``
+launches the kernel and raises on a CPU tensor; ``"plain"`` runs the
+plain version on any device (the tests and ``chip_smoke.py`` compare the
+two with it).  Nothing falls back: a kernel that fails to build or launch
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels import fairk_update as fk
+from repro_torch.kernels import ref
+from repro_torch.kernels import sign_mv as smv
+
+Tensor = torch.Tensor
+
+MODES = (None, "kernel", "plain")
+
+# how many fused FAIR-k server passes were dispatched (kernel or plain)
+FAIRK_UPDATE_CALLS = 0
+
+
+def resolve_mode(mode: Optional[str], t: Tensor) -> str:
+    """``"kernel"`` or ``"plain"`` for a tensor, per the rules above."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode is None:
+        return "kernel" if t.is_cuda else "plain"
+    if mode == "kernel" and not t.is_cuda:
+        raise ValueError(f"mode='kernel' needs CUDA tensors, got a tensor "
+                         f"on {t.device}")
+    return mode
+
+
+def _f32(t: Optional[Tensor]) -> Optional[Tensor]:
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+def _thetas(theta_m, theta_a, device) -> Tensor:
+    return torch.stack([
+        torch.as_tensor(theta_m, dtype=torch.float32, device=device).reshape(()),
+        torch.as_tensor(theta_a, dtype=torch.float32, device=device).reshape(()),
+    ])
+
+
+def sign_mv(votes: Tensor, noise: Optional[Tensor] = None,
+            mode: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """FSK majority vote over (N, k) one-bit values -> ``(signs, energy)``;
+    ``noise`` (k,) perturbs the superposed energy before the sign."""
+    if resolve_mode(mode, votes) == "plain":
+        return ref.sign_mv_ref(votes, noise)
+    return smv.sign_mv_cuda(_f32(votes), _f32(noise))
+
+
+def sign_from_energy(energy: Tensor, noise: Optional[Tensor] = None,
+                     mode: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """Majority stage for a pre-reduced (k,) vote-energy row ->
+    ``(signs, energy')``."""
+    if resolve_mode(mode, energy) == "plain":
+        return ref.sign_from_energy_ref(energy, noise)
+    return smv.sign_from_energy_cuda(_f32(energy), _f32(noise))
+
+
+def fairk_ef_update(g: Tensor, g_prev: Tensor, age: Tensor, theta_m,
+                    theta_a, residual: Optional[Tensor] = None,
+                    fresh: Optional[Tensor] = None,
+                    mode: Optional[str] = None, sanitize: bool = False
+                    ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Fused FAIR-k server pass, optionally with the residual
+    (error-feedback) stage and decoupled ``fresh`` values:
+    ``(g_t, age', residual' | None)``."""
+    global FAIRK_UPDATE_CALLS
+    FAIRK_UPDATE_CALLS += 1
+    packing.G_READS += 1
+    thetas = _thetas(theta_m, theta_a, g.device)
+    if resolve_mode(mode, g) == "plain":
+        return ref.fairk_ef_update_ref(g, g_prev, age, thetas[0], thetas[1],
+                                       residual=residual, fresh=fresh,
+                                       sanitize=sanitize)
+    g_t, age_out, res_out, _ = fk.fairk_update_cuda(
+        _f32(g), _f32(g_prev), _f32(age), thetas, residual=_f32(residual),
+        fresh=_f32(fresh), stats_stride=0, sanitize=sanitize)
+    return g_t, age_out, res_out
+
+
+def fairk_stats_update(g: Tensor, g_prev: Tensor, age: Tensor, theta_m,
+                       theta_a, residual: Optional[Tensor] = None,
+                       fresh: Optional[Tensor] = None,
+                       mode: Optional[str] = None, sanitize: bool = False
+                       ) -> Tuple[Tensor, Tensor, Optional[Tensor],
+                                  Dict[str, Tensor]]:
+    """``fairk_ef_update`` that also returns the selection statistics from
+    the same pass: ``n_sel``, ``n_sel_m`` and the strided ``mag_hist`` /
+    ``age_hist`` (sample stride ``packing.hist_stride(d)``)."""
+    global FAIRK_UPDATE_CALLS
+    FAIRK_UPDATE_CALLS += 1
+    packing.G_READS += 1
+    thetas = _thetas(theta_m, theta_a, g.device)
+    stride = packing.hist_stride(g.shape[0])
+    if resolve_mode(mode, g) == "plain":
+        return ref.fairk_stats_update_ref(
+            g, g_prev, age, thetas[0], thetas[1], residual=residual,
+            fresh=fresh, stats_stride=stride, sanitize=sanitize)
+    g_t, age_out, res_out, acc = fk.fairk_update_cuda(
+        _f32(g), _f32(g_prev), _f32(age), thetas, residual=_f32(residual),
+        fresh=_f32(fresh), stats_stride=stride, sanitize=sanitize)
+    vec = acc.to(torch.float32)
+    stats = {"n_sel": vec[fk.STATS_N_SEL], "n_sel_m": vec[fk.STATS_N_SEL_M],
+             "mag_hist": vec[fk.STATS_MAG_OFF:fk.STATS_AGE_OFF],
+             "age_hist": vec[fk.STATS_AGE_OFF:fk.STATS_SIZE]}
+    return g_t, age_out, res_out, stats

@@ -1,0 +1,138 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes what its CUDA kernel computes, with ordinary
+tensor operations, on any device.  The dispatchers in ``kernels.ops`` use
+them for tensors on the CPU; the tests and ``chip_smoke.py`` hold the
+kernels against them on the card.  They mirror ``repro.kernels.ref``
+line for line.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import packing
+
+Tensor = torch.Tensor
+
+KNUTH = 2654435761
+
+
+def knuth_jitter(idx: Tensor) -> Tensor:
+    """Per-coordinate jitter in [0, 1) from the global index: the uint32
+    product ``idx * 2654435761`` (wrapping) mod 2^24, times 2^-24.  The low
+    24 bits of a product depend only on the low 24 bits of its factors, so
+    int64 arithmetic on those gives the wrapped uint32 result exactly."""
+    u = idx.to(torch.int64) & 0xFFFFFFFF
+    h = ((u & 0xFFFFFF) * (KNUTH & 0xFFFFFF)) & 0xFFFFFF
+    return h.to(torch.float32) / float(1 << 24)
+
+
+def _hist_counts(bins: Tensor, weight: Tensor, n_bins: int) -> Tensor:
+    """Exact integer counts of f32 bin indices where ``weight`` holds; NaN
+    bins fall in no bin.  Scatter of int64 ones: no host sync."""
+    take = weight & ~torch.isnan(bins)
+    idx = torch.where(take, bins, torch.full_like(bins, float(n_bins)))
+    idx = idx.to(torch.int64)
+    counts = torch.zeros(n_bins + 1, dtype=torch.int64, device=bins.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
+    return counts[:n_bins].to(torch.float32)
+
+
+def strided_hists_ref(score: Tensor, age_next: Tensor, valid: Tensor,
+                      stride: int) -> Tuple[Tensor, Tensor]:
+    """(mag_hist, age_hist) over the global ``[::stride]`` sample."""
+    w = valid[::stride]
+    return (_hist_counts(packing.mag_bin(score[::stride].abs()), w,
+                         packing.STATS_MAG_BINS),
+            _hist_counts(packing.age_bin(age_next[::stride]), w,
+                         packing.STATS_AGE_BINS))
+
+
+def sign_from_energy_ref(energy: Tensor, noise: Optional[Tensor] = None
+                         ) -> Tuple[Tensor, Tensor]:
+    """Majority stage for a pre-reduced (k,) vote-energy row:
+    ``s = energy (+ noise)`` -> ``(s >= 0 ? +1 : -1, s)``."""
+    s = energy
+    if noise is not None:
+        s = s + noise.to(s.dtype)
+    signs = torch.where(s >= 0, 1.0, -1.0).to(energy.dtype)
+    return signs, s
+
+
+def sign_mv_ref(votes: Tensor, noise: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
+    """FSK majority vote over (N, k) one-bit votes -> (signs, energy).
+    ``v >= 0`` votes +1 (so ±0.0 count +1), NaN votes -1."""
+    s = torch.where(votes >= 0, 1.0, -1.0).to(torch.float32).sum(dim=0)
+    return sign_from_energy_ref(s, noise)
+
+
+def _fairk_core(g, g_prev, age, theta_m, theta_a, residual, fresh,
+                sanitize):
+    """Shared elementwise body: (g_t, age', res' | None, score, ok,
+    mask, mask_m)."""
+    g32 = g.to(torch.float32)
+    age32 = age.to(torch.float32)
+    res32 = residual.to(torch.float32) if residual is not None else None
+    score = g32 + res32 if residual is not None else g32
+    jitter = knuth_jitter(torch.arange(g.shape[0], device=g.device))
+    valid = age32 >= 0.0
+    if sanitize:
+        fin = torch.isfinite(score)
+        ok = valid & fin
+        score = torch.where(fin, score, torch.zeros_like(score))
+    else:
+        ok = valid
+    mask_m = ok & (score.abs() >= theta_m)
+    mask = mask_m | (ok & (age32 + jitter >= theta_a) & ~mask_m)
+    maskf = mask.to(torch.float32)
+    keep = 1.0 - maskf
+    sent = fresh.to(torch.float32) if fresh is not None else score
+    if sanitize and fresh is not None:
+        sent = torch.where(torch.isfinite(sent), sent,
+                           torch.zeros_like(sent))
+    g_t = maskf * sent + keep * g_prev.to(torch.float32)
+    age_next = torch.where(
+        valid, torch.clamp((age32 + 1.0) * keep, max=packing.AGE_CAP),
+        age32)
+    res_next = (torch.where(ok, score - maskf * sent, res32)
+                if residual is not None else None)
+    return g_t, age_next, res_next, score, ok, mask, mask_m
+
+
+def fairk_ef_update_ref(g: Tensor, g_prev: Tensor, age: Tensor,
+                        theta_m, theta_a, residual: Optional[Tensor] = None,
+                        fresh: Optional[Tensor] = None,
+                        sanitize: bool = False
+                        ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """The fused FAIR-k server pass: ``score = g (+ residual)``; two-stage
+    mask (|score| >= θ_M, else age + jitter >= θ_A; pads never); merge
+    ``g_t = m·sent + (1−m)·g_prev`` with ``sent = fresh or score``; age
+    ``min((age+1)(1−m), AGE_CAP)`` with pads passed through; residual
+    ``ok ? score − m·sent : residual``.  ``sanitize`` keeps non-finite
+    scores out of both stages and zeroes them (and non-finite ``fresh``)."""
+    g_t, age_next, res_next, *_ = _fairk_core(
+        g, g_prev, age, theta_m, theta_a, residual, fresh, sanitize)
+    return g_t, age_next, res_next
+
+
+def fairk_stats_update_ref(g: Tensor, g_prev: Tensor, age: Tensor,
+                           theta_m, theta_a,
+                           residual: Optional[Tensor] = None,
+                           fresh: Optional[Tensor] = None,
+                           stats_stride: int = 1, sanitize: bool = False
+                           ) -> Tuple[Tensor, Tensor, Optional[Tensor],
+                                      Dict[str, Tensor]]:
+    """``fairk_ef_update_ref`` plus the statistics: exact counts ``n_sel``
+    and ``n_sel_m`` and the ``mag_hist`` (of |score|) / ``age_hist`` (of
+    the post-update age) over the strided sample, weighted by ``ok``."""
+    g_t, age_next, res_next, score, ok, mask, mask_m = _fairk_core(
+        g, g_prev, age, theta_m, theta_a, residual, fresh, sanitize)
+    mag_hist, age_hist = strided_hists_ref(score, age_next, ok, stats_stride)
+    stats = {"n_sel": mask.sum().to(torch.float32),
+             "n_sel_m": mask_m.sum().to(torch.float32),
+             "mag_hist": mag_hist, "age_hist": age_hist}
+    return g_t, age_next, res_next, stats

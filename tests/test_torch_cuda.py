@@ -1,0 +1,136 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card and carries the ``gpu`` marker; the
+``cuda`` fixture decides at run time whether one is present and skips
+otherwise.  Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Exactness as in ``chip_smoke.py``: ``g_t`` and ``residual'`` bit for bit,
+ages, counts, histograms, signs and energies exactly.  Imports neither JAX
+nor the JAX package, so it runs where only PyTorch is installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fairk_update, ops, sign_mv
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _same(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(nan_a, nan_b)
+    if a.dtype == torch.float32:
+        assert torch.equal(a[~nan_a].view(torch.int32),
+                           b[~nan_b].view(torch.int32))
+    else:
+        assert torch.equal(a, b)
+
+
+def _inputs(d, seed, dev, nonfinite=False):
+    rng = np.random.default_rng(seed)
+    g = (rng.standard_t(3, size=d) * 0.1).astype(np.float32)
+    g[rng.choice(d, max(1, d // 200), replace=False)] = -0.0
+    age = rng.integers(0, 131, size=d).astype(np.float32)
+    if d > 600:
+        age[300:341] = -1.0
+    age[-3:] = -1.0
+    fresh = np.where(rng.random(d) < 0.5, 1.0, -1.0).astype(np.float32)
+    if nonfinite:
+        pos = rng.choice(d, min(d, 3 * max(1, d // 300)), replace=False)
+        g[pos[0::3]] = np.nan
+        g[pos[1::3]] = np.inf
+        g[pos[2::3]] = -np.inf
+        fresh[rng.choice(d, max(1, d // 500), replace=False)] = np.nan
+    to = lambda a: torch.as_tensor(a, device=dev)
+    return {"g": to(g), "g_prev": to(rng.normal(size=d).astype(np.float32)),
+            "age": to(age),
+            "res": to((rng.normal(size=d) * 0.05).astype(np.float32)),
+            "fresh": to(fresh),
+            "tm": float(np.quantile(np.abs(np.nan_to_num(g, posinf=0.0,
+                                                         neginf=0.0)), 0.9)),
+            "ta": 60.5}
+
+
+@pytest.mark.parametrize("d", [1, 255, 5000, 109_210, 1_000_003])
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("res,fresh,sanitize", [
+    (False, False, False), (False, True, False), (True, False, False),
+    (True, True, True)])
+def test_fairk_kernel_matches_plain(cuda, d, stats, res, fresh, sanitize):
+    x = _inputs(d, seed=d, dev=cuda, nonfinite=sanitize)
+    fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+    for tm, ta in ((0.0, 0.0), (x["tm"], x["ta"]), (float("inf"), x["ta"])):
+        kw = dict(residual=x["res"] if res else None,
+                  fresh=x["fresh"] if fresh else None, sanitize=sanitize)
+        k = fn(x["g"], x["g_prev"], x["age"], tm, ta, mode="kernel", **kw)
+        p = fn(x["g"], x["g_prev"], x["age"], tm, ta, mode="plain", **kw)
+        _same(k[0], p[0])
+        _same(k[1], p[1])
+        if res:
+            _same(k[2], p[2])
+        if stats:
+            for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+                _same(k[3][key], p[3][key])
+
+
+@pytest.mark.parametrize("n,k", [(1, 7), (10, 109_210), (50, 109_210),
+                                 (3, 1_000_003)])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_sign_kernels_match_plain(cuda, n, k, noisy):
+    rng = np.random.default_rng(n + k)
+    v = np.sign(rng.normal(size=(n, k))).astype(np.float32)
+    v[rng.random((n, k)) < 0.05] = 0.0
+    v[rng.random((n, k)) < 0.05] = -0.0
+    votes = torch.as_tensor(v, device=cuda)
+    noise = (torch.as_tensor(rng.normal(size=k).astype(np.float32),
+                             device=cuda) if noisy else None)
+    for a, b in zip(ops.sign_mv(votes, noise, mode="kernel"),
+                    ops.sign_mv(votes, noise, mode="plain")):
+        _same(a, b)
+    energy = torch.as_tensor((2.0 * rng.integers(-n, n + 1, size=k)
+                              ).astype(np.float32), device=cuda)
+    for a, b in zip(ops.sign_from_energy(energy, noise, mode="kernel"),
+                    ops.sign_from_energy(energy, noise, mode="plain")):
+        _same(a, b)
+
+
+def test_dispatch_launches_on_cuda_and_counts(cuda):
+    x = _inputs(4096, seed=1, dev=cuda)
+    before = (fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
+              sign_mv.SIGN_FROM_ENERGY_LAUNCHES)
+    ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], 0.1, 3.0)
+    ops.sign_mv(x["fresh"][None])
+    ops.sign_from_energy(x["g"])
+    ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], 0.1, 3.0,
+                           mode="plain")
+    torch.cuda.synchronize()
+    after = (fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
+             sign_mv.SIGN_FROM_ENERGY_LAUNCHES)
+    assert after == tuple(b + 1 for b in before)
+
+
+def test_wrappers_check_their_operands(cuda):
+    x = _inputs(64, seed=2, dev=cuda)
+    thetas = torch.zeros(2, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fairk_update.fairk_update_cuda(x["g"].double(), x["g_prev"],
+                                       x["age"], thetas)
+    with pytest.raises(ValueError, match="shape"):
+        fairk_update.fairk_update_cuda(x["g"], x["g_prev"][:10], x["age"],
+                                       thetas)
+    with pytest.raises(ValueError, match="contiguous"):
+        sign_mv.sign_mv_cuda(torch.zeros(8, 4, device=cuda).t())

@@ -1,0 +1,224 @@
+"""The port's FL round (the slice as a whole) against the JAX trainer on a
+narrow prototype CNN (16x16x1 input, widths (4, 6, 8), fc 16, 10 classes),
+N = 4 clients in chunks of 2, H = 2, B = 3, three rounds each of packed
+coherent, packed one-bit and packed + error feedback.
+
+Both sides take the same draws: the JAX trainer's fading and noise from
+its named key ladder, handed to the port as tensors.
+
+* The server phase, fed JAX's own aggregate (recorded inside the compiled
+  JAX round), gives exactly JAX's ages.
+* Whole rounds (each side's own clients): ``w`` within atol 1e-5, ages
+  equal on at least 99.9% of the coordinates (a float32 gradient summed in
+  another order can move a coordinate across a threshold).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.flatten_util import ravel_pytree
+from torchutil import round_draws, to_np, to_torch
+
+from repro.core import engine as jax_engine_mod
+from repro.core import oac as jax_oac
+from repro.data import partition as jax_partition
+from repro.data import synthetic as jax_synthetic
+from repro.fl import trainer as jax_trainer
+from repro.kernels import ops as jax_ops
+from repro.models import cnn as jax_cnn
+from repro_torch.core import oac
+from repro_torch.fl import trainer
+from repro_torch.models import cnn
+
+ROUNDS = 3
+
+
+def _configs():
+    base = dict(n_clients=4, local_steps=2, batch_size=3, local_lr=0.05,
+                global_lr=0.05, rounds=ROUNDS, backend="packed",
+                client_chunk=2, compression_ratio=0.2, seed=0)
+    coh = dict(fading="rayleigh", mean=1.0, noise_std=0.1)
+    ob = dict(fading="none", mean=1.0, noise_std=2.0)
+    return {
+        "coherent": (dict(base, channel=coh), {}),
+        "one_bit": (dict(base, channel=ob, local_lr=0.003, global_lr=0.003),
+                    dict(one_bit=True)),
+        "ef": (dict(base, channel=coh), dict(error_feedback=True)),
+    }
+
+
+def _pair(name):
+    kw, extra = _configs()[name]
+    jfl = jax_trainer.FLConfig(
+        **{**kw, "channel": jax_oac.ChannelConfig(**kw["channel"])}, **extra)
+    tfl = trainer.FLConfig(
+        **{**kw, "channel": oac.ChannelConfig(**kw["channel"])}, **extra)
+    return jfl, tfl
+
+
+@pytest.fixture(scope="module")
+def task():
+    spec = jax_synthetic.DatasetSpec("t", (16, 16, 1), 10, 400, 50,
+                                     sparsity=0.1)
+    (xtr, ytr), _ = jax_synthetic.make_dataset(spec, seed=0)
+    parts = jax_partition.dirichlet_partition(ytr, 4, 0.3, seed=0)
+    params = jax_cnn.init_prototype_cnn(jax.random.PRNGKey(1), (16, 16, 1),
+                                        10, (4, 6, 8), 16)
+    batches = [jax_partition.client_batches(xtr, ytr, parts, 3, 2, seed=t)
+               for t in range(ROUNDS)]
+    return params, batches
+
+
+def _jax_loss(p, x, y):
+    return jax_cnn.softmax_xent(jax_cnn.prototype_cnn(p, x), y)
+
+
+def _torch_loss(p, x, y):
+    return cnn.softmax_xent(cnn.prototype_cnn(p, x), y)
+
+
+def _run_jax(jfl, params, batches, capture=False):
+    """The JAX trainer's loop; per round the state after it, the draws and
+    (``capture``) the server-phase inputs recorded from inside the compiled
+    round with ``jax.debug.callback``."""
+    state, unravel = jax_trainer.init_server(params, jfl)
+    d = state.w.shape[0]
+    step = jax_trainer.make_fl_step(jfl, unravel, _jax_loss, d)
+    key = jax.random.PRNGKey(jfl.seed)
+    carry = (state.w, state.g, state.age, state.sel_count, state.residual,
+             state.theta, state.ctrl)
+    out = []
+    captured = {}
+    orig_sm = jax_engine_mod.SelectionEngine.select_and_merge
+    orig_sfe = jax_ops.sign_from_energy
+
+    def record(name):
+        return lambda v: captured.__setitem__(name, np.asarray(v))
+
+    def spy_sm(self, g, *a, **kw):
+        jax.debug.callback(record("score"), g)
+        return orig_sm(self, g, *a, **kw)
+
+    def spy_sfe(energy, *a, **kw):
+        jax.debug.callback(record("energy"), energy)
+        return orig_sfe(energy, *a, **kw)
+
+    if capture:
+        jax_engine_mod.SelectionEngine.select_and_merge = spy_sm
+        jax_ops.sign_from_energy = spy_sfe
+    try:
+        for t in range(ROUNDS):
+            key, sub = jax.random.split(key)
+            draws = round_draws(sub, jfl.n_clients, d, jfl.channel)
+            xs, ys = batches[t]
+            w, g, age, sc, res, ts, cs = carry
+            res_out = step(sub, w, g, age, sc, jnp.asarray(xs),
+                           jnp.asarray(ys), res, ts, cs)
+            jax.effects_barrier()
+            (w2, g2, age2, sc2, res2, _, ts2, cs2, _) = res_out
+            out.append({"before": carry,
+                        "after": (w2, g2, age2, sc2, res2, ts2),
+                        "draws": draws, "captured": dict(captured)})
+            carry = (w2, g2, age2, sc2, res2, ts2, cs2)
+    finally:
+        jax_engine_mod.SelectionEngine.select_and_merge = orig_sm
+        jax_ops.sign_from_energy = orig_sfe
+    return out, d
+
+
+def _torch_tstate(ts):
+    return {k: to_torch(v) for k, v in ts.items()}
+
+
+@pytest.mark.parametrize("name", ["coherent", "one_bit", "ef"])
+def test_server_phase_on_jax_aggregate_gives_exact_ages(task, name):
+    params, batches = task
+    jfl, tfl = _pair(name)
+    jax_rounds, d = _run_jax(jfl, params, batches, capture=True)
+    _, unravel = cnn.ravel_params(cnn.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params)))
+    step = trainer.make_fl_step(tfl, unravel, _torch_loss, d, device="cpu")
+    for t, rnd in enumerate(jax_rounds):
+        w, g, age, sc, res, ts, _ = rnd["before"]
+        agg = (rnd["captured"]["energy"] if tfl.one_bit
+               else rnd["captured"]["score"])
+        draws = {k: to_torch(v) for k, v in rnd["draws"].items()}
+        out = step.server_phase(to_torch(w), to_torch(agg), None,
+                                to_torch(g), to_torch(age), to_torch(sc),
+                                to_torch(res), _torch_tstate(ts), draws)
+        w2, g2, age2, sc2, res2, ts2 = rnd["after"]
+        np.testing.assert_array_equal(to_np(out[2]), np.asarray(age2),
+                                      err_msg=f"round {t} ages")
+        np.testing.assert_array_equal(to_np(out[3]), np.asarray(sc2))
+        np.testing.assert_allclose(to_np(out[1]), np.asarray(g2), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(to_np(out[0]), np.asarray(w2), rtol=1e-6,
+                                   atol=1e-7)
+        if tfl.error_feedback:
+            np.testing.assert_allclose(to_np(out[4]), np.asarray(res2),
+                                       rtol=1e-6, atol=1e-7)
+        for key in ("theta_m", "theta_a", "n_sel", "n_sel_m", "streak"):
+            np.testing.assert_allclose(to_np(out[6][key]),
+                                       np.asarray(ts2[key]), rtol=1e-6)
+        for key in ("mag_hist", "age_hist"):
+            np.testing.assert_array_equal(to_np(out[6][key]),
+                                          np.asarray(ts2[key]))
+        if t == 0:
+            assert float(out[8]["n_selected"]) == d       # full refresh
+
+
+@pytest.mark.parametrize("name", ["coherent", "one_bit", "ef"])
+def test_whole_rounds_track_the_jax_trainer(task, name):
+    params, batches = task
+    jfl, tfl = _pair(name)
+    jax_rounds, d = _run_jax(jfl, params, batches)
+    state, unravel = trainer.init_server(
+        cnn.params_from_numpy(jax.tree_util.tree_map(np.asarray, params)),
+        tfl, device="cpu")
+    np.testing.assert_array_equal(to_np(state.w),
+                                  np.asarray(ravel_pytree(params)[0]))
+    step = trainer.make_fl_step(tfl, unravel, _torch_loss, d, device="cpu")
+    w, g, age, sc = state.w, state.g, state.age, state.sel_count
+    res, ts = state.residual, state.theta
+    for t, rnd in enumerate(jax_rounds):
+        xs, ys = batches[t]
+        draws = {k: to_torch(v) for k, v in rnd["draws"].items()}
+        w, g, age, sc, res, _, ts, _, _ = step(
+            w, g, age, sc, to_torch(xs), to_torch(ys), res, ts, draws)
+        jw, _, jage, _, _, _ = rnd["after"]
+        np.testing.assert_allclose(to_np(w), np.asarray(jw), rtol=0,
+                                   atol=1e-5, err_msg=f"round {t} w")
+        agree = float((to_np(age) == np.asarray(jage)).mean())
+        assert agree >= 0.999, f"round {t}: ages agree on {agree:.5f}"
+
+
+def test_train_runs_and_reports(task):
+    params, batches = task
+    _, tfl = _pair("one_bit")
+    tfl = dataclasses.replace(tfl, error_feedback=True)
+    hist = trainer.train(
+        tfl, cnn.params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                          params)),
+        _torch_loss, lambda t: batches[t % ROUNDS], device="cpu")
+    assert hist["n_selected"][0] == hist["d"]
+    assert len(hist["round_ms"]) == ROUNDS
+    assert all(np.isfinite(hist["mean_aou"]))
+    assert hist["state"].w.device.type == "cpu"
+
+
+def test_unsupported_settings_raise():
+    _, tfl = _pair("coherent")
+    for change in (dict(backend="exact"), dict(backend="threshold"),
+                   dict(async_lag=1), dict(adaptive_km=True),
+                   dict(scan_rounds=4), dict(policy="randk"),
+                   dict(faults=object()), dict(watchdog=object()),
+                   dict(population=object()), dict(wireless=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trainer.make_fl_step(dataclasses.replace(tfl, **change),
+                                 lambda w: w, _torch_loss, 8, device="cpu")
+    with pytest.raises(ValueError, match="client_chunk"):
+        trainer.make_fl_step(dataclasses.replace(tfl, client_chunk=3),
+                             lambda w: w, _torch_loss, 8, device="cpu")

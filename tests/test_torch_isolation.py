@@ -1,0 +1,103 @@
+"""The port stands alone: every module imports with JAX and the JAX
+package blocked, and entry points refuse to run without a card unless the
+caller asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import device as device_mod
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_port_module_imports_without_jax():
+    mods = _port_modules()
+    assert "repro_torch.fl.trainer" in mods and len(mods) >= 15
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
+        "sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_source_imports_no_jax():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    assert "import jax" not in src and "from jax" not in src
+    assert "from repro." not in src and "import repro\n" not in src
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+    from repro_torch.core import packing
+    from repro_torch.fl import trainer
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fl = trainer.FLConfig(backend="packed", n_clients=2, client_chunk=1)
+    params = {"w": torch.zeros(3)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_mod.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_mod.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.init_server(params, fl)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.make_fl_step(fl, lambda w: w, None, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.train(fl, params, None, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fairk_ef_update(torch.zeros(3), torch.zeros(3), torch.zeros(3),
+                            0.0, 0.0, mode="kernel")
+    assert device_mod.resolve_device("cpu").type == "cpu"
+    state, _ = trainer.init_server(params, fl, device="cpu")
+    assert state.w.device.type == "cpu"
+    assert packing.init_threshold_state("cpu")["theta_m"].device.type == "cpu"
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import fairk_update, sign_mv
+    x = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fairk_update.fairk_update_cuda(x, x, x, torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        sign_mv.sign_mv_cuda(x[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        sign_mv.sign_from_energy_cuda(x)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is false" in out.stdout
+    assert '"ok": true' not in out.stdout

@@ -1,0 +1,219 @@
+"""The port's kernel functions (plain PyTorch versions, which the CUDA
+kernels are held to on the card) against the JAX package's kernels, run
+both through ``repro.kernels.ref`` and through the Pallas kernels in
+interpret mode.
+
+Exactness: ages, counts, histograms, signs and energies equal exactly;
+``g_t`` and ``residual'`` equal bit for bit (NaN where the reference has
+NaN).  One exception, counted: a magnitude sample within 1e-5 of a
+quarter-octave bin edge may land one bin apart if XLA's and torch's CPU
+``log2`` differ in the last place.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torchutil import (D_KERNEL, edge_samples, fairk_inputs, inject_nonfinite,
+                       theta_cases, to_np, to_torch)
+
+from repro.kernels import ops as jax_ops
+from repro_torch.core import packing
+from repro_torch.kernels import ops, ref
+
+VARIANTS = {
+    "base": dict(res=False, fresh=False, sanitize=False),
+    "fresh": dict(res=False, fresh=True, sanitize=False),
+    "res": dict(res=True, fresh=False, sanitize=False),
+    "res_fresh": dict(res=True, fresh=True, sanitize=False),
+    "sanitize": dict(res=False, fresh=False, sanitize=True),
+    "res_fresh_sanitize": dict(res=True, fresh=True, sanitize=True),
+}
+
+
+def _case(variant: str, seed: int):
+    v = VARIANTS[variant]
+    x = fairk_inputs(seed)
+    if v["sanitize"]:
+        x["g"] = inject_nonfinite(x["g"], seed + 1)
+        x["fresh"] = inject_nonfinite(x["fresh"], seed + 2, n=5)
+    return v, x
+
+
+def _same_floats(a, b):
+    """Equal bit for bit, except that any NaN matches any NaN."""
+    a, b = to_np(a), to_np(b)
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    np.testing.assert_array_equal(nan_a, nan_b)
+    np.testing.assert_array_equal(a[~nan_a].view(np.uint32),
+                                  b[~nan_b].view(np.uint32))
+
+
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_fairk_stats_update_matches_jax(variant, jax_mode):
+    v, x = _case(variant, seed=len(variant))
+    cases = theta_cases(x["g"], x["age"])
+    for tname, (tm, ta) in cases.items():
+        kw_np = {"residual": x["residual"] if v["res"] else None,
+                 "fresh": x["fresh"] if v["fresh"] else None}
+        j = jax_ops.fairk_stats_update(
+            jnp.asarray(x["g"]), jnp.asarray(x["g_prev"]),
+            jnp.asarray(x["age"]), tm, ta,
+            residual=None if kw_np["residual"] is None
+            else jnp.asarray(kw_np["residual"]),
+            fresh=None if kw_np["fresh"] is None
+            else jnp.asarray(kw_np["fresh"]),
+            mode=jax_mode, sanitize=v["sanitize"])
+        t = ops.fairk_stats_update(
+            to_torch(x["g"]), to_torch(x["g_prev"]), to_torch(x["age"]),
+            tm, ta,
+            residual=None if kw_np["residual"] is None
+            else to_torch(kw_np["residual"]),
+            fresh=None if kw_np["fresh"] is None
+            else to_torch(kw_np["fresh"]),
+            sanitize=v["sanitize"])
+        _same_floats(t[0], j[0])
+        np.testing.assert_array_equal(to_np(t[1]), to_np(j[1]),
+                                      err_msg=tname)
+        if v["res"]:
+            _same_floats(t[2], j[2])
+        else:
+            assert t[2] is None and j[2] is None
+        for key in ("n_sel", "n_sel_m", "age_hist"):
+            np.testing.assert_array_equal(to_np(t[3][key]),
+                                          to_np(j[3][key]),
+                                          err_msg=f"{tname} {key}")
+        # magnitude bins: exact unless a sample sits on a bin edge
+        score = x["g"] + (x["residual"] if v["res"] else 0.0)
+        ok = x["age"] >= 0
+        if v["sanitize"]:
+            ok = ok & np.isfinite(score)
+        n_edge = edge_samples(score, ok)
+        diff = np.abs(to_np(t[3]["mag_hist"]) - to_np(j[3]["mag_hist"]))
+        assert diff.sum() <= 2 * n_edge, (tname, diff.sum(), n_edge)
+        if tname == "zero":
+            assert float(t[3]["n_sel"]) == float(ok.sum())
+        if tname == "inf_both":
+            assert float(t[3]["n_sel"]) == 0.0
+
+
+@pytest.mark.parametrize("variant", ["base", "res", "res_fresh_sanitize"])
+def test_fairk_ef_update_matches_jax(variant):
+    v, x = _case(variant, seed=7)
+    tm, ta = theta_cases(x["g"], x["age"])["finite"]
+    res = x["residual"] if v["res"] else None
+    fresh = x["fresh"] if v["fresh"] else None
+    j = jax_ops.fairk_ef_update(
+        jnp.asarray(x["g"]), jnp.asarray(x["g_prev"]), jnp.asarray(x["age"]),
+        tm, ta, residual=None if res is None else jnp.asarray(res),
+        fresh=None if fresh is None else jnp.asarray(fresh),
+        mode="interpret", sanitize=v["sanitize"])
+    t = ops.fairk_ef_update(
+        to_torch(x["g"]), to_torch(x["g_prev"]), to_torch(x["age"]), tm, ta,
+        residual=None if res is None else to_torch(res),
+        fresh=None if fresh is None else to_torch(fresh),
+        sanitize=v["sanitize"])
+    _same_floats(t[0], j[0])
+    np.testing.assert_array_equal(to_np(t[1]), to_np(j[1]))
+    if v["res"]:
+        _same_floats(t[2], j[2])
+
+
+def test_pads_and_age_cap():
+    x = fairk_inputs(3)
+    g_t, age_next, _ = ref.fairk_ef_update_ref(
+        to_torch(x["g"]), to_torch(x["g_prev"]), to_torch(x["age"]),
+        torch.tensor(float("inf")), torch.tensor(float("inf")))
+    age_next = to_np(age_next)
+    pads = x["age"] < 0
+    np.testing.assert_array_equal(age_next[pads], -1.0)
+    assert age_next[~pads].max() == packing.AGE_CAP
+    np.testing.assert_array_equal(to_np(g_t), x["g_prev"])
+
+
+def test_knuth_jitter_matches_jax():
+    from repro.core.engine import jitter_from_ids as jax_jitter
+    from repro_torch.core.engine import jitter_from_ids
+    ids = np.concatenate([np.arange(0, 70000, 7),
+                          np.array([2**24 - 1, 2**24, 2**31 - 1, 2**31,
+                                    2**32 - 1])]).astype(np.int64)
+    np.testing.assert_array_equal(
+        to_np(jitter_from_ids(torch.as_tensor(ids))),
+        np.asarray(jax_jitter(jnp.asarray(ids.astype(np.uint32)))))
+
+
+def _votes(n: int, k: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, k)).astype(np.float32)
+    v[rng.random((n, k)) < 0.05] = 0.0
+    v[rng.random((n, k)) < 0.05] = -0.0
+    v[0, :7] = np.nan
+    return v
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+@pytest.mark.parametrize("n", [1, 4, 7])
+def test_sign_mv_matches_jax(n, jax_mode, noisy):
+    votes = _votes(n, D_KERNEL, seed=n)
+    if n % 2 == 0:
+        votes = np.where(np.isnan(votes), votes, np.sign(votes)
+                         ).astype(np.float32)
+    noise = (np.random.default_rng(1).normal(size=D_KERNEL).astype(np.float32)
+             if noisy else None)
+    k = D_KERNEL
+    jn = None if noise is None else jnp.asarray(noise[:k])
+    js, je = jax_ops.sign_mv(jnp.asarray(votes[:, :k]), noise=jn,
+                             mode=jax_mode)
+    ts, te = ops.sign_mv(to_torch(votes[:, :k]),
+                         noise=None if noise is None else to_torch(noise[:k]))
+    np.testing.assert_array_equal(to_np(ts), np.asarray(js))
+    np.testing.assert_array_equal(to_np(te), np.asarray(je))
+
+
+def test_sign_mv_signed_zero_votes_count_plus_one():
+    votes = torch.tensor([[0.0, -0.0, -1.0, float("nan")],
+                          [-0.0, -0.0, -1.0, 1.0]])
+    signs, energy = ops.sign_mv(votes)
+    np.testing.assert_array_equal(to_np(energy), [2.0, 2.0, -2.0, 0.0])
+    np.testing.assert_array_equal(to_np(signs), [1.0, 1.0, -1.0, 1.0])
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+def test_sign_from_energy_matches_jax(jax_mode, noisy):
+    rng = np.random.default_rng(5)
+    k = D_KERNEL
+    e = (2.0 * rng.integers(-5, 6, size=k)).astype(np.float32)
+    e[:5] = [0.0, -0.0, np.nan, np.inf, -np.inf]
+    noise = rng.normal(size=k).astype(np.float32) if noisy else None
+    js, je = jax_ops.sign_from_energy(
+        jnp.asarray(e), noise=None if noise is None else jnp.asarray(noise),
+        mode=jax_mode)
+    ts, te = ops.sign_from_energy(
+        to_torch(e), noise=None if noise is None else to_torch(noise))
+    np.testing.assert_array_equal(to_np(ts), np.asarray(js))
+    _same_floats(te, je)
+
+
+def test_kernel_mode_on_cpu_raises():
+    x = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.sign_from_energy(x, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fairk_stats_update(x, x, x, 0.0, 0.0, mode="kernel")
+    with pytest.raises(ValueError, match="mode"):
+        ops.sign_mv(x[None], mode="pallas")
+
+
+def test_counters_count_dispatches_not_cpu_launches():
+    from repro_torch.kernels import fairk_update, sign_mv
+    before = (ops.FAIRK_UPDATE_CALLS, packing.G_READS,
+              fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES)
+    x = torch.zeros(16)
+    ops.fairk_stats_update(x, x, x, 0.0, 0.0)
+    ops.sign_mv(x[None])
+    after = (ops.FAIRK_UPDATE_CALLS, packing.G_READS,
+             fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES)
+    assert after == (before[0] + 1, before[1] + 1, before[2], before[3])
