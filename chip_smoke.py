@@ -11,23 +11,39 @@ Phases (any failed check exits non-zero; no phase catches its own
 failure):
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name, count;
-2. build: the three kernels from ``src/repro_torch/kernels/csrc`` for
-   ``sm_90a``, with the build time and the ``-Xptxas -v`` report;
-3. kernels against their plain versions at the main path's shapes
-   (d = 109,210): ``g_t``/``residual'`` bit for bit, ages, counts,
-   histograms, signs and energies exactly; timed with CUDA events;
-4. the main path at full width: the FL round on the 109,210-parameter
+2. build: the five kernels' four sources from
+   ``src/repro_torch/kernels/csrc`` for ``sm_90a``, compiled in parallel,
+   with the build time and the ``-Xptxas -v`` report;
+3. kernels against their plain versions at the shapes their paths give
+   them (d = 109,210 and the exact one-bit row of k = 21,842; 2^24 for
+   ``aou_merge`` and ``block_topk``, ties included): merged values bit for
+   bit, ages, counts, histograms, signs, energies and top-k indices
+   exactly; timed with CUDA events;
+4. the packed path at full width: the FL round on the 109,210-parameter
    prototype CNN over 50 EMNIST-shaped synthetic clients — (a) 5 coherent
    rounds, (b) 5 one-bit rounds, (c) 3 coherent rounds with error
    feedback — with exact launch counts, finite weights and losses and the
    round-0 full refresh;
-5. the same rounds (2 each of (a) and (b)) with the kernels and with the
-   plain versions from one generator seed: identical ages, weights within
-   1e-6;
-6. a profile of 2 rounds each of (a) and (b): device time per round,
-   the device's busy share and the largest kernels (report only);
-7. summary: a ``{"kernels": [...]}`` line, the card line, and the last
-   line ``{"ok": true, "device": {...}}``.
+5. the exact path at the same width (the backend every paper figure
+   runs): FAIR-k coherent 3 rounds, each other policy 2 rounds, one-bit
+   3 rounds, coherent with error feedback 2 rounds — exact launch counts,
+   k coordinates refreshed every round, finite weights and losses;
+6. the exact engine path: 20 rounds of ``select_and_merge`` at
+   d = 109,210 with the kernel and with the plain versions — identical
+   outputs, 20 ``aou_merge`` launches;
+7. the two-stage top-k entry point (``ops.two_stage_topk``, d = 2^24,
+   k = d/100): one ``block_topk`` launch, equal to the stable-sort top-k;
+8. the same rounds (2 each of (a), (b) and exact one-bit) with the
+   kernels and with the plain versions from one generator seed: identical
+   ages and weights;
+9. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+   device time per round, the device's busy share and the largest kernels
+   (report only);
+10. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+    line ``{"ok": true, "device": {...}}``.
+
+Each path (4-7) runs with every launch count set to 0 just before it and
+read just after; a kernel that none of them launched fails the run.
 
 Imports neither JAX nor the JAX package.  Writes the full kernel timings to
 ``chiprun_out/chip_smoke.json``.
@@ -47,6 +63,11 @@ PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 D = 109_210                         # prototype CNN on 28x28x1, 26 classes
 N_CLIENTS, CHUNK, H, B = 50, 10, 5, 20
+K_ONE_BIT = 21_842                  # the exact one-bit row: rho 0.2 of D
+BIG = 2**24                         # aou_merge / block_topk at scale
+TOPK_CASES = ((4096, 16), (4096, 164), (1024, 8))   # (block_size, m)
+KERNELS = ("fairk_update", "sign_mv", "sign_from_energy", "aou_merge",
+           "block_topk")
 
 
 def fail(msg: str) -> None:
@@ -130,11 +151,11 @@ def _bound_ms(n_bytes: float, n_ops: float):
                                  else "operations")
 
 
-def _record(err, ms, n_bytes, bound, by):
+def _record(err, ms, n_bytes, bound, by, library_ms=None):
     return {"max_abs_err": err, "ms": ms["kernel"][0],
             "plain_ms": ms["plain"][0], "eager_ms": ms["kernel"][1],
             "plain_eager_ms": ms["plain"][1], "bound_ms": bound,
-            "bound_by": by, "bytes": n_bytes}
+            "bound_by": by, "bytes": n_bytes, "library_ms": library_ms}
 
 
 def kernel_phase(dev):
@@ -230,20 +251,33 @@ def kernel_phase(dev):
             n_bytes = 4 * n * D + 8 * D + (4 * D if noisy else 0)
             bound, by = _bound_ms(n_bytes, 2 * n * D)
             records[name] = _record(err, ms, n_bytes, bound, by)
+    # the exact one-bit fold's chunk of compacted votes (10, k)
+    v = rng.normal(size=(CHUNK, K_ONE_BIT)).astype(np.float32)
+    votes = torch.as_tensor((np.sign(v) + (v == 0)).astype(np.float32),
+                            device=dev)
+    name = f"sign_mv[{CHUNK}x{K_ONE_BIT}]"
+    err = max(_same(a, b, name) for a, b in zip(
+        ops.sign_mv(votes, mode="kernel"), ops.sign_mv(votes, mode="plain")))
+    ms = {m: _time_ms(lambda m=m: ops.sign_mv(votes, mode=m))
+          for m in ("kernel", "plain")}
+    n_bytes = 4 * CHUNK * K_ONE_BIT + 8 * K_ONE_BIT
+    records[name] = _record(err, ms, n_bytes,
+                            *_bound_ms(n_bytes, 2 * CHUNK * K_ONE_BIT))
     energy = vec(2.0 * rng.integers(-25, 26, size=D))
-    for noisy in (False, True):
-        nz = noise if noisy else None
-        name = f"sign_from_energy[{D}{'+noise' if noisy else ''}]"
-        ks, ke = ops.sign_from_energy(energy, nz, mode="kernel")
-        ps, pe = ops.sign_from_energy(energy, nz, mode="plain")
+    for noisy, width in ((False, D), (True, D), (True, K_ONE_BIT)):
+        e = energy[:width]
+        nz = noise[:width] if noisy else None
+        name = f"sign_from_energy[{width}{'+noise' if noisy else ''}]"
+        ks, ke = ops.sign_from_energy(e, nz, mode="kernel")
+        ps, pe = ops.sign_from_energy(e, nz, mode="plain")
         err = max(_same(ks, ps, f"{name} signs"),
                   _same(ke, pe, f"{name} energy"))
-        ms = {m: _time_ms(lambda m=m: ops.sign_from_energy(energy, nz,
-                                                           mode=m))
+        ms = {m: _time_ms(lambda m=m: ops.sign_from_energy(e, nz, mode=m))
               for m in ("kernel", "plain")}
-        n_bytes = 4 * D * (3 + (1 if noisy else 0))
-        bound, by = _bound_ms(n_bytes, 2 * D)
+        n_bytes = 4 * width * (3 + (1 if noisy else 0))
+        bound, by = _bound_ms(n_bytes, 2 * width)
         records[name] = _record(err, ms, n_bytes, bound, by)
+    merge_and_topk_checks(dev, rng, records)
     torch.cuda.synchronize()
     for name, rec in records.items():
         print(f"kernel {name}: exact match; device {rec['ms'] * 1e3:.2f} us "
@@ -255,8 +289,67 @@ def kernel_phase(dev):
     return records
 
 
+def merge_and_topk_checks(dev, rng, records):
+    """``aou_merge`` at d = 109,210 (ragged, NaN, signed zeros, ages past
+    the cap) and 2^24; ``block_topk`` at 2^24 for every (block_size, m) of
+    ``TOPK_CASES`` with injected ties, its library yardstick
+    ``torch.topk`` on the precomputed |x| (tie order unspecified, timed
+    only); ``two_stage_topk`` at k = d/100 against the stable-sort top-k."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    for d in (D, BIG):
+        g_new = rng.normal(size=d).astype(np.float32)
+        g_new[rng.random(d) < 0.02] = -0.0
+        g_new[:3] = [np.nan, np.inf, -np.inf]
+        age = rng.integers(0, 131, size=d).astype(np.float32)
+        age[3] = np.nan
+        mask = (rng.random(d) < 0.1).astype(np.float32)
+        args = [torch.as_tensor(a, device=dev) for a in (
+            g_new, rng.normal(size=d).astype(np.float32), age, mask)]
+        name = f"aou_merge[{d}]"
+        err = max(_same(a, b, name) for a, b in zip(
+            ops.aou_merge(*args, mode="kernel"),
+            ops.aou_merge(*args, mode="plain")))
+        ms = {m: _time_ms(lambda m=m: ops.aou_merge(*args, mode=m),
+                          blocks=50 if d == D else 10)
+              for m in ("kernel", "plain")}
+        n_bytes = 24 * d
+        records[name] = _record(err, ms, n_bytes, *_bound_ms(n_bytes, 7 * d))
+
+    x = rng.normal(size=BIG).astype(np.float32)
+    x[rng.random(BIG) < 0.01] = 1.25         # ties inside and across blocks
+    x[rng.random(BIG) < 0.01] = -1.25
+    x[rng.random(BIG) < 0.01] = 0.0
+    xt = torch.as_tensor(x, device=dev)
+    absx = xt.abs()
+    for bs, m in TOPK_CASES:
+        name = f"block_topk[{BIG}/{bs}x{m}]"
+        kv, ki = ops.block_topk(xt, bs, m, mode="kernel")
+        pv, pi = ops.block_topk(xt, bs, m, mode="plain")
+        err = max(_same(kv, pv, f"{name} values"),
+                  _same(ki, pi, f"{name} indices"))
+        ms = {mode: _time_ms(lambda mode=mode: ops.block_topk(xt, bs, m,
+                                                              mode=mode),
+                             blocks=10)
+              for mode in ("kernel", "plain")}
+        lib_ms = _time_ms(lambda: torch.topk(absx.view(-1, bs), m, dim=1),
+                          blocks=10)[0]
+        nb = BIG // bs
+        n_bytes = 4 * BIG + 8 * nb * m
+        records[name] = _record(err, ms, n_bytes,
+                                *_bound_ms(n_bytes, 2 * BIG), lib_ms)
+    k = BIG // 100
+    vals, idxs = ops.two_stage_topk(xt, k, mode="kernel")
+    ref_vals, ref_idx = torch.sort(absx, descending=True, stable=True)
+    _same(vals, ref_vals[:k], "two_stage_topk values")
+    check(bool(torch.equal(idxs.long(), ref_idx[:k])),
+          "two_stage_topk indices differ from the stable-sort top-k")
+
+
 # --------------------------------------------------------------------------
-# phases 4 and 5: the main path
+# phases 4 to 8: the paths
 # --------------------------------------------------------------------------
 
 def make_task(dev):
@@ -295,47 +388,66 @@ def make_task(dev):
 
 
 def run_configs():
+    """The packed path's runs (a)-(c) and the exact path's runs."""
     from repro_torch.core.oac import ChannelConfig
     from repro_torch.fl import FLConfig
     common = dict(n_clients=N_CLIENTS, local_steps=H, batch_size=B,
-                  backend="packed", client_chunk=CHUNK, seed=0)
+                  client_chunk=CHUNK, seed=0)
     coherent = dict(compression_ratio=0.1, local_lr=0.05, global_lr=0.05,
                     channel=ChannelConfig(fading="rayleigh", mean=1.0,
                                           noise_std=0.1), **common)
-    return {
-        "a_coherent": FLConfig(rounds=5, **coherent),
-        "b_one_bit": FLConfig(rounds=5, one_bit=True, compression_ratio=0.2,
-                              local_lr=0.003, global_lr=0.003,
-                              channel=ChannelConfig(fading="none", mean=1.0,
-                                                    noise_std=2.0),
-                              **common),
-        "c_coherent_ef": FLConfig(rounds=3, error_feedback=True, **coherent),
+    one_bit = dict(one_bit=True, compression_ratio=0.2, local_lr=0.003,
+                   global_lr=0.003,
+                   channel=ChannelConfig(fading="none", mean=1.0,
+                                         noise_std=2.0), **common)
+    packed = {
+        "a_coherent": FLConfig(rounds=5, backend="packed", **coherent),
+        "b_one_bit": FLConfig(rounds=5, backend="packed", **one_bit),
+        "c_coherent_ef": FLConfig(rounds=3, backend="packed",
+                                  error_feedback=True, **coherent),
     }
+    exact = {"exact_fairk": FLConfig(rounds=3, backend="exact", **coherent)}
+    for policy in ("topk", "roundrobin", "toprand", "agetopk", "randk"):
+        exact[f"exact_{policy}"] = FLConfig(rounds=2, backend="exact",
+                                            policy=policy, **coherent)
+    exact["exact_one_bit"] = FLConfig(rounds=3, backend="exact", **one_bit)
+    exact["exact_fairk_ef"] = FLConfig(rounds=2, backend="exact",
+                                       error_feedback=True, **coherent)
+    return packed, exact
 
 
 def reset_counters():
-    from repro_torch.kernels import fairk_update, sign_mv
+    from repro_torch.kernels import aou_merge, block_topk, fairk_update
+    from repro_torch.kernels import sign_mv
     fairk_update.LAUNCHES = 0
     sign_mv.SIGN_MV_LAUNCHES = 0
     sign_mv.SIGN_FROM_ENERGY_LAUNCHES = 0
+    aou_merge.LAUNCHES = 0
+    block_topk.LAUNCHES = 0
 
 
 def read_counters():
-    from repro_torch.kernels import fairk_update, sign_mv
+    from repro_torch.kernels import aou_merge, block_topk, fairk_update
+    from repro_torch.kernels import sign_mv
     return {"fairk_update": fairk_update.LAUNCHES,
             "sign_mv": sign_mv.SIGN_MV_LAUNCHES,
-            "sign_from_energy": sign_mv.SIGN_FROM_ENERGY_LAUNCHES}
+            "sign_from_energy": sign_mv.SIGN_FROM_ENERGY_LAUNCHES,
+            "aou_merge": aou_merge.LAUNCHES,
+            "block_topk": block_topk.LAUNCHES}
 
 
-def main_path_phase(dev, task):
+def fl_path_phase(dev, task, configs, path):
+    """Drive each run of ``configs`` through ``train`` with the counts set
+    to 0 before it and read after it; check the launch counts, the state
+    and the selection."""
     import math
     import torch
     from repro_torch.fl import train
 
     params0, loss_fn, eval_fn, sample_round = task
-    launches = {"fairk_update": 0, "sign_mv": 0, "sign_from_energy": 0}
+    launches = dict.fromkeys(KERNELS, 0)
     summary = {}
-    for name, fl in run_configs().items():
+    for name, fl in configs.items():
         reset_counters()
         t0 = time.perf_counter()
         hist = train(fl, params0, loss_fn, sample_round, eval_fn=eval_fn,
@@ -343,10 +455,12 @@ def main_path_phase(dev, task):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = read_counters()
-        rounds = fl.rounds
-        want = {"fairk_update": rounds,
-                "sign_mv": rounds * (N_CLIENTS // CHUNK) if fl.one_bit else 0,
-                "sign_from_energy": rounds if fl.one_bit else 0}
+        rounds, exact = fl.rounds, fl.backend == "exact"
+        want = dict.fromkeys(KERNELS, 0)
+        want["fairk_update"] = 0 if exact else rounds
+        if fl.one_bit:
+            want["sign_mv"] = rounds * (N_CLIENTS // CHUNK)
+            want["sign_from_energy"] = rounds
         check(got == want, f"{name}: launches {got}, expected {want}")
         for key in launches:
             launches[key] += got[key]
@@ -359,24 +473,109 @@ def main_path_phase(dev, task):
         check(bool(torch.isfinite(st.w).all()), f"{name}: non-finite w")
         check(all(math.isfinite(x) for x in hist["loss"]),
               f"{name}: non-finite loss {hist['loss']}")
-        n_sel = hist["n_selected"]
-        check(n_sel[0] == D, f"{name}: round 0 selected {n_sel[0]}, not {D}")
-        check(all(1 <= x <= D for x in n_sel[1:]),
-              f"{name}: selected counts {n_sel}")
-        print(f"main path {name}: {rounds} rounds, launches {got}, "
+        n_sel, k = hist["n_selected"], hist["k"]
+        if exact:
+            check(n_sel == [float(k)] * rounds,
+                  f"{name}: selected {n_sel}, not k = {k} every round")
+            check(float(st.sel_count.sum()) == rounds * k
+                  and int((st.age == 0.0).sum()) == k,
+                  f"{name}: participation counts or ages off the budget")
+        else:
+            check(n_sel[0] == D,
+                  f"{name}: round 0 selected {n_sel[0]}, not {D}")
+            check(all(1 <= x <= D for x in n_sel[1:]),
+                  f"{name}: selected counts {n_sel}")
+        print(f"{path} {name}: {rounds} rounds, launches {got}, "
               f"round ms {[round(x, 3) for x in hist['round_ms']]}, "
-              f"selected {n_sel}, k {hist['k']}, test loss "
+              f"selected {n_sel}, k {k}, test loss "
               f"{[round(x, 4) for x in hist['loss']]}, final test acc "
               f"{hist['acc'][-1]:.4f}, wall {wall:.2f} s", flush=True)
         summary[name] = {"round_ms": hist["round_ms"], "n_selected": n_sel,
-                         "k": hist["k"], "acc": hist["acc"],
-                         "loss": hist["loss"], "launches": got}
+                         "k": k, "acc": hist["acc"], "loss": hist["loss"],
+                         "launches": got}
     return launches, summary
 
 
+def engine_phase(dev):
+    """The exact engine's ``select_and_merge`` (FAIR-k, ρ 0.1, noise 0.1
+    over 50 clients, error feedback, fused statistics) for 20 rounds at
+    d = 109,210 on seeded N(0, 1) scores, with the kernel and with the
+    plain versions: identical outputs; 20 ``aou_merge`` launches."""
+    import torch
+    from repro_torch.core.engine import EngineConfig, SelectionEngine
+
+    rounds = 20
+    runs = {}
+    for mode in (None, "plain"):
+        eng = SelectionEngine(EngineConfig(
+            backend="exact", noise_std=0.1, n_clients=N_CLIENTS,
+            fused_stats=True, kernel_mode=mode), D)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        zeros = torch.zeros(D, device=dev)
+        g_prev, age, res = zeros, zeros, zeros
+        reset_counters()
+        for r in range(rounds):
+            if r == 1:                      # round 0 carries the warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            g = torch.randn(D, generator=gen, device=dev)
+            noise = torch.randn(D, generator=gen, device=dev)
+            g_prev, age, stats = eng.select_and_merge(
+                g, g_prev, age, noise=noise, residual=res)
+            res = stats["residual"]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (rounds - 1)
+        runs[mode] = (g_prev, age, res, stats, read_counters(), ms)
+    k_out, p_out = runs[None], runs["plain"]
+    for i, what in enumerate(("g_t", "age'", "residual'")):
+        _same(k_out[i], p_out[i], f"engine {what}")
+    for key in ("mag_hist", "age_hist", "n_sel_m"):
+        _same(k_out[3][key], p_out[3][key], f"engine {key}")
+    want = dict.fromkeys(KERNELS, 0)
+    want["aou_merge"] = rounds
+    check(k_out[4] == want, f"engine: launches {k_out[4]}, expected {want}")
+    check(p_out[4] == dict.fromkeys(KERNELS, 0),
+          f"engine: the plain run launched {p_out[4]}")
+    print(f"engine path: {rounds} rounds of exact select_and_merge at "
+          f"d = {D}, kernel and plain identical; launches {k_out[4]}; "
+          f"host ms per round over rounds 1-{rounds - 1} {k_out[5]:.3f} "
+          f"(plain {p_out[5]:.3f})",
+          flush=True)
+    return k_out[4], {"rounds": rounds, "ms_per_round": k_out[5],
+                      "plain_ms_per_round": p_out[5]}
+
+
+def topk_path_phase(dev):
+    """The two-stage top-k entry point at d = 2^24, k = d/100 (m = 164):
+    one ``block_topk`` launch; the result is the stable-sort top-k."""
+    import torch
+    from repro_torch.kernels import ops
+
+    x = torch.randn(BIG, generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    k = BIG // 100
+    reset_counters()
+    vals, idxs = ops.two_stage_topk(x, k)
+    torch.cuda.synchronize()
+    got = read_counters()
+    want = dict.fromkeys(KERNELS, 0)
+    want["block_topk"] = 1
+    check(got == want, f"two-stage top-k: launches {got}, expected {want}")
+    ref_vals, ref_idx = torch.sort(x.abs(), descending=True, stable=True)
+    _same(vals, ref_vals[:k], "two-stage top-k values")
+    check(bool(torch.equal(idxs.long(), ref_idx[:k])),
+          "two-stage top-k indices differ from the stable-sort top-k")
+    print(f"top-k path: two_stage_topk(d = {BIG}, k = {k}) equals the "
+          f"stable-sort top-k; launches {got}", flush=True)
+    return got
+
+
 def parity_phase(dev, task):
-    """2 rounds each of (a) and (b) with the kernels and with the plain
-    versions, same generator seed, cuDNN deterministic and TF32 off."""
+    """2 rounds each of (a), (b) and exact one-bit with the kernels and
+    with the plain versions, same generator seed, cuDNN deterministic and
+    TF32 off: identical ages; ``w`` within 1e-6 on (a) and (b) and
+    identical on exact one-bit (its kernels reduce exact integer votes)."""
     import dataclasses
     import torch
     from repro_torch.fl import train
@@ -384,8 +583,10 @@ def parity_phase(dev, task):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     params0, loss_fn, _, sample_round = task
-    configs = run_configs()
-    for name in ("a_coherent", "b_one_bit"):
+    packed, exact = run_configs()
+    configs = {**packed, **exact}
+    for name, w_tol in (("a_coherent", 1e-6), ("b_one_bit", 1e-6),
+                        ("exact_one_bit", 0.0)):
         fl = dataclasses.replace(configs[name], rounds=2)
         runs = {mode: train(fl, params0, loss_fn, sample_round,
                             device=dev, kernel_mode=mode)["state"]
@@ -394,18 +595,19 @@ def parity_phase(dev, task):
         check(bool(torch.equal(k_st.age, p_st.age)),
               f"{name}: kernel and plain ages differ")
         w_err = float((k_st.w - p_st.w).abs().max())
-        check(w_err <= 1e-6, f"{name}: kernel and plain w differ by {w_err}")
+        check(w_err <= w_tol,
+              f"{name}: kernel and plain w differ by {w_err}")
         print(f"parity {name}: ages identical, max |w_kernel - w_plain| = "
               f"{w_err}", flush=True)
 
 
 def profile_phase(dev, task, summary):
-    """Where a round's device time goes: 2 rounds each of (a) and (b)
-    under ``torch.profiler`` (CPU + CUDA), after the main path warmed up.
-    Sums the device time of the kernels and copies themselves (not of the
+    """Where a round's device time goes: 2 rounds each of (a), (b) and
+    exact coherent FAIR-k under ``torch.profiler`` (CPU + CUDA), after the
+    paths warmed up.  Sums the device time of the kernels and copies themselves (not of the
     operators that launched them, which would count it twice), lists the
     largest, and estimates the device's busy share as kernel time per
-    round over the main path's median steady-state round time (the
+    round over the path's median steady-state round time (the
     profiler slows the host, so its own window would understate it).
     Report only: nothing here is checked."""
     import dataclasses
@@ -414,9 +616,11 @@ def profile_phase(dev, task, summary):
     from repro_torch.fl import train
 
     params0, loss_fn, _, sample_round = task
+    packed, exact = run_configs()
+    configs = {**packed, **exact}
     out = {}
-    for name in ("a_coherent", "b_one_bit"):
-        fl = dataclasses.replace(run_configs()[name], rounds=2)
+    for name in ("a_coherent", "b_one_bit", "exact_fairk"):
+        fl = dataclasses.replace(configs[name], rounds=2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
@@ -433,7 +637,9 @@ def profile_phase(dev, task, summary):
         per_round = sum(r[0] for r in rows) / fl.rounds
         ours = {key: ms for ms, key, _ in rows
                 if any(k in key for k in ("fairk_kernel", "sign_mv_kernel",
-                                          "sign_from_energy_kernel"))}
+                                          "sign_from_energy_kernel",
+                                          "aou_merge_kernel",
+                                          "block_topk_kernel"))}
         steady = statistics.median(summary[name]["round_ms"][1:])
         out[name] = {"profiled_wall_ms": wall_ms,
                      "device_ms_per_round": per_round,
@@ -480,21 +686,34 @@ def main(argv) -> None:
 
     records = kernel_phase(dev)
     if "--kernels" in argv:
-        print("kernels only: the main path was not driven", flush=True)
+        print("kernels only: the paths were not driven", flush=True)
         return
     task = make_task(dev)
-    launches, summary = main_path_phase(dev, task)
+    packed, exact = run_configs()
+    by_path = {}
+    by_path["packed"], summary = fl_path_phase(dev, task, packed, "packed")
+    by_path["exact"], exact_summary = fl_path_phase(dev, task, exact,
+                                                    "exact")
+    summary.update(exact_summary)
+    by_path["engine"], engine_summary = engine_phase(dev)
+    by_path["two_stage_topk"] = topk_path_phase(dev)
+    launches = {key: sum(p[key] for p in by_path.values())
+                for key in KERNELS}
     for key, n in launches.items():
-        check(n > 0, f"kernel {key} was not launched on the main path")
+        check(n > 0, f"kernel {key} was not launched on any path")
     parity_phase(dev, task)
     profile = profile_phase(dev, task, summary)
     check("jax" not in sys.modules, "JAX was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
 
+    # each kernel's line reports the variant at the shape of the path that
+    # launches it most
     main_variant = {"fairk_update": "fairk_update[stats]",
                     "sign_mv": f"sign_mv[{CHUNK}x{D}]",
-                    "sign_from_energy": f"sign_from_energy[{D}+noise]"}
+                    "sign_from_energy": f"sign_from_energy[{D}+noise]",
+                    "aou_merge": f"aou_merge[{D}]",
+                    "block_topk": f"block_topk[{BIG}/4096x164]"}
     sources = {
         "fairk_update": ("src/repro_torch/kernels/csrc/fairk_update.cu",
                          "src/repro/kernels/fairk_update.py:91"),
@@ -502,6 +721,10 @@ def main(argv) -> None:
                     "src/repro/kernels/sign_mv.py:25"),
         "sign_from_energy": ("src/repro_torch/kernels/csrc/sign_mv.cu",
                              "src/repro/kernels/sign_mv.py:41"),
+        "aou_merge": ("src/repro_torch/kernels/csrc/aou_merge.cu",
+                      "src/repro/kernels/aou_merge.py:24"),
+        "block_topk": ("src/repro_torch/kernels/csrc/block_topk.cu",
+                       "src/repro/kernels/block_topk.py:31"),
     }
     kernels = []
     for name, variant in main_variant.items():
@@ -515,14 +738,18 @@ def main(argv) -> None:
                         "max_abs_err": max(same), "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": None,
-                        "variant": variant})
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"],
+                        "variant": variant,
+                        "launches_by_path": {p: c[name]
+                                             for p, c in by_path.items()}})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "build": {
             k: v for k, v in build.BUILD_INFO.items() if k != "ptxas"},
-         "variants": records, "main_path": summary, "profile": profile,
+         "variants": records, "paths": summary, "engine": engine_summary,
+         "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,22 @@
-"""The FAIR-k selection engine on the packed backend (the subset of
-``repro.core.engine`` that the FL round needs).
+"""The FAIR-k selection engine on the exact and packed backends (the
+subset of ``repro.core.engine`` that the FL round needs).
 
 ``SelectionEngine.select_and_merge(g, g_prev, age)`` runs one server
-phase: thresholds (θ_M, θ_A) from the carried statistics alone, then ONE
-fused kernel pass (``kernels.ops.fairk_stats_update``) that selects
-(Eq. 11), merges (Eq. 8), advances the age (Eq. 10), folds the
-error-feedback residual and emits the counts and histograms the next
-round's thresholds come from.  The exact, threshold and sharded backends,
-the sampled-quantile bootstrap, the traced split of the adaptive
-controller and async lag are not ported yet (ROADMAP Queue 1); asking for
-them raises ``NotImplementedError``.
+phase: select on ``g``, merge the fresh values over the stale ``g_prev``
+(Eq. 8) and advance the age (Eq. 10).
+
+* ``exact``: index-form selection (``core.selection``, all six policies;
+  rank form under ``sanitize``), then the mask-form merge and age step in
+  one ``aou_merge`` kernel pass (``masked_merge``).
+* ``packed``: thresholds (θ_M, θ_A) from the carried statistics alone,
+  then ONE fused kernel pass (``kernels.ops.fairk_stats_update``) that
+  selects (Eq. 11), merges, advances the age, folds the error-feedback
+  residual and emits the counts and histograms the next round's
+  thresholds come from.
+
+The threshold and sharded backends, the sampled-quantile bootstrap, the
+traced split of the adaptive controller and async lag are not ported yet
+(ROADMAP Queue 1); asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,13 +26,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import packing
-from repro_torch.kernels.ref import knuth_jitter
+from repro_torch.core import packing, selection
+from repro_torch.kernels import ops, ref
 
 Tensor = torch.Tensor
 
 BACKENDS = ("exact", "threshold", "sharded", "packed")
-POLICIES = ("fairk", "topk", "roundrobin", "toprand", "agetopk", "randk")
+POLICIES = selection.POLICIES
 # FAIR-k-family policies expressible as (θ_M, θ_A) thresholds
 THRESHOLD_POLICIES = ("fairk", "topk", "roundrobin")
 AGE_CAP = packing.AGE_CAP
@@ -36,12 +43,53 @@ _NOT_PORTED = "not ported yet (ROADMAP Queue 1 item {item})"
 def jitter_from_ids(ids: Tensor) -> Tensor:
     """Deterministic per-coordinate jitter in [0, 1): the Knuth hash of
     the coordinate index (bit-identical to the kernel's recomputation)."""
-    return knuth_jitter(ids)
+    return ref.knuth_jitter(ids)
 
 
 def index_jitter(n: int, offset: int = 0, device=None) -> Tensor:
     """Jitter for coordinates [offset, offset + n)."""
     return jitter_from_ids(torch.arange(offset, offset + n, device=device))
+
+
+def rank_desc(x: Tensor) -> Tensor:
+    """rank[i] = number of entries ranked above x[i] (descending, ties
+    toward the lower index, NaN last — ``jnp.argsort(-x, stable=True)``)."""
+    order = torch.sort(-x, stable=True).indices
+    return torch.empty_like(order).scatter_(
+        0, order, torch.arange(x.shape[0], device=x.device))
+
+
+def fair_k_masks_dynamic(score: Tensor, age: Tensor, k: int, k_m: int
+                         ) -> Tuple[Tensor, Tensor]:
+    """Rank-form FAIR-k (Eq. 11) -> float32 ``(mask, mask_m)``:
+    ``rank(score) < k_m``, then ``rank(age ⊙ ¬mask_m) < k − k_m`` — the
+    coordinate set of the index form (ties toward the lower index in
+    both).  ``score`` is the magnitude-stage statistic."""
+    mask_m = rank_desc(score) < k_m
+    # the magnitude picks leave the age stage; -1 never wins (ages >= 0)
+    age_rest = torch.where(mask_m, -1.0, age.to(torch.float32))
+    mask_a = rank_desc(age_rest) < (k - k_m)
+    return ((mask_m | mask_a).to(torch.float32),
+            mask_m.to(torch.float32))
+
+
+def fair_k_mask_dynamic(score: Tensor, age: Tensor, k: int, k_m: int
+                        ) -> Tensor:
+    """The combined mask of ``fair_k_masks_dynamic``."""
+    return fair_k_masks_dynamic(score, age, k, k_m)[0]
+
+
+def eff_score(g: Tensor, residual: Optional[Tensor]) -> Tensor:
+    """The error-feedback fold ``score = g + residual`` in float32."""
+    g32 = g.to(torch.float32)
+    return g32 if residual is None else g32 + residual.to(torch.float32)
+
+
+def masked_merge(fresh: Tensor, g_prev: Tensor, age: Tensor, mask: Tensor,
+                 mode: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """Eq. (8) stale merge + Eq. (10) AoU update in mask form (float32
+    out), one ``aou_merge`` kernel pass."""
+    return ops.aou_merge(fresh, g_prev, age, mask, mode=mode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +135,10 @@ def budgets_for(cfg: EngineConfig, d_budget: int) -> Tuple[int, int, int]:
 
 
 class SelectionEngine:
-    """``select_and_merge`` on the packed backend with fused statistics and
-    warm-start thresholds.  ``layout`` is a ``packing.PackedLayout``; the
-    budgets count its ``d_valid`` real coordinates."""
+    """``select_and_merge`` on the exact backend, and on the packed backend
+    with fused statistics and warm-start thresholds.  ``layout`` (packed
+    only) is a ``packing.PackedLayout``; the budgets count its ``d_valid``
+    real coordinates."""
 
     def __init__(self, cfg: EngineConfig, d: int,
                  layout: Optional[packing.PackedLayout] = None):
@@ -99,32 +148,35 @@ class SelectionEngine:
         if cfg.policy not in POLICIES:
             raise ValueError(f"unknown policy {cfg.policy!r}; choose from "
                              f"{POLICIES}")
-        if cfg.backend != "packed":
-            item = {"exact": 2, "threshold": 3}.get(cfg.backend, 11)
+        if cfg.backend != "exact" and cfg.policy not in THRESHOLD_POLICIES:
+            raise ValueError(
+                f"policy {cfg.policy!r} needs index arithmetic — only "
+                f"{THRESHOLD_POLICIES} run on the {cfg.backend!r} backend")
+        if cfg.backend not in ("exact", "packed"):
+            item = {"threshold": 3}.get(cfg.backend, 11)
             raise NotImplementedError(
                 f"backend {cfg.backend!r} is "
                 + _NOT_PORTED.format(item=item))
-        if cfg.policy not in THRESHOLD_POLICIES:
-            raise ValueError(
-                f"policy {cfg.policy!r} needs index arithmetic — only "
-                f"{THRESHOLD_POLICIES} run on the packed backend")
+        if cfg.reduce_axes:
+            raise NotImplementedError(
+                "reduce_axes (the sharded launch path) is "
+                + _NOT_PORTED.format(item=11))
+        self.cfg = cfg
+        self.d = d
+        self.layout = layout
+        self.d_budget = d
+        if cfg.backend == "exact":
+            return
         if not (cfg.fused_stats and cfg.warm_start) or cfg.exact_theta:
             raise NotImplementedError(
                 "the packed backend runs with fused_stats=True, "
                 "warm_start=True and exact_theta=False here; the "
                 "sampled-quantile and order-statistic thresholds are "
                 + _NOT_PORTED.format(item=3))
-        if cfg.reduce_axes:
-            raise NotImplementedError(
-                "reduce_axes (the sharded launch path) is "
-                + _NOT_PORTED.format(item=11))
         if layout is None:
             raise ValueError("packed backend needs a PackedLayout")
         if d != layout.d_packed:
             raise ValueError(f"d={d} != layout.d_packed={layout.d_packed}")
-        self.cfg = cfg
-        self.d = d
-        self.layout = layout
         self.d_budget = layout.d_valid
 
     # -- budgets ------------------------------------------------------------
@@ -137,10 +189,21 @@ class SelectionEngine:
         k, k_m, _ = self.budgets()
         return k / self.d_budget, (k_m / k if k else 0.0)
 
-    # -- fused server phase -------------------------------------------------
+    # -- selection ----------------------------------------------------------
+
+    def select(self, g: Tensor, age: Tensor, u: Optional[Tensor] = None
+               ) -> Tensor:
+        """Exact index-form selection (all six policies): (k,) int64.
+        ``u``: the uniform (d,) draw of ``toprand`` / ``randk``."""
+        k, k_m, r = self.budgets()
+        return selection.select_indices(self.cfg.policy, u, g, age, k=k,
+                                        k_m=k_m, r=r)
+
+    # -- server phase --------------------------------------------------------
 
     def select_and_merge(self, g: Tensor, g_prev: Tensor, age: Tensor, *,
                          noise: Optional[Tensor] = None,
+                         u: Optional[Tensor] = None,
                          tstate: Optional[Dict[str, Tensor]] = None,
                          residual: Optional[Tensor] = None,
                          fresh: Optional[Tensor] = None,
@@ -156,12 +219,17 @@ class SelectionEngine:
         ``noise``: the standard-normal (d,) draw of the channel noise
         (JAX draws it from the round's key inside the engine); with
         ``noise_std`` > 0 the selected coordinates get
-        ``noise_std / n_clients · noise``.  ``residual``: the
+        ``noise_std / n_clients · noise``.  ``u``: the uniform (d,) draw
+        of the random policies on the exact backend (JAX draws it from
+        the selection half of the same key).  ``residual``: the
         error-feedback accumulator, successor in ``stats["residual"]``.
         ``fresh``: transmitted values when they differ from the score
         (the one-bit majority-vote signs).  ``sanitize`` keeps non-finite
         scores out of both stages; ``erase`` (> 0) demotes coordinates to
-        NaN first, and needs ``sanitize``."""
+        NaN first, and needs ``sanitize``.  ``tstate`` (packed only) is
+        the carried threshold state.  The exact backend's stats carry the
+        index vector ``idx`` (without ``sanitize``), and with
+        ``fused_stats`` the counts and histograms of the packed kernel."""
         if k_m_frac is not None:
             raise NotImplementedError("a traced k_m_frac (the adaptive "
                                       "controller) is "
@@ -169,11 +237,6 @@ class SelectionEngine:
         if age_lag:
             raise NotImplementedError("age_lag (async rounds) is "
                                       + _NOT_PORTED.format(item=7))
-        if tstate is None:
-            raise NotImplementedError(
-                "the packed round without a carried tstate needs the "
-                "sampled-quantile bootstrap, which is "
-                + _NOT_PORTED.format(item=3))
         if tuple(g.shape) != (self.d,):
             raise ValueError(f"expected shape ({self.d},), got "
                              f"{tuple(g.shape)}")
@@ -183,13 +246,84 @@ class SelectionEngine:
         if erase is not None and not sanitize:
             raise ValueError("erase needs sanitize=True — erased "
                              "coordinates degrade through the NaN path")
+        if sanitize and self.cfg.policy not in THRESHOLD_POLICIES:
+            raise ValueError(
+                f"sanitize runs selection in threshold/rank form — policy "
+                f"{self.cfg.policy!r} needs index arithmetic; choose from "
+                f"{THRESHOLD_POLICIES}")
         if erase is not None:
             g = torch.where(erase > 0.0,
                             torch.full_like(g, float("nan"),
                                             dtype=torch.float32),
                             g.to(torch.float32))
+        if self.cfg.backend == "exact":
+            return self._exact_update(g, g_prev, age, noise, u, residual,
+                                      fresh, sanitize)
+        if tstate is None:
+            raise NotImplementedError(
+                "the packed round without a carried tstate needs the "
+                "sampled-quantile bootstrap, which is "
+                + _NOT_PORTED.format(item=3))
         return self._packed_update(g, g_prev, age, noise, tstate, residual,
                                    fresh, sanitize)
+
+    def _noisy(self, fresh: Tensor, noise: Optional[Tensor]) -> Tensor:
+        cfg = self.cfg
+        if noise is None or cfg.noise_std <= 0.0:
+            return fresh.to(torch.float32)
+        return (fresh.to(torch.float32)
+                + (cfg.noise_std / cfg.n_clients) * noise)
+
+    def _exact_update(self, g, g_prev, age, noise, u, residual=None,
+                      fresh=None, sanitize=False):
+        """Index-form selection on the score, then the mask-form merge and
+        age step in one ``aou_merge`` pass."""
+        cfg = self.cfg
+        k, k_m, _ = self.budgets()
+        score = eff_score(g, residual)
+        fin = mask_m_s = None
+        if sanitize:
+            # rank form on demoted statistics: non-finite coordinates rank
+            # below every healthy one in both stages, and the final AND
+            # keeps them out even when k exceeds the healthy count
+            fin = torch.isfinite(score)
+            score = torch.where(fin, score, 0.0)
+            mag_eff = torch.where(fin, score.abs(), -1.0)
+            age_eff = torch.where(fin, age.to(torch.float32), -1.0)
+            mask, mask_m_s = fair_k_masks_dynamic(mag_eff, age_eff, k, k_m)
+            finf = fin.to(torch.float32)
+            mask = mask * finf
+            mask_m_s = mask_m_s * finf
+            stats = {"n_selected": mask.sum(), "k": k}
+        else:
+            idx = self.select(score, age, u)
+            mask = selection.mask_from_indices(idx, self.d)
+            stats = {"idx": idx, "k": k,
+                     "n_selected": torch.tensor(float(k), device=g.device)}
+        sent = score if fresh is None else fresh.to(torch.float32)
+        if sanitize and fresh is not None:
+            sent = torch.where(torch.isfinite(sent), sent, 0.0)
+        g_t, age_next = masked_merge(self._noisy(sent, noise), g_prev, age,
+                                     mask, mode=cfg.kernel_mode)
+        if cfg.fused_stats:
+            valid = age.to(torch.float32) >= 0.0
+            if fin is not None:
+                valid = valid & fin
+            mag_hist, age_hist = ref.strided_hists_ref(
+                score, age_next, valid, packing.hist_stride(self.d))
+            n_sel_m = (mask_m_s.sum() if mask_m_s is not None
+                       else torch.tensor(float(k_m), device=g.device))
+            stats.update(n_sel_m=n_sel_m, mag_hist=mag_hist,
+                         age_hist=age_hist)
+        if residual is not None:
+            # noise-free accounting; sanitized-out coordinates keep their
+            # old residual
+            res_next = score - mask * sent
+            if fin is not None:
+                res_next = torch.where(fin, res_next,
+                                       residual.to(torch.float32))
+            stats["residual"] = res_next
+        return g_t, age_next, stats
 
     def _stats_thresholds(self, tstate) -> Tuple[Tensor, Tensor, Tensor]:
         """(θ_M, θ_A, streak') from the carried statistics alone: the
@@ -235,7 +369,6 @@ class SelectionEngine:
                        fresh=None, sanitize=False):
         """One fused FAIR-k pass over the whole packed buffer: the round's
         only read of (g, residual)."""
-        from repro_torch.kernels import ops    # kernels import core
         cfg = self.cfg
         k, _, _ = self.budgets()
         # the fused-stats warm branch of the reference's _packed_thresholds

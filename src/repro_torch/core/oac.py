@@ -1,19 +1,29 @@
-"""Over-the-air computation channel (paper Sec. III-A): the configuration
-and the per-round fading draw.
+"""Over-the-air computation channel and gradient aggregation (paper
+Sec. III-A), the port of ``repro.core.oac``:
+
+    ǧ_t = (1/N) ( Σ_n h_{n,t} ǧ_{n,t} + ξ_t )                     (Eq. 7)
+    g_t = S_t ∘ ǧ_t + (1 − S_t) ∘ g_{t−1}                          (Eq. 8)
 
 Fading ``h_{n,t}`` is i.i.d. across clients and rounds with mean ``mu_c``
 (default Rayleigh with mean 1, the paper's setting); receiver noise has
-standard deviation ``noise_std``.  Draws come from an explicit
-``torch.Generator`` — the port cannot reproduce JAX's threefry streams, so
-its round takes its random numbers as tensors.
+standard deviation ``noise_std``.  Only the ``k`` selected coordinates
+ride the channel, so the aggregate is the compacted ``(k,)`` vector.
+
+Randomness: the port cannot reproduce JAX's threefry streams, so these
+functions take their draws as tensors — the fading ``h`` (N,) and the
+standard-normal noise ``z`` (k,) — and ``sample_fading`` draws ``h`` from
+an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
+
+Tensor = torch.Tensor
 
 _RAYLEIGH_MEAN = math.sqrt(math.pi / 2.0)  # mean of Rayleigh(sigma=1)
 
@@ -67,3 +77,38 @@ def sample_fading(gen: torch.Generator, n_clients: int, cfg: ChannelConfig,
         return scale * torch.sqrt(-2.0 * torch.log1p(-u))
     return cfg.mean + cfg.std * torch.randn(
         n_clients, generator=gen, dtype=torch.float32, device=device)
+
+
+def oac_aggregate(client_values: Tensor, h: Tensor, z: Optional[Tensor],
+                  cfg: ChannelConfig) -> Tensor:
+    """Eq. (7): superpose the (N, k) compacted client vectors through the
+    fading ``h`` (N,) and the receiver noise ``noise_std · z`` -> (k,)."""
+    return finish_aggregate(h @ client_values, z, client_values.shape[0],
+                            cfg)
+
+
+def finish_aggregate(superposed: Tensor, z: Optional[Tensor],
+                     n_clients: int, cfg: ChannelConfig) -> Tensor:
+    """Receiver tail of Eq. (7) for a pre-superposed (k,) row: channel
+    noise ``noise_std · z``, then the 1/N normalisation."""
+    if cfg.noise_std > 0.0:
+        if z is None:
+            raise ValueError("noise_std > 0 needs a noise draw z")
+        superposed = superposed + cfg.noise_std * z
+    return superposed / n_clients
+
+
+def reconstruct(g_prev: Tensor, idx: Tensor, agg_values: Tensor) -> Tensor:
+    """Eq. (8) in index form: refresh the selected coordinates, keep the
+    stale rest (a scatter, so a −0.0 aggregate stays −0.0)."""
+    return g_prev.index_copy(0, idx, agg_values.to(g_prev.dtype))
+
+
+def oac_round(g_prev: Tensor, idx: Tensor, client_grads: Tensor, h: Tensor,
+              z: Optional[Tensor], cfg: ChannelConfig
+              ) -> Tuple[Tensor, Tensor]:
+    """One uplink round over dense (N, d) client gradients and the (k,)
+    selection ``idx`` -> ``(g_t, agg_k)``: the gather comes before the
+    contraction over clients, as in the reference."""
+    agg = oac_aggregate(client_grads[:, idx], h, z, cfg)
+    return reconstruct(g_prev, idx, agg), agg

@@ -1,21 +1,33 @@
-"""OAC-FL training loop (paper Algorithm 1) on the packed backend.
+"""OAC-FL training loop (paper Algorithm 1) on the exact and packed
+backends.
 
 One round: every client runs ``H`` local SGD steps (Eq. 4) and returns
 its accumulated gradient (Eq. 5); the clients stream through the round in
 chunks of ``client_chunk``, each chunk batched with
-``torch.func.vmap(torch.func.grad(...))`` and folded into a (d,)
-accumulator, so the (N, d) matrix is never live.  The coherent uplink
-superposes the faded gradients (Eq. 7); the one-bit FSK-MV uplink
-(Sec. V-B) reduces each chunk's ±1 votes with the ``sign_mv`` kernel and
-detects the majority with ``sign_from_energy``.  Then one fused FAIR-k
-pass selects (Eq. 11), merges (Eq. 8) and advances the age (Eq. 10), and
-the global model steps (Eq. 9).
+``torch.func.vmap(torch.func.grad(...))`` and folded into one
+accumulator, so the (N, d) matrix is never live.
+
+* ``exact`` (the paper's figures): the selection ``S_t`` (Eq. 11, any of
+  the six policies) scores ``(g_prev, age)`` before the clients compute,
+  so each chunk is gathered at the ``k`` selected coordinates and folded
+  into a (k,) row — the faded contraction on the coherent uplink (Eq. 7),
+  the ±1 vote sum (``sign_mv`` kernel) on the one-bit FSK-MV uplink.
+  The receiver tail (noise and 1/N, or the majority vote through
+  ``sign_from_energy``), the Eq. 8 scatter, client-side error feedback,
+  the model step (Eq. 9) and the index-form Eq. 10 follow.
+* ``packed``: the coherent uplink superposes the faded gradients over all
+  d coordinates; the one-bit uplink reduces each chunk's votes with
+  ``sign_mv`` and detects with ``sign_from_energy``; then one fused FAIR-k
+  pass (``fairk_update`` kernel) selects, merges and advances the age,
+  with server-side error feedback.
 
 Randomness: PyTorch cannot reproduce JAX's threefry streams, so a round
-takes its draws as tensors — the coherent round the fading ``h`` (N,) and
-the standard-normal channel noise ``z`` (d,), the one-bit round ``z``
-alone.  ``train`` draws them from a ``torch.Generator`` seeded with
-``fl.seed``; the tests hand both packages the same numbers.
+takes its draws as tensors (``draw_round``): the fading ``h`` (N,) on the
+coherent uplink, the standard-normal channel noise ``z`` — (d,) on the
+packed backend, (k,) on the exact one — and, for ``toprand`` / ``randk``,
+the uniform selection draw ``u`` (d,).  ``train`` draws them from a
+``torch.Generator`` seeded with ``fl.seed``; the tests hand both packages
+the same numbers.
 """
 
 from __future__ import annotations
@@ -27,7 +39,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import oac, packing, quantize
+from repro_torch.core import aou, oac, packing, quantize, selection
 from repro_torch.core.engine import (EngineConfig, SelectionEngine,
                                      budgets_for, index_jitter)
 from repro_torch.core.oac import ChannelConfig
@@ -52,13 +64,14 @@ class FLConfig:
     global_lr: float = 0.01         # eta
     rounds: int = 200
     policy: str = "fairk"
-    backend: str = "exact"          # only "packed" is ported
+    backend: str = "exact"          # "exact" | "packed" are ported
     compression_ratio: float = 0.1  # rho = k / d
     k_m_frac: float = 0.75          # k_M / k
     r_frac: float = 1.5
     channel: ChannelConfig = oac.PAPER_DEFAULT
     one_bit: bool = False           # FSK-MV prototype uplink (Sec. V-B)
-    error_feedback: bool = False    # server-side EF on the packed backend
+    error_feedback: bool = False    # client-side on exact, server-side on
+                                    # packed (one-bit: client-side too)
     adaptive_km: bool = False
     async_lag: int = 0
     scan_rounds: int = 0
@@ -95,9 +108,9 @@ class ServerState:
 def check_supported(fl: FLConfig) -> None:
     """Raise ``NotImplementedError`` for any setting outside the slice."""
     unsupported = [
-        (fl.backend != "packed",
+        (fl.backend not in ("exact", "packed"),
          f"backend {fl.backend!r} " + _NOT_PORTED.format(
-             item={"exact": 2, "threshold": 3}.get(fl.backend, 2))),
+             item={"threshold": 3}.get(fl.backend, 11))),
         (fl.faults is not None, "fault injection "
          + _NOT_PORTED.format(item=8)),
         (fl.watchdog is not None, "the watchdog "
@@ -112,9 +125,6 @@ def check_supported(fl: FLConfig) -> None:
          "the adaptive k_m controller " + _NOT_PORTED.format(item=5)),
         (fl.controller is not None, "the controller config "
          + _NOT_PORTED.format(item=5)),
-        (fl.policy not in ("fairk", "topk", "roundrobin", "fairk_auto"),
-         f"policy {fl.policy!r} (index arithmetic, exact backend) "
-         + _NOT_PORTED.format(item=2)),
     ]
     for bad, what in unsupported:
         if bad:
@@ -132,11 +142,12 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
 
     ``loss_fn(params, x, y) -> scalar`` is the per-client loss on a
     parameter tree; ``xs``/``ys`` are (N, H, B, ...) tensors; ``draws``
-    holds ``"z"`` (d,) and, on the coherent uplink, ``"h"`` (N,).
-    ``kernel_mode`` goes to every kernel dispatcher (``kernels.ops``).
-    ``fl_round.server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-    residual, tstate, draws)`` is the round after the superposition, for
-    feeding it an aggregate computed elsewhere."""
+    is one round of ``draw_round``.  ``kernel_mode`` goes to every kernel
+    dispatcher (``kernels.ops``).  ``fl_round.server_phase(w, agg, ef_sum,
+    g_prev, age, sel_count, residual, tstate, draws, idx=None)`` is the
+    round after the superposition, for feeding it an aggregate computed
+    elsewhere: on the exact backend ``agg`` is the (k,) row at the
+    selection ``idx`` (selected anew from ``(g_prev, age)`` when None)."""
     check_supported(fl)
     dev = resolve_device(device)
     set_numerics(dev)
@@ -146,16 +157,23 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
         raise ValueError(f"client_chunk={fl.client_chunk} must be in "
                          f"[1, n_clients] and divide n_clients={n}")
     k, k_m, r = fl.budgets(d)
-    layout = packing.PackedLayout([d], lane=1)
+    exact = fl.backend == "exact"
     engine = SelectionEngine(
-        EngineConfig(policy="fairk" if fl.policy == "fairk_auto"
-                     else fl.policy, backend="packed", k=k, k_m=k_m, r=r,
-                     # one-bit: the channel perturbs the vote energy, not
-                     # the merged values — engine noise off
-                     noise_std=0.0 if fl.one_bit else fl.channel.noise_std,
-                     n_clients=n, kernel_mode=kernel_mode, fused_stats=True,
-                     warm_start=True), d, layout=layout)
+        EngineConfig(policy=fl.policy, backend=fl.backend, k=k, k_m=k_m,
+                     r=r,
+                     # the exact round adds the channel noise to the (k,)
+                     # aggregate, the one-bit uplink to the vote energy:
+                     # engine noise only on the packed coherent round
+                     noise_std=(0.0 if fl.one_bit or exact
+                                else fl.channel.noise_std),
+                     n_clients=n, kernel_mode=kernel_mode,
+                     fused_stats=not exact, warm_start=not exact), d,
+        layout=None if exact else packing.PackedLayout([d], lane=1))
     frac_static = k_m / k if k else 0.0
+    # client-side error feedback: the exact round (both uplinks) and the
+    # packed one-bit round; the packed coherent round folds the residual
+    # into the fused server pass instead
+    client_ef = fl.error_feedback and (exact or fl.one_bit)
 
     def flat_loss(w_flat: Tensor, x: Tensor, y: Tensor) -> Tensor:
         return loss_fn(unravel(w_flat), x, y)
@@ -170,32 +188,67 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
             w_c = w_c - lr * batched_grad(w_c, xs[:, s], ys[:, s])
         return (w.unsqueeze(0) - w_c) / lr
 
-    def clients_fold(w, xs, ys, residual, h):
-        """Stream the clients chunk by chunk -> ``(agg, ef_sum)``: the
-        coherent aggregate ``Σ_n h_n ǧ_n / N`` or the one-bit vote energy
-        ``Σ_n sign(ǧ_n (+ residual))``, and under one-bit EF the sum
-        ``Σ_n (ǧ_n + residual)`` (else None)."""
-        one_bit_ef = fl.one_bit and fl.error_feedback
-        acc = torch.zeros(d, dtype=torch.float32, device=dev)
+    def clients_fold(w, xs, ys, residual, h, idx=None):
+        """Stream the clients chunk by chunk -> ``(agg, ef_sum)``.  Each
+        chunk's gradients (EF-shifted by the residual under client-side
+        EF) are gathered at ``idx`` (exact) before they are reduced: the
+        faded sum ``Σ_n h_n ǧ_n`` (divided by N on the packed backend) or
+        the one-bit vote energy ``Σ_n sign(ǧ_n)``.  ``ef_sum`` is
+        ``Σ_n (ǧ_n + residual)`` under client-side EF, else None."""
+        acc = torch.zeros(d if idx is None else idx.shape[0],
+                          dtype=torch.float32, device=dev)
         ef_sum = (torch.zeros(d, dtype=torch.float32, device=dev)
-                  if one_bit_ef else None)
+                  if client_ef else None)
         for c0 in range(0, n, chunk):
             g = clients(w, xs[c0:c0 + chunk], ys[c0:c0 + chunk])
+            eff = g + residual.unsqueeze(0) if client_ef else g
+            sent = eff if idx is None else eff[:, idx]
             if fl.one_bit:
-                eff = g + residual.unsqueeze(0) if one_bit_ef else g
-                votes = quantize.one_bit(eff).contiguous()
+                votes = quantize.one_bit(sent).contiguous()
                 acc = acc + ops.sign_mv(votes, mode=kernel_mode)[1]
-                if one_bit_ef:
-                    ef_sum = ef_sum + eff.sum(dim=0)
             else:
-                acc = acc + h[c0:c0 + chunk] @ g
-        return (acc if fl.one_bit else acc / n), ef_sum
+                acc = acc + h[c0:c0 + chunk] @ sent
+            if client_ef:
+                ef_sum = ef_sum + eff.sum(dim=0)
+        if fl.one_bit or exact:
+            return acc, ef_sum
+        return acc / n, ef_sum
 
-    def server_phase(w, agg, ef_sum, g_prev, age, sel_count, residual,
-                     tstate, draws: Dict[str, Tensor]):
-        """Everything after the superposition: one-bit detection, the
-        fused FAIR-k pass, the EF residual and the model step (Eq. 9)."""
-        ef = fl.error_feedback
+    def tail(w, g_t, age_next, sel_mask, sel_count, residual, tstate,
+             n_selected):
+        """The model step (Eq. 9), the participation count, the metrics."""
+        w_next = w - fl.global_lr * g_t                          # Eq. (9)
+        sel_count = sel_count + sel_mask
+        metrics = {"mean_aou": age_next.mean(), "max_aou": age_next.max(),
+                   "km_frac": torch.tensor(frac_static, device=dev),
+                   "n_selected": n_selected}
+        return (w_next, g_t, age_next, sel_count, residual, sel_mask,
+                tstate, None, metrics)
+
+    def exact_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+                           residual, tstate, draws, idx=None):
+        """The receiver tail on the (k,) row, the Eq. 8 scatter, the EF
+        residual, the model step and the index-form Eq. 10."""
+        if idx is None:
+            idx = engine.select(g_prev, age, draws.get("u"))
+        if fl.one_bit:
+            fresh = quantize.fsk_majority_from_energy(
+                agg, draws.get("z"), fl.channel.noise_std, mode=kernel_mode)
+        else:
+            fresh = oac.finish_aggregate(agg, draws.get("z"), n,
+                                         fl.channel)             # Eq. (7)
+        g_t = oac.reconstruct(g_prev, idx, fresh)                # Eq. (8)
+        sel_mask = selection.mask_from_indices(idx, d)
+        if fl.error_feedback:
+            residual = (ef_sum / n) * (1.0 - sel_mask)
+        age_next = aou.update_age_by_indices(age, idx)          # Eq. (10)
+        return tail(w, g_t, age_next, sel_mask, sel_count, residual,
+                    tstate, torch.tensor(float(k), device=dev))
+
+    def packed_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+                            residual, tstate, draws, idx=None):
+        """One-bit detection, the fused FAIR-k pass (which selects: no
+        ``idx``), the EF residual and the model step."""
         if fl.one_bit:
             noise = (fl.channel.noise_std * draws["z"]
                      if fl.channel.noise_std > 0.0 else None)
@@ -207,29 +260,28 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
             g_t, age_next, stats = engine.select_and_merge(
                 score, g_prev, age, fresh=fresh_sign, tstate=tstate)
             sel_mask = (age_next == 0.0).to(torch.float32)
-            if ef:
+            if fl.error_feedback:
                 # unsent mass of the mean effective gradient
                 residual = (ef_sum / n) * (1.0 - sel_mask)
         else:
             g_t, age_next, stats = engine.select_and_merge(
                 agg, g_prev, age, noise=draws.get("z"), tstate=tstate,
-                residual=residual if ef else None)
+                residual=residual if fl.error_feedback else None)
             sel_mask = (age_next == 0.0).to(torch.float32)
-            if ef:
+            if fl.error_feedback:
                 residual = stats["residual"]
-        w_next = w - fl.global_lr * g_t                          # Eq. (9)
-        sel_count = sel_count + sel_mask
-        metrics = {"mean_aou": age_next.mean(), "max_aou": age_next.max(),
-                   "km_frac": torch.tensor(frac_static, device=dev),
-                   "n_selected": stats["n_selected"]}
-        return (w_next, g_t, age_next, sel_count, residual, sel_mask,
-                stats["tstate"], None, metrics)
+        return tail(w, g_t, age_next, sel_mask, sel_count, residual,
+                    stats["tstate"], stats["n_selected"])
+
+    server_phase = exact_server_phase if exact else packed_server_phase
 
     def fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate,
                  draws: Dict[str, Tensor]):
-        agg, ef_sum = clients_fold(w, xs, ys, residual, draws.get("h"))
+        # exact: S_t (Eq. 11) scores (g_prev, age), before the clients
+        idx = engine.select(g_prev, age, draws.get("u")) if exact else None
+        agg, ef_sum = clients_fold(w, xs, ys, residual, draws.get("h"), idx)
         return server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-                            residual, tstate, draws)
+                            residual, tstate, draws, idx)
 
     fl_round.server_phase = server_phase
     return fl_round
@@ -262,12 +314,18 @@ def _to(tree: Any, dev: torch.device) -> Any:
 def draw_round(gen: torch.Generator, fl: FLConfig, d: int,
                device: torch.device) -> Dict[str, Tensor]:
     """One round's random numbers from ``gen``: ``h`` (N,) fading on the
-    coherent uplink, ``z`` (d,) standard-normal channel noise."""
+    coherent uplink; ``z`` standard-normal channel noise, (d,) on the
+    packed backend and (k,) on the exact one; on the exact backend, ``u``
+    (d,) uniform in [0, 1) for ``toprand`` / ``randk``."""
+    exact = fl.backend == "exact"
     draws = {}
     if not fl.one_bit:
         draws["h"] = oac.sample_fading(gen, fl.n_clients, fl.channel, device)
-    draws["z"] = torch.randn(d, generator=gen, dtype=torch.float32,
-                             device=device)
+    draws["z"] = torch.randn(fl.budgets(d)[0] if exact else d, generator=gen,
+                             dtype=torch.float32, device=device)
+    if exact and fl.policy in selection.RANDOM_POLICIES:
+        draws["u"] = torch.rand(d, generator=gen, dtype=torch.float32,
+                                device=device)
     return draws
 
 

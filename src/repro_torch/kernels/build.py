@@ -27,7 +27,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("fairk_update.cu", "sign_mv.cu")
+SOURCES = ("fairk_update.cu", "sign_mv.cu", "aou_merge.cu",
+           "block_topk.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -46,6 +47,11 @@ _SIGNATURES = {
     "repro_sign_mv": [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P],
     # energy_in, noise, signs, energy_out, k, stream
     "repro_sign_from_energy": [_P] * 4 + [ctypes.c_longlong, _P],
+    # g_new, g_old, age, mask, g_out, age_out, d, stream
+    "repro_aou_merge": [_P] * 6 + [ctypes.c_longlong, _P],
+    # x, vals, idxs, nb, block_size, m, stream
+    "repro_block_topk": [_P] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, _P],
 }
 
 

@@ -15,6 +15,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import packing
+from repro_torch.kernels import aou_merge as am
+from repro_torch.kernels import block_topk as bt
 from repro_torch.kernels import fairk_update as fk
 from repro_torch.kernels import ref
 from repro_torch.kernels import sign_mv as smv
@@ -48,6 +50,53 @@ def _thetas(theta_m, theta_a, device) -> Tensor:
         torch.as_tensor(theta_m, dtype=torch.float32, device=device).reshape(()),
         torch.as_tensor(theta_a, dtype=torch.float32, device=device).reshape(()),
     ])
+
+
+def aou_merge(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor,
+              mode: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """Fused Eq. (8) merge + Eq. (10) AoU update -> float32 ``(g, age')``:
+    ``g = m·g_new + (1−m)·g_old``, ``age' = min((age+1)·(1−m), AGE_CAP)``."""
+    args = [_f32(t) for t in (g_new, g_old, age, mask)]
+    if resolve_mode(mode, g_new) == "plain":
+        return ref.aou_merge_ref(*args)
+    return am.aou_merge_cuda(*args)
+
+
+def block_topk(x: Tensor, block_size: int = 4096, m: int = 16,
+               mode: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """Per-block top-m of ``|x|`` (d % block_size == 0) -> ``(vals,
+    idxs)``, each (d // block_size, m): values descending, ties toward the
+    lower index, global int32 indices."""
+    if resolve_mode(mode, x) == "plain":
+        return ref.block_topk_ref(x, block_size, m)
+    return bt.block_topk_cuda(_f32(x), block_size, m)
+
+
+def global_topk_from_candidates(vals: Tensor, idxs: Tensor, k: int
+                                ) -> Tuple[Tensor, Tensor]:
+    """Stage 2 of the two-stage top-k: the global top-k of the (nb, m)
+    candidate pool, ties toward the earlier candidate (a stable descending
+    sort, as ``lax.top_k``).  Exact whenever no block holds more than m of
+    the true top-k."""
+    flat_vals = vals.reshape(-1)
+    if not 0 <= k <= flat_vals.shape[0]:
+        raise ValueError(f"k={k} exceeds the {flat_vals.shape[0]} "
+                         f"candidates")
+    top_vals, pos = torch.sort(flat_vals, descending=True, stable=True)
+    return top_vals[:k], idxs.reshape(-1)[pos[:k]]
+
+
+def two_stage_topk(x: Tensor, k: int, block_size: int = 4096,
+                   m: Optional[int] = None, mode: Optional[str] = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """Top-k of ``|x|``: per-block candidates (``block_topk``), then the
+    global top-k of the pool.  ``m`` defaults to a pool ~4x oversampled
+    against a uniform spread of the top-k over the blocks."""
+    nb = max(1, x.shape[0] // block_size)   # block_topk rejects the shape
+    if m is None:
+        m = min(block_size, max(4, (4 * k + nb - 1) // nb))
+    vals, idxs = block_topk(x, block_size, m, mode=mode)
+    return global_topk_from_candidates(vals, idxs, k)
 
 
 def sign_mv(votes: Tensor, noise: Optional[Tensor] = None,

@@ -70,6 +70,44 @@ def sign_mv_ref(votes: Tensor, noise: Optional[Tensor] = None
     return sign_from_energy_ref(s, noise)
 
 
+def aou_merge_ref(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor
+                  ) -> Tuple[Tensor, Tensor]:
+    """Fused Eq. (8) merge + Eq. (10) AoU update over four (d,) vectors:
+    ``g = m·g_new + (1−m)·g_old``, ``age' = min((age+1)·(1−m), AGE_CAP)``
+    (arithmetic form, not a select: NaN and signed zeros come out as in
+    ``repro.kernels.ref.aou_merge_ref``; a NaN age stays NaN)."""
+    keep = 1.0 - mask
+    g = mask * g_new + keep * g_old
+    age_next = torch.clamp((age + 1.0) * keep, max=packing.AGE_CAP)
+    return g, age_next
+
+
+def check_block_topk(d: int, block_size: int, m: int) -> int:
+    """The number of blocks; raises ``ValueError`` on a shape the per-block
+    top-m does not take."""
+    if block_size < 1 or d < block_size or d % block_size:
+        raise ValueError(f"d={d} not divisible by block_size={block_size}")
+    if not 1 <= m <= block_size:
+        raise ValueError(f"need 1 <= m <= block_size={block_size}, got "
+                         f"m={m}")
+    if d >= 2**31:
+        raise ValueError(f"d={d}: global indices are int32")
+    return d // block_size
+
+
+def block_topk_ref(x: Tensor, block_size: int, m: int
+                   ) -> Tuple[Tensor, Tensor]:
+    """Per-block top-m magnitudes: x (d,) with d % block_size == 0 ->
+    (vals, idxs), each (d // block_size, m): the m largest |x| of every
+    contiguous block, descending, ties toward the lower index, and their
+    global int32 indices."""
+    nb = check_block_topk(x.shape[0], block_size, m)
+    xb = x.to(torch.float32).abs().reshape(nb, block_size)
+    vals, local = torch.sort(xb, dim=1, descending=True, stable=True)
+    base = torch.arange(nb, device=x.device).unsqueeze(1) * block_size
+    return vals[:, :m].contiguous(), (local[:, :m] + base).to(torch.int32)
+
+
 def _fairk_core(g, g_prev, age, theta_m, theta_a, residual, fresh,
                 sanitize):
     """Shared elementwise body: (g_t, age', res' | None, score, ok,

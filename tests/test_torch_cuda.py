@@ -6,8 +6,9 @@ otherwise.  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Exactness as in ``chip_smoke.py``: ``g_t`` and ``residual'`` bit for bit,
-ages, counts, histograms, signs and energies exactly.  Imports neither JAX
+Exactness as in ``chip_smoke.py``: ``g_t``, ``residual'``, merged values
+and top-k values bit for bit; ages, counts, histograms, signs, energies
+and top-k indices exactly.  Imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed.
 """
 
@@ -15,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fairk_update, ops, sign_mv
+from repro_torch.core import engine
+from repro_torch.kernels import aou_merge, block_topk, fairk_update, ops
+from repro_torch.kernels import sign_mv
 
 pytestmark = pytest.mark.gpu
 
@@ -108,18 +111,90 @@ def test_sign_kernels_match_plain(cuda, n, k, noisy):
         _same(a, b)
 
 
+@pytest.mark.parametrize("d", [1, 255, 5000, 109_210, 1_000_003])
+def test_aou_merge_kernel_matches_plain(cuda, d):
+    rng = np.random.default_rng(d)
+    g_new = rng.normal(size=d).astype(np.float32)
+    g_new[rng.random(d) < 0.05] = -0.0
+    g_new[: min(d, 3)] = [np.nan, np.inf, -np.inf][: min(d, 3)]
+    age = rng.integers(0, 131, size=d).astype(np.float32)
+    age[-1] = np.nan
+    mask = (rng.random(d) < 0.3).astype(np.float32)
+    mask[rng.random(d) < 0.01] = 0.5
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        g_new, rng.normal(size=d).astype(np.float32), age, mask)]
+    for a, b in zip(ops.aou_merge(*args, mode="kernel"),
+                    ops.aou_merge(*args, mode="plain")):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("d,bs,m", [(2**20, 4096, 16), (2**20, 4096, 164),
+                                    (2**20, 1024, 8), (65_536, 256, 256),
+                                    (3 * 16_384, 16_384, 33),
+                                    (2 * 57_344, 57_344, 5), (1000, 1000, 1)])
+def test_block_topk_kernel_matches_plain(cuda, d, bs, m):
+    rng = np.random.default_rng(d + m)
+    x = rng.normal(size=d).astype(np.float32)
+    # ties inside and across blocks, both signs, and exact zeros
+    x[rng.random(d) < 0.2] = 1.25
+    x[rng.random(d) < 0.1] = -1.25
+    x[rng.random(d) < 0.05] = -0.0
+    xt = torch.as_tensor(x, device=cuda)
+    kv, ki = ops.block_topk(xt, bs, m, mode="kernel")
+    pv, pi = ops.block_topk(xt, bs, m, mode="plain")
+    _same(kv, pv)
+    _same(ki, pi)
+
+
+def test_two_stage_topk_is_the_stable_top_k(cuda):
+    d = 2**22
+    x = torch.randn(d, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    k = d // 100
+    vals, idxs = ops.two_stage_topk(x, k, mode="kernel")
+    ref_vals, ref_idx = torch.sort(x.abs(), descending=True, stable=True)
+    _same(vals, ref_vals[:k])
+    assert torch.equal(idxs.long(), ref_idx[:k])
+
+
+def test_exact_engine_kernel_matches_plain(cuda):
+    d = 109_210
+    rng = np.random.default_rng(0)
+    g_prev = torch.zeros(d, device=cuda)
+    age = torch.zeros(d, device=cuda)
+    engines = {m: engine.SelectionEngine(engine.EngineConfig(
+        backend="exact", noise_std=0.1, n_clients=50, fused_stats=True,
+        kernel_mode=m), d) for m in ("kernel", "plain")}
+    for _ in range(5):
+        g = torch.as_tensor(rng.normal(size=d).astype(np.float32),
+                            device=cuda)
+        noise = torch.as_tensor(rng.normal(size=d).astype(np.float32),
+                                device=cuda)
+        out = {m: e.select_and_merge(g, g_prev, age, noise=noise)
+               for m, e in engines.items()}
+        for a, b in zip(out["kernel"][:2], out["plain"][:2]):
+            _same(a, b)
+        g_prev, age = out["kernel"][:2]
+
+
 def test_dispatch_launches_on_cuda_and_counts(cuda):
     x = _inputs(4096, seed=1, dev=cuda)
     before = (fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
-              sign_mv.SIGN_FROM_ENERGY_LAUNCHES)
+              sign_mv.SIGN_FROM_ENERGY_LAUNCHES, aou_merge.LAUNCHES,
+              block_topk.LAUNCHES)
     ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], 0.1, 3.0)
     ops.sign_mv(x["fresh"][None])
     ops.sign_from_energy(x["g"])
+    ops.aou_merge(x["g"], x["g_prev"], x["age"], x["fresh"])
+    ops.two_stage_topk(x["g"], 40, block_size=1024)
     ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], 0.1, 3.0,
                            mode="plain")
+    ops.aou_merge(x["g"], x["g_prev"], x["age"], x["fresh"], mode="plain")
+    ops.block_topk(x["g"], 1024, 4, mode="plain")
     torch.cuda.synchronize()
     after = (fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
-             sign_mv.SIGN_FROM_ENERGY_LAUNCHES)
+             sign_mv.SIGN_FROM_ENERGY_LAUNCHES, aou_merge.LAUNCHES,
+             block_topk.LAUNCHES)
     assert after == tuple(b + 1 for b in before)
 
 
@@ -134,3 +209,11 @@ def test_wrappers_check_their_operands(cuda):
                                        thetas)
     with pytest.raises(ValueError, match="contiguous"):
         sign_mv.sign_mv_cuda(torch.zeros(8, 4, device=cuda).t())
+    with pytest.raises(ValueError, match="shape"):
+        aou_merge.aou_merge_cuda(x["g"], x["g_prev"], x["age"][:10],
+                                 x["fresh"])
+    with pytest.raises(ValueError, match="divisible"):
+        block_topk.block_topk_cuda(x["g"], 48, 4)
+    with pytest.raises(ValueError, match="shared-memory"):
+        block_topk.block_topk_cuda(torch.zeros(2**16, device=cuda), 2**16,
+                                   4)

@@ -1,16 +1,25 @@
-"""The port's packing statistics and packed selection engine against the
-JAX package: histogram thresholds, warm-corrected thresholds and six
-rounds of packed ``select_and_merge`` carrying the threshold state.
+"""The port's packing statistics and selection engine against the JAX
+package: histogram thresholds, warm-corrected thresholds, six rounds of
+packed ``select_and_merge`` carrying the threshold state, six rounds of
+the exact backend's ``select_and_merge`` for every policy, and the exact
+FAIR-k engine's staleness law.
 
-Tolerances: ages equal exactly; thresholds, merged values and counts
-within rtol 1e-6 (the two libraries' ``exp2``/``pow`` may differ in the
-last place)."""
+Tolerances: ages equal exactly; on the packed backend thresholds, merged
+values and counts within rtol 1e-6 (the two libraries' ``exp2``/``pow``
+may differ in the last place).  The exact backend has no threshold math:
+``g_t`` and the residual equal bit for bit, ages, histograms and counts
+exactly.  The staleness pmf over 600 rounds lies within TV 0.1 of Lemma 1
+(the suite-standard tolerance of ``tests/statutil.py``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import statutil
 import torch
-from torchutil import fairk_inputs, to_np, to_torch
+from torchutil import engine_draws, fairk_inputs, to_np, to_torch
+
+from repro.core import markov
 
 from repro.core import engine as jax_engine
 from repro.core import packing as jax_packing
@@ -100,7 +109,6 @@ def _engines(d, noise_std, policy="fairk"):
 @pytest.mark.parametrize("mode", ["coherent_noise", "ef", "fresh",
                                   "sanitize", "topk", "roundrobin"])
 def test_packed_select_and_merge_six_rounds(mode):
-    import jax
     d = 4000
     noise_std = 0.3 if mode == "coherent_noise" else 0.0
     policy = mode if mode in ("topk", "roundrobin") else "fairk"
@@ -157,18 +165,134 @@ def test_packed_select_and_merge_six_rounds(mode):
         j_gp, j_age, t_gp, t_age = jg, ja, tg, ta
 
 
+def _same_floats(a, b, what):
+    a, b = to_np(a), np.asarray(b)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=what)
+    ok = ~np.isnan(a)
+    np.testing.assert_array_equal(a[ok].view(np.uint32),
+                                  b[ok].view(np.uint32), err_msg=what)
+
+
+EXACT_MODES = {
+    # mode: (policy, noise_std, residual, fresh, sanitize)
+    "coherent_noise": ("fairk", 0.3, False, False, False),
+    "ef": ("fairk", 0.0, True, False, False),
+    "fresh": ("fairk", 0.0, False, True, False),
+    "sanitize": ("fairk", 0.3, True, True, True),
+    "topk": ("topk", 0.3, False, False, False),
+    "roundrobin": ("roundrobin", 0.0, False, False, False),
+    "toprand": ("toprand", 0.3, True, False, False),
+    "agetopk": ("agetopk", 0.0, False, False, False),
+    "randk": ("randk", 0.3, False, False, False),
+}
+
+
+@pytest.mark.parametrize("mode", list(EXACT_MODES))
+def test_exact_select_and_merge_six_rounds(mode):
+    policy, noise_std, use_res, use_fresh, sanitize = EXACT_MODES[mode]
+    d = 3000
+    kw = dict(policy=policy, backend="exact", rho=0.1, k_m_frac=0.75,
+              noise_std=noise_std, n_clients=4, fused_stats=True)
+    jeng = jax_engine.SelectionEngine(jax_engine.EngineConfig(**kw), d)
+    teng = engine.SelectionEngine(engine.EngineConfig(**kw), d)
+    assert jeng.budgets() == teng.budgets()
+    x = fairk_inputs(13, d)
+    rng = np.random.default_rng(6)
+    zeros = np.zeros(d, np.float32)
+    j_gp, j_age, j_res = (jnp.asarray(zeros) for _ in range(3))
+    t_gp, t_age, t_res = (to_torch(zeros) for _ in range(3))
+    for r in range(6):
+        g = (np.abs(x["g"]) * (1.0 + 0.2 * r) * np.sign(rng.normal(size=d))
+             + 0.05 * rng.normal(size=d)).astype(np.float32)
+        if sanitize and r in (2, 3):
+            g[rng.choice(d, 50, replace=False)] = np.nan
+            g[rng.choice(d, 5, replace=False)] = np.inf
+        key = jax.random.PRNGKey(100 + r)
+        draws = engine_draws(key, d)
+        fresh = np.sign(g).astype(np.float32)
+        if sanitize:
+            fresh[rng.choice(d, 7, replace=False)] = np.nan
+        kw_j = dict(key=key, sanitize=sanitize)
+        kw_t = dict(noise=to_torch(draws["noise"]), u=to_torch(draws["u"]),
+                    sanitize=sanitize)
+        if use_res:
+            kw_j["residual"], kw_t["residual"] = j_res, t_res
+        if use_fresh:
+            kw_j["fresh"], kw_t["fresh"] = (jnp.asarray(fresh),
+                                            to_torch(fresh))
+        jg, ja, js = jeng.select_and_merge(jnp.asarray(g), j_gp, j_age,
+                                           **kw_j)
+        tg, ta, tst = teng.select_and_merge(to_torch(g), t_gp, t_age, **kw_t)
+        np.testing.assert_array_equal(to_np(ta), np.asarray(ja),
+                                      err_msg=f"round {r} ages")
+        _same_floats(tg, jg, f"round {r} g_t")
+        if "idx" in js:
+            np.testing.assert_array_equal(to_np(tst["idx"]),
+                                          np.asarray(js["idx"]))
+        for key_name in ("n_selected", "n_sel_m", "mag_hist", "age_hist"):
+            np.testing.assert_array_equal(
+                to_np(tst[key_name]), np.asarray(js[key_name]),
+                err_msg=f"round {r} {key_name}")
+        if use_res:
+            _same_floats(tst["residual"], js["residual"],
+                         f"round {r} residual")
+            j_res, t_res = js["residual"], tst["residual"]
+        j_gp, j_age, t_gp, t_age = jg, ja, tg, ta
+
+
+def test_exact_fairk_staleness_follows_lemma1():
+    """600 rounds of the exact FAIR-k engine on iid N(0, 1) scores: the
+    time-averaged post-update age pmf (150 rounds of burn-in) against
+    Lemma 1's stationary law on the same (d, k, k_m) chain."""
+    d, k, k_m = 512, 64, 32
+    eng = engine.SelectionEngine(engine.EngineConfig(
+        policy="fairk", backend="exact", k=k, k_m=k_m, fused_stats=True), d)
+    rng = np.random.default_rng(0)
+    g_prev = torch.zeros(d)
+    age = torch.zeros(d)
+    acc = np.zeros(128)
+    for r in range(600):
+        g = torch.as_tensor(rng.normal(size=d).astype("f4"))
+        g_prev, age, stats = eng.select_and_merge(g, g_prev, age)
+        if r >= 150:
+            acc += to_np(stats["age_hist"])
+    k0 = int(round(k_m * (1 - k_m / d)))
+    support, pred = markov.aou_distribution(
+        markov.FairKChain(d=d, k=k, k_m=k_m, k0=k0))
+    statutil.assert_pmf_close(acc, support, pred, tv_tol=0.1,
+                              mean_rtol=0.1)
+
+
 def test_engine_rejects_what_is_not_ported():
     lay = packing.PackedLayout([16], lane=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.SelectionEngine(engine.EngineConfig(backend="exact"), 16)
+    z = torch.zeros(16)
+    exact = engine.SelectionEngine(engine.EngineConfig(backend="exact"), 16)
+    g_t, age, stats = exact.select_and_merge(z, z, z)
+    assert float(stats["n_selected"]) == exact.budgets()[0]
+    for backend, item in (("threshold", 3), ("sharded", 11)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {item}"):
+            engine.SelectionEngine(engine.EngineConfig(backend=backend), 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.SelectionEngine(engine.EngineConfig(backend="packed"), 16,
                                layout=lay)
+    with pytest.raises(ValueError, match="index arithmetic"):
+        engine.SelectionEngine(engine.EngineConfig(
+            backend="packed", policy="randk", fused_stats=True,
+            warm_start=True), 16, layout=lay)
     eng = engine.SelectionEngine(engine.EngineConfig(
         backend="packed", fused_stats=True, warm_start=True), 16, layout=lay)
-    z = torch.zeros(16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.select_and_merge(z, z, z)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.select_and_merge(z, z, z, tstate=packing.init_threshold_state(
-            "cpu"), age_lag=2)
+    for e in (eng, exact):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            e.select_and_merge(z, z, z, tstate=packing.init_threshold_state(
+                "cpu"), age_lag=2)
+        with pytest.raises(NotImplementedError, match="item 5"):
+            e.select_and_merge(z, z, z, k_m_frac=0.5)
+    rand = engine.SelectionEngine(engine.EngineConfig(backend="exact",
+                                                      policy="randk"), 16)
+    with pytest.raises(ValueError, match="uniform draw"):
+        rand.select_and_merge(z, z, z)
+    with pytest.raises(ValueError, match="sanitize"):
+        rand.select_and_merge(z, z, z, u=z, sanitize=True)

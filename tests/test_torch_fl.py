@@ -15,20 +15,16 @@ its named key ladder, handed to the port as tensors.
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.flatten_util import ravel_pytree
-from torchutil import round_draws, to_np, to_torch
+from torchutil import (round_draws, run_jax_rounds, small_fl_task, to_np,
+                       to_torch, torch_loss, torch_params)
 
 from repro.core import engine as jax_engine_mod
 from repro.core import oac as jax_oac
-from repro.data import partition as jax_partition
-from repro.data import synthetic as jax_synthetic
 from repro.fl import trainer as jax_trainer
 from repro.kernels import ops as jax_ops
-from repro.models import cnn as jax_cnn
 from repro_torch.core import oac
 from repro_torch.fl import trainer
 from repro_torch.models import cnn
@@ -61,72 +57,20 @@ def _pair(name):
 
 @pytest.fixture(scope="module")
 def task():
-    spec = jax_synthetic.DatasetSpec("t", (16, 16, 1), 10, 400, 50,
-                                     sparsity=0.1)
-    (xtr, ytr), _ = jax_synthetic.make_dataset(spec, seed=0)
-    parts = jax_partition.dirichlet_partition(ytr, 4, 0.3, seed=0)
-    params = jax_cnn.init_prototype_cnn(jax.random.PRNGKey(1), (16, 16, 1),
-                                        10, (4, 6, 8), 16)
-    batches = [jax_partition.client_batches(xtr, ytr, parts, 3, 2, seed=t)
-               for t in range(ROUNDS)]
-    return params, batches
-
-
-def _jax_loss(p, x, y):
-    return jax_cnn.softmax_xent(jax_cnn.prototype_cnn(p, x), y)
-
-
-def _torch_loss(p, x, y):
-    return cnn.softmax_xent(cnn.prototype_cnn(p, x), y)
+    return small_fl_task(ROUNDS)
 
 
 def _run_jax(jfl, params, batches, capture=False):
-    """The JAX trainer's loop; per round the state after it, the draws and
-    (``capture``) the server-phase inputs recorded from inside the compiled
-    round with ``jax.debug.callback``."""
-    state, unravel = jax_trainer.init_server(params, jfl)
-    d = state.w.shape[0]
-    step = jax_trainer.make_fl_step(jfl, unravel, _jax_loss, d)
-    key = jax.random.PRNGKey(jfl.seed)
-    carry = (state.w, state.g, state.age, state.sel_count, state.residual,
-             state.theta, state.ctrl)
-    out = []
-    captured = {}
-    orig_sm = jax_engine_mod.SelectionEngine.select_and_merge
-    orig_sfe = jax_ops.sign_from_energy
-
-    def record(name):
-        return lambda v: captured.__setitem__(name, np.asarray(v))
-
-    def spy_sm(self, g, *a, **kw):
-        jax.debug.callback(record("score"), g)
-        return orig_sm(self, g, *a, **kw)
-
-    def spy_sfe(energy, *a, **kw):
-        jax.debug.callback(record("energy"), energy)
-        return orig_sfe(energy, *a, **kw)
-
-    if capture:
-        jax_engine_mod.SelectionEngine.select_and_merge = spy_sm
-        jax_ops.sign_from_energy = spy_sfe
-    try:
-        for t in range(ROUNDS):
-            key, sub = jax.random.split(key)
-            draws = round_draws(sub, jfl.n_clients, d, jfl.channel)
-            xs, ys = batches[t]
-            w, g, age, sc, res, ts, cs = carry
-            res_out = step(sub, w, g, age, sc, jnp.asarray(xs),
-                           jnp.asarray(ys), res, ts, cs)
-            jax.effects_barrier()
-            (w2, g2, age2, sc2, res2, _, ts2, cs2, _) = res_out
-            out.append({"before": carry,
-                        "after": (w2, g2, age2, sc2, res2, ts2),
-                        "draws": draws, "captured": dict(captured)})
-            carry = (w2, g2, age2, sc2, res2, ts2, cs2)
-    finally:
-        jax_engine_mod.SelectionEngine.select_and_merge = orig_sm
-        jax_ops.sign_from_energy = orig_sfe
-    return out, d
+    """The JAX trainer's loop; with ``capture`` the server-phase inputs
+    (the engine's score, the one-bit vote energy) recorded from inside the
+    compiled round."""
+    spies = ([(jax_engine_mod.SelectionEngine, "select_and_merge", "score",
+               1), (jax_ops, "sign_from_energy", "energy", 0)]
+             if capture else [])
+    return run_jax_rounds(
+        jfl, params, batches,
+        lambda key, d: round_draws(key, jfl.n_clients, d, jfl.channel),
+        spies)
 
 
 def _torch_tstate(ts):
@@ -138,9 +82,8 @@ def test_server_phase_on_jax_aggregate_gives_exact_ages(task, name):
     params, batches = task
     jfl, tfl = _pair(name)
     jax_rounds, d = _run_jax(jfl, params, batches, capture=True)
-    _, unravel = cnn.ravel_params(cnn.params_from_numpy(
-        jax.tree_util.tree_map(np.asarray, params)))
-    step = trainer.make_fl_step(tfl, unravel, _torch_loss, d, device="cpu")
+    _, unravel = cnn.ravel_params(torch_params(params))
+    step = trainer.make_fl_step(tfl, unravel, torch_loss, d, device="cpu")
     for t, rnd in enumerate(jax_rounds):
         w, g, age, sc, res, ts, _ = rnd["before"]
         agg = (rnd["captured"]["energy"] if tfl.one_bit
@@ -175,12 +118,11 @@ def test_whole_rounds_track_the_jax_trainer(task, name):
     params, batches = task
     jfl, tfl = _pair(name)
     jax_rounds, d = _run_jax(jfl, params, batches)
-    state, unravel = trainer.init_server(
-        cnn.params_from_numpy(jax.tree_util.tree_map(np.asarray, params)),
-        tfl, device="cpu")
+    state, unravel = trainer.init_server(torch_params(params), tfl,
+                                         device="cpu")
     np.testing.assert_array_equal(to_np(state.w),
                                   np.asarray(ravel_pytree(params)[0]))
-    step = trainer.make_fl_step(tfl, unravel, _torch_loss, d, device="cpu")
+    step = trainer.make_fl_step(tfl, unravel, torch_loss, d, device="cpu")
     w, g, age, sc = state.w, state.g, state.age, state.sel_count
     res, ts = state.residual, state.theta
     for t, rnd in enumerate(jax_rounds):
@@ -199,10 +141,8 @@ def test_train_runs_and_reports(task):
     params, batches = task
     _, tfl = _pair("one_bit")
     tfl = dataclasses.replace(tfl, error_feedback=True)
-    hist = trainer.train(
-        tfl, cnn.params_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                          params)),
-        _torch_loss, lambda t: batches[t % ROUNDS], device="cpu")
+    hist = trainer.train(tfl, torch_params(params), torch_loss,
+                         lambda t: batches[t % ROUNDS], device="cpu")
     assert hist["n_selected"][0] == hist["d"]
     assert len(hist["round_ms"]) == ROUNDS
     assert all(np.isfinite(hist["mean_aou"]))
@@ -211,14 +151,27 @@ def test_train_runs_and_reports(task):
 
 def test_unsupported_settings_raise():
     _, tfl = _pair("coherent")
-    for change in (dict(backend="exact"), dict(backend="threshold"),
-                   dict(async_lag=1), dict(adaptive_km=True),
-                   dict(scan_rounds=4), dict(policy="randk"),
-                   dict(faults=object()), dict(watchdog=object()),
-                   dict(population=object()), dict(wireless=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.make_fl_step(dataclasses.replace(tfl, **change),
-                                 lambda w: w, _torch_loss, 8, device="cpu")
+    for change, item in ((dict(backend="threshold"), 3),
+                         (dict(async_lag=1), 7), (dict(adaptive_km=True), 5),
+                         (dict(policy="fairk_auto"), 5),
+                         (dict(scan_rounds=4), 7), (dict(faults=object()), 8),
+                         (dict(watchdog=object()), 8),
+                         (dict(population=object()), 8),
+                         (dict(wireless=object()), 8)):
+        for backend in ("packed", "exact"):
+            fl = dataclasses.replace(tfl, **{"backend": backend, **change})
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP Queue 1 item {item}"):
+                trainer.make_fl_step(fl, lambda w: w, torch_loss, 8,
+                                     device="cpu")
+    # the index-form policies run on the exact backend only, as in JAX
+    for policy in ("randk", "toprand", "agetopk"):
+        with pytest.raises(ValueError, match="index arithmetic"):
+            trainer.make_fl_step(dataclasses.replace(tfl, policy=policy),
+                                 lambda w: w, torch_loss, 8, device="cpu")
+        trainer.make_fl_step(
+            dataclasses.replace(tfl, policy=policy, backend="exact"),
+            lambda w: w, torch_loss, 8, device="cpu")
     with pytest.raises(ValueError, match="client_chunk"):
         trainer.make_fl_step(dataclasses.replace(tfl, client_chunk=3),
-                             lambda w: w, _torch_loss, 8, device="cpu")
+                             lambda w: w, torch_loss, 8, device="cpu")

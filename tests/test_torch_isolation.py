@@ -62,6 +62,7 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     from repro_torch.kernels import ops
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fl = trainer.FLConfig(backend="packed", n_clients=2, client_chunk=1)
+    exact = trainer.FLConfig(n_clients=2, client_chunk=1)
     params = {"w": torch.zeros(3)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         device_mod.resolve_device(None)
@@ -73,6 +74,10 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         trainer.make_fl_step(fl, lambda w: w, None, 3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trainer.train(fl, params, None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.make_fl_step(exact, lambda w: w, None, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.train(exact, params, None, None)
     with pytest.raises(ValueError, match="CUDA"):
         ops.fairk_ef_update(torch.zeros(3), torch.zeros(3), torch.zeros(3),
                             0.0, 0.0, mode="kernel")
@@ -83,8 +88,13 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    from repro_torch.kernels import fairk_update, sign_mv
+    from repro_torch.kernels import aou_merge, block_topk, fairk_update
+    from repro_torch.kernels import sign_mv
     x = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        aou_merge.aou_merge_cuda(x, x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_topk.block_topk_cuda(x, 2, 1)
     with pytest.raises(ValueError, match="CUDA"):
         fairk_update.fairk_update_cuda(x, x, x, torch.zeros(2))
     with pytest.raises(ValueError, match="CUDA"):

@@ -3,9 +3,11 @@ kernels are held to on the card) against the JAX package's kernels, run
 both through ``repro.kernels.ref`` and through the Pallas kernels in
 interpret mode.
 
-Exactness: ages, counts, histograms, signs and energies equal exactly;
-``g_t`` and ``residual'`` equal bit for bit (NaN where the reference has
-NaN).  One exception, counted: a magnitude sample within 1e-5 of a
+Exactness: ages, counts, histograms, signs, energies and top-k indices
+equal exactly; ``g_t``, ``residual'``, merged values and top-k values
+equal bit for bit (NaN where the reference has NaN).  ``aou_merge`` is
+held against interpret mode with ages below 119 only: the TPU kernel
+leaves out the ``AGE_CAP`` clip that the oracle and the engine apply.  One exception, counted: a magnitude sample within 1e-5 of a
 quarter-octave bin edge may land one bin apart if XLA's and torch's CPU
 ``log2`` differ in the last place.
 """
@@ -202,18 +204,137 @@ def test_kernel_mode_on_cpu_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ops.sign_from_energy(x, mode="kernel")
     with pytest.raises(ValueError, match="CUDA"):
+        ops.aou_merge(x, x, x, x, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.block_topk(x, 4, 2, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
         ops.fairk_stats_update(x, x, x, 0.0, 0.0, mode="kernel")
     with pytest.raises(ValueError, match="mode"):
         ops.sign_mv(x[None], mode="pallas")
 
 
 def test_counters_count_dispatches_not_cpu_launches():
-    from repro_torch.kernels import fairk_update, sign_mv
+    from repro_torch.kernels import aou_merge, block_topk, fairk_update
+    from repro_torch.kernels import sign_mv
     before = (ops.FAIRK_UPDATE_CALLS, packing.G_READS,
-              fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES)
+              fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
+              aou_merge.LAUNCHES, block_topk.LAUNCHES)
     x = torch.zeros(16)
     ops.fairk_stats_update(x, x, x, 0.0, 0.0)
     ops.sign_mv(x[None])
+    ops.aou_merge(x, x, x, x)
+    ops.two_stage_topk(x, 3, block_size=8)
     after = (ops.FAIRK_UPDATE_CALLS, packing.G_READS,
-             fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES)
-    assert after == (before[0] + 1, before[1] + 1, before[2], before[3])
+             fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
+             aou_merge.LAUNCHES, block_topk.LAUNCHES)
+    assert after == (before[0] + 1, before[1] + 1) + before[2:]
+
+
+def _merge_inputs(d: int, seed: int, max_age: int):
+    """(g_new, g_old, age, mask): ±0.0, NaN and ±Inf values in g_new, a
+    float mask of 0/1 with a few fractional entries."""
+    rng = np.random.default_rng(seed)
+    g_new = rng.normal(size=d).astype(np.float32)
+    g_new[rng.choice(d, 20, replace=False)] = -0.0
+    g_new[:3] = [np.nan, np.inf, -np.inf]
+    g_old = rng.normal(size=d).astype(np.float32)
+    g_old[rng.choice(d, 20, replace=False)] = -0.0
+    age = rng.integers(0, max_age + 1, size=d).astype(np.float32)
+    mask = (rng.random(d) < 0.3).astype(np.float32)
+    mask[rng.choice(d, 10, replace=False)] = 0.5
+    return g_new, g_old, age, mask
+
+
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+@pytest.mark.parametrize("d", [D_KERNEL, 65_536])
+def test_aou_merge_matches_jax(d, jax_mode):
+    # ages below 119: the TPU kernel (interpret) leaves out the AGE_CAP clip
+    args = _merge_inputs(d, seed=d, max_age=118)
+    j = jax_ops.aou_merge(*(jnp.asarray(a) for a in args), mode=jax_mode)
+    t = ops.aou_merge(*(to_torch(a) for a in args))
+    _same_floats(t[0], j[0])
+    _same_floats(t[1], j[1])
+
+
+def test_aou_merge_clips_at_the_cap_as_the_oracle_and_engine():
+    from repro.core import engine as jax_engine
+    d = 3001                                     # ragged
+    g_new, g_old, age, mask = _merge_inputs(d, seed=4, max_age=130)
+    age[:4] = [119.0, 120.0, 121.0, np.nan]
+    mask[:4] = 0.0
+    t = ops.aou_merge(to_torch(g_new), to_torch(g_old), to_torch(age),
+                      to_torch(mask))
+    j_ref = jax_ops.aou_merge(jnp.asarray(g_new), jnp.asarray(g_old),
+                              jnp.asarray(age), jnp.asarray(mask),
+                              mode="ref")
+    j_eng = jax_engine.masked_merge(jnp.asarray(g_new), jnp.asarray(g_old),
+                                    jnp.asarray(age), jnp.asarray(mask))
+    for j in (j_ref, j_eng):
+        _same_floats(t[0], j[0])
+        _same_floats(t[1], j[1])
+    assert float(np.nanmax(to_np(t[1]))) == packing.AGE_CAP
+    assert np.isnan(to_np(t[1])[3])
+
+
+def _topk_input(d: int, seed: int) -> np.ndarray:
+    """Finite values with injected ties: repeated magnitudes of both signs
+    inside and across blocks, and runs of exact zeros."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=d).astype(np.float32)
+    x[rng.choice(d, d // 10, replace=False)] = 1.5
+    x[rng.choice(d, d // 10, replace=False)] = -1.5
+    x[rng.choice(d, d // 20, replace=False)] = 0.0
+    x[rng.choice(d, d // 20, replace=False)] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+@pytest.mark.parametrize("d,bs,m", [(4096, 512, 8), (8192, 1024, 40),
+                                    (3000, 1000, 1), (2048, 256, 256)])
+def test_block_topk_matches_jax(d, bs, m, jax_mode):
+    x = _topk_input(d, seed=d + m)
+    jv, ji = jax_ops.block_topk(jnp.asarray(x), bs, m, mode=jax_mode)
+    tv, ti = ops.block_topk(to_torch(x), bs, m)
+    assert tv.shape == (d // bs, m) and ti.dtype == torch.int32
+    _same_floats(tv, jv)
+    np.testing.assert_array_equal(to_np(ti), np.asarray(ji))
+
+
+@pytest.mark.parametrize("k,bs,m", [(40, 512, None), (300, 1024, None),
+                                    (100, 256, 4)])
+def test_two_stage_topk_matches_jax(k, bs, m):
+    x = _topk_input(8192, seed=k)
+    jv, ji = jax_ops.two_stage_topk(jnp.asarray(x), k, block_size=bs, m=m,
+                                    mode="interpret")
+    tv, ti = ops.two_stage_topk(to_torch(x), k, block_size=bs, m=m)
+    _same_floats(tv, jv)
+    np.testing.assert_array_equal(to_np(ti), np.asarray(ji))
+    if m is None:
+        # exact here: the global stable-sort top-k of |x|
+        order = torch.sort(to_torch(np.abs(x)), descending=True,
+                           stable=True).indices[:k]
+        np.testing.assert_array_equal(to_np(ti), to_np(order))
+
+
+def test_global_topk_from_candidates_matches_jax():
+    rng = np.random.default_rng(9)
+    vals = np.sort(rng.integers(0, 6, size=(16, 8)).astype(np.float32),
+                   axis=1)[:, ::-1].copy()
+    idxs = rng.permutation(16 * 8).astype(np.int32).reshape(16, 8)
+    for k in (1, 17, 128):
+        jv, ji = jax_ops.global_topk_from_candidates(jnp.asarray(vals),
+                                                     jnp.asarray(idxs), k)
+        tv, ti = ops.global_topk_from_candidates(to_torch(vals),
+                                                 to_torch(idxs), k)
+        _same_floats(tv, jv)
+        np.testing.assert_array_equal(to_np(ti), np.asarray(ji))
+
+
+def test_block_topk_shape_checks():
+    x = torch.zeros(1000)
+    with pytest.raises(ValueError, match="divisible"):
+        ops.block_topk(x, 256, 4)
+    with pytest.raises(ValueError, match="m="):
+        ops.block_topk(x, 500, 501)
+    with pytest.raises(ValueError, match="divisible"):
+        ops.two_stage_topk(x, 10, block_size=4096)

@@ -9,7 +9,7 @@ caps torch at two threads: the suite runs under several xdist workers.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +18,11 @@ import torch
 
 from repro.core import keys as keys_mod
 from repro.core import oac as jax_oac
+from repro.data import partition as jax_partition
+from repro.data import synthetic as jax_synthetic
+from repro.fl import trainer as jax_trainer
+from repro.models import cnn as jax_cnn
+from repro_torch.models import cnn
 
 torch.set_num_threads(2)
 
@@ -96,3 +101,111 @@ def round_draws(key, n_clients: int, d: int, channel
     h = jax_oac.sample_fading(ks["sel"], n_clients, channel)
     z = jax.random.normal(ks["ch"], (d,), jnp.float32)
     return {"h": np.asarray(h), "z": np.asarray(z)}
+
+
+def exact_round_draws(key, fl, d: int) -> Dict[str, np.ndarray]:
+    """The JAX trainer's draws on the exact backend for one round key:
+    ``u`` (d,) from ``sel`` for toprand / randk; on the coherent uplink
+    fading ``h`` and noise ``z`` (k,) from the two halves of ``ch``, on
+    the one-bit uplink ``z`` (k,) from ``ch`` itself."""
+    ks = keys_mod.split_named(key, ("sel", "ch"))
+    k = fl.budgets(d)[0]
+    draws = {}
+    if fl.policy in ("toprand", "randk"):
+        draws["u"] = np.asarray(jax.random.uniform(ks["sel"], (d,),
+                                                   jnp.float32))
+    if fl.one_bit:
+        draws["z"] = np.asarray(jax.random.normal(ks["ch"], (k,),
+                                                  jnp.float32))
+    else:
+        key_h, key_z = jax.random.split(ks["ch"])
+        draws["h"] = np.asarray(jax_oac.sample_fading(key_h, fl.n_clients,
+                                                      fl.channel))
+        draws["z"] = np.asarray(jax.random.normal(key_z, (k,), jnp.float32))
+    return draws
+
+
+def engine_draws(key, d: int) -> Dict[str, np.ndarray]:
+    """The exact engine's draws for one key: the uniform ``u`` of the
+    random policies from the selection half, the standard-normal noise
+    ``noise`` (d,) from the other."""
+    key_sel, key_noise = jax.random.split(key)
+    return {"u": np.asarray(jax.random.uniform(key_sel, (d,), jnp.float32)),
+            "noise": np.asarray(jax.random.normal(key_noise, (d,),
+                                                  jnp.float32))}
+
+
+# --- the FL slice on a narrow prototype CNN --------------------------------
+
+def small_fl_task(rounds: int):
+    """(params, batches): a narrow prototype CNN (16x16x1 input, widths
+    (4, 6, 8), fc 16, 10 classes, d = 1400) and ``rounds`` rounds of client
+    batches for N = 4 clients, H = 2, B = 3 over a Dir(0.3) split."""
+    spec = jax_synthetic.DatasetSpec("t", (16, 16, 1), 10, 400, 50,
+                                     sparsity=0.1)
+    (xtr, ytr), _ = jax_synthetic.make_dataset(spec, seed=0)
+    parts = jax_partition.dirichlet_partition(ytr, 4, 0.3, seed=0)
+    params = jax_cnn.init_prototype_cnn(jax.random.PRNGKey(1), (16, 16, 1),
+                                        10, (4, 6, 8), 16)
+    batches = [jax_partition.client_batches(xtr, ytr, parts, 3, 2, seed=t)
+               for t in range(rounds)]
+    return params, batches
+
+
+def jax_loss(p, x, y):
+    return jax_cnn.softmax_xent(jax_cnn.prototype_cnn(p, x), y)
+
+
+def torch_loss(p, x, y):
+    return cnn.softmax_xent(cnn.prototype_cnn(p, x), y)
+
+
+def torch_params(params):
+    return cnn.params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
+
+
+def run_jax_rounds(jfl, params, batches, draws_fn: Callable,
+                   spies: Sequence[Tuple[object, str, str, int]] = ()):
+    """The JAX trainer's loop over ``batches``; per round the state before
+    and after it, the draws (``draws_fn(key, d)``) and the values recorded
+    from inside the compiled round.  ``spies``: (module, function name,
+    record name, argument position) — the argument is recorded with
+    ``jax.debug.callback`` every time the round calls the function."""
+    state, unravel = jax_trainer.init_server(params, jfl)
+    d = state.w.shape[0]
+    captured = {}
+    originals = [(mod, name, getattr(mod, name))
+                 for mod, name, _, _ in spies]
+
+    def spy(orig, record, pos):
+        def wrapped(*a, **kw):
+            jax.debug.callback(
+                lambda v: captured.__setitem__(record, np.asarray(v)),
+                a[pos])
+            return orig(*a, **kw)
+        return wrapped
+
+    for (mod, name, record, pos), (_, _, orig) in zip(spies, originals):
+        setattr(mod, name, spy(orig, record, pos))
+    try:
+        step = jax_trainer.make_fl_step(jfl, unravel, jax_loss, d)
+        key = jax.random.PRNGKey(jfl.seed)
+        carry = (state.w, state.g, state.age, state.sel_count,
+                 state.residual, state.theta, state.ctrl)
+        out = []
+        for xs, ys in batches:
+            key, sub = jax.random.split(key)
+            w, g, age, sc, res, ts, cs = carry
+            (w2, g2, age2, sc2, res2, _, ts2, cs2, _) = step(
+                sub, w, g, age, sc, jnp.asarray(xs), jnp.asarray(ys), res,
+                ts, cs)
+            jax.effects_barrier()
+            out.append({"before": carry,
+                        "after": (w2, g2, age2, sc2, res2, ts2),
+                        "draws": draws_fn(sub, d),
+                        "captured": dict(captured)})
+            carry = (w2, g2, age2, sc2, res2, ts2, cs2)
+    finally:
+        for mod, name, orig in originals:
+            setattr(mod, name, orig)
+    return out, d
