@@ -16,9 +16,13 @@ failure):
    with the build time and the ``-Xptxas -v`` report;
 3. kernels against their plain versions at the shapes their paths give
    them (d = 109,210 and the exact one-bit row of k = 21,842; 2^24 for
-   ``aou_merge`` and ``block_topk``, ties included): merged values bit for
-   bit, ages, counts, histograms, signs, energies and top-k indices
-   exactly; timed with CUDA events;
+   ``fairk_update``, ``aou_merge`` and ``block_topk``, ties included, and
+   ``block_topk`` on NaN, ±inf, blocks of one value and m = block_size):
+   merged values bit for bit, ages, counts, histograms, signs, energies
+   and top-k indices exactly; timed with CUDA events beside the launch
+   floor (one graph-replayed one-element ``add_``) and, for the top-k,
+   ``torch.topk``; a warm ``fairk_update`` call must make exactly one
+   device operation (``torch.profiler``);
 4. the packed path at full width: the FL round on the 109,210-parameter
    prototype CNN over 50 EMNIST-shaped synthetic clients — (a) 5 coherent
    rounds, (b) 5 one-bit rounds, (c) 3 coherent rounds with error
@@ -144,6 +148,29 @@ def _time_ms(fn, blocks: int = 50, per_block: int = 20):
     return out[0], out[1]
 
 
+def _device_ops(fn, sessions: int = 3):
+    """The device operations (kernels, memsets, copies) one warm call of
+    ``fn`` makes, by name, from ``torch.profiler``.  A session that
+    recorded no device activity at all (the tracer sometimes drops a
+    session's records) is repeated, up to ``sessions`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ops = {}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if ops:
+            break
+    return ops
+
+
 def _bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
@@ -170,29 +197,34 @@ def kernel_phase(dev):
         return torch.as_tensor(np.ascontiguousarray(x, np.float32),
                                device=dev)
 
-    g = (rng.standard_t(3, size=D) * 0.1).astype(np.float32)
-    g[rng.choice(D, 100, replace=False)] = 0.0
-    g[rng.choice(D, 100, replace=False)] = -0.0
-    age = rng.integers(0, 131, size=D).astype(np.float32)
-    for start in (137, 4096, 50_001, 99_999):
-        age[start:start + 97] = -1.0                 # interior pad runs
-    age[-5:] = -1.0
-    fresh = np.where(rng.random(D) < 0.5, 1.0, -1.0).astype(np.float32)
-    bad = g.copy()
-    pos = rng.choice(D, 300, replace=False)
-    bad[pos[:100]], bad[pos[100:200]], bad[pos[200:]] = np.nan, np.inf, -np.inf
-    bad_fresh = fresh.copy()
-    bad_fresh[rng.choice(D, 30, replace=False)] = np.nan
-    t = {"g": vec(g), "g_prev": vec(rng.normal(size=D)), "age": vec(age),
-         "res": vec(rng.normal(size=D) * 0.05), "fresh": vec(fresh),
-         "bad": vec(bad), "bad_fresh": vec(bad_fresh)}
-    finite = np.abs(g)
-    thetas = [(0.0, 0.0), (float(np.quantile(finite, 0.9)), 40.5),
-              (float("inf"), 60.5)]
+    def fairk_inputs(d):
+        g = (rng.standard_t(3, size=d) * 0.1).astype(np.float32)
+        g[rng.choice(d, 100, replace=False)] = 0.0
+        g[rng.choice(d, 100, replace=False)] = -0.0
+        age = rng.integers(0, 131, size=d).astype(np.float32)
+        for start in (137, 4096, 50_001, 99_999):
+            age[start:start + 97] = -1.0             # interior pad runs
+        age[-5:] = -1.0
+        fresh = np.where(rng.random(d) < 0.5, 1.0, -1.0).astype(np.float32)
+        bad = g.copy()
+        pos = rng.choice(d, 300, replace=False)
+        bad[pos[:100]], bad[pos[100:200]], bad[pos[200:]] = (np.nan, np.inf,
+                                                             -np.inf)
+        bad_fresh = fresh.copy()
+        bad_fresh[rng.choice(d, 30, replace=False)] = np.nan
+        t = {"g": vec(g), "g_prev": vec(rng.normal(size=d)),
+             "age": vec(age), "res": vec(rng.normal(size=d) * 0.05),
+             "fresh": vec(fresh), "bad": vec(bad),
+             "bad_fresh": vec(bad_fresh)}
+        thetas = [(0.0, 0.0), (float(np.quantile(np.abs(g), 0.9)), 40.5),
+                  (float("inf"), 60.5)]
+        return t, thetas
 
     records = {}
 
-    def fairk_case(name, stats, res, fresh_key, g_key, sanitize, n_in, n_out):
+    def fairk_case(t, thetas, name, stats, res, fresh_key, g_key, sanitize,
+                   n_in, n_out):
+        d = t["g"].shape[0]
         errs = []
         for tm, ta in thetas:
             kw = dict(residual=t["res"] if res else None,
@@ -208,30 +240,52 @@ def kernel_phase(dev):
                 errs.append(_same(k_out[2], p_out[2], f"{name} residual'"))
             if stats:
                 for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+                    check(k_out[3][key].dtype == torch.float32,
+                          f"{name} {key}: {k_out[3][key].dtype}")
                     errs.append(_same(k_out[3][key], p_out[3][key],
                                       f"{name} {key}"))
                 if tm == 0.0:
-                    check(float(k_out[3]["n_sel"]) > 0.9 * D,
+                    check(float(k_out[3]["n_sel"]) > 0.9 * d,
                           f"{name}: theta=0 selected {k_out[3]['n_sel']}")
         tm, ta = (torch.tensor(v, device=dev) for v in thetas[1])
         kw = dict(residual=t["res"] if res else None,
                   fresh=t[fresh_key] if fresh_key else None,
                   sanitize=sanitize)
         fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+        # one warm call with float32 thresholds on the card is one device
+        # operation: the kernel (no stack, memset or cast around it)
+        on_card = _device_ops(lambda: fn(t[g_key], t["g_prev"], t["age"],
+                                         tm, ta, mode="kernel", **kw))
+        check(sum(on_card.values()) == 1
+              and "fairk_kernel" in next(iter(on_card)),
+              f"{name}: one call made the device operations {on_card}")
         ms = {m: _time_ms(lambda m=m: fn(t[g_key], t["g_prev"], t["age"],
-                                         tm, ta, mode=m, **kw))
+                                         tm, ta, mode=m, **kw),
+                          blocks=50 if d == D else 10)
               for m in ("kernel", "plain")}
-        n_bytes = 4 * D * (n_in + n_out) + (4 * 258 if stats else 0) + 8
-        bound, by = _bound_ms(n_bytes, (12 + (3 if res else 0)) * D)
+        n_bytes = 4 * d * (n_in + n_out) + (4 * 258 if stats else 0) + 8
+        bound, by = _bound_ms(n_bytes, (12 + (3 if res else 0)) * d)
         records[name] = _record(max(errs), ms, n_bytes, bound, by)
+        records[name]["device_ops"] = sum(on_card.values())
 
-    fairk_case("fairk_update[stats]", True, False, None, "g", False, 3, 2)
-    fairk_case("fairk_update[stats+fresh]", True, False, "fresh", "g", False,
-               4, 2)
-    fairk_case("fairk_update[stats+res]", True, True, None, "g", False, 4, 3)
-    fairk_case("fairk_update[res]", False, True, None, "g", False, 4, 3)
-    fairk_case("fairk_update[stats+sanitize]", True, True, "bad_fresh",
-               "bad", True, 5, 3)
+    t, thetas = fairk_inputs(D)
+    fairk_case(t, thetas, "fairk_update[stats]", True, False, None, "g",
+               False, 3, 2)
+    fairk_case(t, thetas, "fairk_update[stats+fresh]", True, False, "fresh",
+               "g", False, 4, 2)
+    fairk_case(t, thetas, "fairk_update[stats+res]", True, True, None, "g",
+               False, 4, 3)
+    fairk_case(t, thetas, "fairk_update[res]", False, True, None, "g", False,
+               4, 3)
+    fairk_case(t, thetas, "fairk_update[stats+sanitize]", True, True,
+               "bad_fresh", "bad", True, 5, 3)
+    # where the bytes bound sets the pace: the launch path's sizes
+    big, big_thetas = fairk_inputs(BIG)
+    fairk_case(big, big_thetas, f"fairk_update[stats][{BIG}]", True, False,
+               None, "g", False, 3, 2)
+    fairk_case(big, big_thetas, f"fairk_update[stats+res][{BIG}]", True,
+               True, None, "g", False, 4, 3)
+    del big
 
     noise = vec(rng.normal(size=D) * 2.0)
     for n in (10, 50):
@@ -277,16 +331,28 @@ def kernel_phase(dev):
         n_bytes = 4 * width * (3 + (1 if noisy else 0))
         bound, by = _bound_ms(n_bytes, 2 * width)
         records[name] = _record(err, ms, n_bytes, bound, by)
-    merge_and_topk_checks(dev, rng, records)
+    extras = merge_and_topk_checks(dev, rng, records)
+    # the card's floor for one graph-replayed launch, to subtract from the
+    # kernels' device times when ranking them
+    one = torch.zeros(1, device=dev)
+    extras["launch_floor_ms"] = _time_ms(lambda: one.add_(0))[0]
     torch.cuda.synchronize()
+    print(f"launch floor: one graph-replayed add_(0) on one element, "
+          f"{extras['launch_floor_ms'] * 1e3:.2f} us", flush=True)
     for name, rec in records.items():
+        lib = ("" if rec["library_ms"] is None else
+               f", library {rec['library_ms'] * 1e3:.2f} us")
         print(f"kernel {name}: exact match; device {rec['ms'] * 1e3:.2f} us "
-              f"(plain {rec['plain_ms'] * 1e3:.2f} us), eager "
+              f"(plain {rec['plain_ms'] * 1e3:.2f} us{lib}), eager "
               f"{rec['eager_ms'] * 1e3:.2f} us (plain "
               f"{rec['plain_eager_ms'] * 1e3:.2f} us), bound "
               f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']}",
               flush=True)
-    return records
+    two = extras["two_stage_topk"]
+    print(f"two_stage_topk(d = {BIG}, k = {two['k']}): device "
+          f"{two['ms'] * 1e3:.2f} us (block_topk + stage 2), torch.topk of "
+          f"|x| {two['library_ms'] * 1e3:.2f} us", flush=True)
+    return records, extras
 
 
 def merge_and_topk_checks(dev, rng, records):
@@ -294,7 +360,10 @@ def merge_and_topk_checks(dev, rng, records):
     the cap) and 2^24; ``block_topk`` at 2^24 for every (block_size, m) of
     ``TOPK_CASES`` with injected ties, its library yardstick
     ``torch.topk`` on the precomputed |x| (tie order unspecified, timed
-    only); ``two_stage_topk`` at k = d/100 against the stable-sort top-k."""
+    only); ``block_topk`` on NaNs of both signs, infinities of both signs,
+    blocks of one value and m = block_size (untimed); ``two_stage_topk``
+    at k = d/100 against the stable-sort top-k, timed beside
+    ``torch.topk(x.abs(), k)``.  Returns the two-stage timing."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -340,12 +409,42 @@ def merge_and_topk_checks(dev, rng, records):
         n_bytes = 4 * BIG + 8 * nb * m
         records[name] = _record(err, ms, n_bytes,
                                 *_bound_ms(n_bytes, 2 * BIG), lib_ms)
+    edge_d = 16 * 4096
+    for kind in ("nan", "inf", "equal"):
+        e = rng.normal(size=edge_d).astype(np.float32)
+        e[rng.random(edge_d) < 0.01] = 1.25
+        if kind == "nan":
+            e[rng.random(edge_d) < 0.01] = np.nan
+            e[rng.random(edge_d) < 0.01] = -np.nan
+        elif kind == "inf":
+            e[rng.random(edge_d) < 0.01] = np.inf
+            e[rng.random(edge_d) < 0.01] = -np.inf
+        else:
+            e[:4096] = -2.5                  # blocks of one magnitude
+            e[4096:8192] = 0.0
+        et = torch.as_tensor(e, device=dev)
+        for bs, m in TOPK_CASES + ((4096, 4096),):
+            name = f"block_topk[{edge_d}/{bs}x{m}, {kind}]"
+            kv, ki = ops.block_topk(et, bs, m, mode="kernel")
+            pv, pi = ops.block_topk(et, bs, m, mode="plain")
+            _same(kv, pv, f"{name} values")
+            _same(ki, pi, f"{name} indices")
+    # m = block_size, as the wrapper accepts it
+    et = torch.as_tensor(x[:4 * 4096], device=dev)
+    for a, b in zip(ops.block_topk(et, 4096, 4096, mode="kernel"),
+                    ops.block_topk(et, 4096, 4096, mode="plain")):
+        _same(a, b, "block_topk[16384/4096x4096]")
     k = BIG // 100
     vals, idxs = ops.two_stage_topk(xt, k, mode="kernel")
     ref_vals, ref_idx = torch.sort(absx, descending=True, stable=True)
     _same(vals, ref_vals[:k], "two_stage_topk values")
     check(bool(torch.equal(idxs.long(), ref_idx[:k])),
           "two_stage_topk indices differ from the stable-sort top-k")
+    ms = _time_ms(lambda: ops.two_stage_topk(xt, k, mode="kernel"),
+                  blocks=10)[0]
+    lib_ms = _time_ms(lambda: torch.topk(xt.abs(), k), blocks=10)[0]
+    return {"two_stage_topk": {"d": BIG, "k": k, "ms": ms,
+                               "library_ms": lib_ms}}
 
 
 # --------------------------------------------------------------------------
@@ -684,7 +783,7 @@ def main(argv) -> None:
         lines = [ln for ln in report.splitlines() if "ptxas" in ln]
         print(f"ptxas {src}:\n  " + "\n  ".join(lines), flush=True)
 
-    records = kernel_phase(dev)
+    records, extras = kernel_phase(dev)
     if "--kernels" in argv:
         print("kernels only: the paths were not driven", flush=True)
         return
@@ -748,7 +847,8 @@ def main(argv) -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "build": {
             k: v for k, v in build.BUILD_INFO.items() if k != "ptxas"},
-         "variants": records, "paths": summary, "engine": engine_summary,
+         "variants": records, "extras": extras, "paths": summary,
+         "engine": engine_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))

@@ -39,18 +39,18 @@ BUILD_INFO: Dict[str, object] = {}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # g, fresh, g_prev, age, res, thetas, g_t, age_out, res_out, stats,
-    # d, stride, sanitize, stream
-    "repro_fairk_update": [_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.c_int, _P],
+    # g, fresh, g_prev, age, res, theta_m, theta_a, g_t, age_out, res_out,
+    # stats, d, stride, slot, sanitize, stream
+    "repro_fairk_update": [_P] * 11 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, _P],
     # votes, noise, signs, energy, n, k, stream
     "repro_sign_mv": [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P],
     # energy_in, noise, signs, energy_out, k, stream
     "repro_sign_from_energy": [_P] * 4 + [ctypes.c_longlong, _P],
     # g_new, g_old, age, mask, g_out, age_out, d, stream
     "repro_aou_merge": [_P] * 6 + [ctypes.c_longlong, _P],
-    # x, vals, idxs, nb, block_size, m, stream
-    "repro_block_topk": [_P] * 3 + [ctypes.c_longlong, ctypes.c_int,
+    # x, vals, idxs, scratch, nb, block_size, m, stream
+    "repro_block_topk": [_P] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_int, _P],
 }
 

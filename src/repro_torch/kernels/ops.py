@@ -45,11 +45,10 @@ def _f32(t: Optional[Tensor]) -> Optional[Tensor]:
     return None if t is None else t.to(torch.float32).contiguous()
 
 
-def _thetas(theta_m, theta_a, device) -> Tensor:
-    return torch.stack([
-        torch.as_tensor(theta_m, dtype=torch.float32, device=device).reshape(()),
-        torch.as_tensor(theta_a, dtype=torch.float32, device=device).reshape(()),
-    ])
+def _theta(v, device) -> Tensor:
+    """A threshold as a 0-dim float32 tensor on ``device``: a view of a
+    float32 tensor already there (no device operation), else a copy."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
 
 
 def aou_merge(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor,
@@ -128,13 +127,13 @@ def fairk_ef_update(g: Tensor, g_prev: Tensor, age: Tensor, theta_m,
     global FAIRK_UPDATE_CALLS
     FAIRK_UPDATE_CALLS += 1
     packing.G_READS += 1
-    thetas = _thetas(theta_m, theta_a, g.device)
+    tm, ta = _theta(theta_m, g.device), _theta(theta_a, g.device)
     if resolve_mode(mode, g) == "plain":
-        return ref.fairk_ef_update_ref(g, g_prev, age, thetas[0], thetas[1],
+        return ref.fairk_ef_update_ref(g, g_prev, age, tm, ta,
                                        residual=residual, fresh=fresh,
                                        sanitize=sanitize)
     g_t, age_out, res_out, _ = fk.fairk_update_cuda(
-        _f32(g), _f32(g_prev), _f32(age), thetas, residual=_f32(residual),
+        _f32(g), _f32(g_prev), _f32(age), tm, ta, residual=_f32(residual),
         fresh=_f32(fresh), stats_stride=0, sanitize=sanitize)
     return g_t, age_out, res_out
 
@@ -147,20 +146,22 @@ def fairk_stats_update(g: Tensor, g_prev: Tensor, age: Tensor, theta_m,
                                   Dict[str, Tensor]]:
     """``fairk_ef_update`` that also returns the selection statistics from
     the same pass: ``n_sel``, ``n_sel_m`` and the strided ``mag_hist`` /
-    ``age_hist`` (sample stride ``packing.hist_stride(d)``)."""
+    ``age_hist`` (sample stride ``packing.hist_stride(d)``).  On the card,
+    with float32 inputs and thresholds already there, the call is one
+    device operation: the kernel writes the statistics row, and the four
+    entries are views of it."""
     global FAIRK_UPDATE_CALLS
     FAIRK_UPDATE_CALLS += 1
     packing.G_READS += 1
-    thetas = _thetas(theta_m, theta_a, g.device)
+    tm, ta = _theta(theta_m, g.device), _theta(theta_a, g.device)
     stride = packing.hist_stride(g.shape[0])
     if resolve_mode(mode, g) == "plain":
         return ref.fairk_stats_update_ref(
-            g, g_prev, age, thetas[0], thetas[1], residual=residual,
-            fresh=fresh, stats_stride=stride, sanitize=sanitize)
-    g_t, age_out, res_out, acc = fk.fairk_update_cuda(
-        _f32(g), _f32(g_prev), _f32(age), thetas, residual=_f32(residual),
+            g, g_prev, age, tm, ta, residual=residual, fresh=fresh,
+            stats_stride=stride, sanitize=sanitize)
+    g_t, age_out, res_out, vec = fk.fairk_update_cuda(
+        _f32(g), _f32(g_prev), _f32(age), tm, ta, residual=_f32(residual),
         fresh=_f32(fresh), stats_stride=stride, sanitize=sanitize)
-    vec = acc.to(torch.float32)
     stats = {"n_sel": vec[fk.STATS_N_SEL], "n_sel_m": vec[fk.STATS_N_SEL_M],
              "mag_hist": vec[fk.STATS_MAG_OFF:fk.STATS_AGE_OFF],
              "age_hist": vec[fk.STATS_AGE_OFF:fk.STATS_SIZE]}

@@ -128,18 +128,39 @@ def test_aou_merge_kernel_matches_plain(cuda, d):
         _same(a, b)
 
 
-@pytest.mark.parametrize("d,bs,m", [(2**20, 4096, 16), (2**20, 4096, 164),
-                                    (2**20, 1024, 8), (65_536, 256, 256),
-                                    (3 * 16_384, 16_384, 33),
-                                    (2 * 57_344, 57_344, 5), (1000, 1000, 1)])
-def test_block_topk_kernel_matches_plain(cuda, d, bs, m):
+def _topk_case(d, bs, m, kind):
+    """Ties inside and across blocks (both signs, exact zeros) plus, by
+    ``kind``: NaNs of both signs, infinities of both signs, every value
+    of a block equal, or nothing more (``"ties"``)."""
     rng = np.random.default_rng(d + m)
     x = rng.normal(size=d).astype(np.float32)
-    # ties inside and across blocks, both signs, and exact zeros
     x[rng.random(d) < 0.2] = 1.25
     x[rng.random(d) < 0.1] = -1.25
     x[rng.random(d) < 0.05] = -0.0
-    xt = torch.as_tensor(x, device=cuda)
+    if kind == "nan":
+        x[rng.random(d) < 0.01] = np.nan
+        x[rng.random(d) < 0.01] = -np.nan
+        x[:8] = [1.0, np.nan, 3.0, -np.nan, 3.0, 0.0, -0.0, 2.0]
+    elif kind == "inf":
+        x[rng.random(d) < 0.01] = np.inf
+        x[rng.random(d) < 0.01] = -np.inf
+    elif kind == "equal":
+        x[:bs] = -2.5                      # first block: all one magnitude
+        x[bs:2 * bs] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("kind", ["ties", "nan", "inf", "equal"])
+@pytest.mark.parametrize("d,bs,m", [(2**20, 4096, 16), (2**20, 4096, 164),
+                                    (2**20, 1024, 8), (65_536, 256, 256),
+                                    (3 * 16_384, 16_384, 33),
+                                    (2 * 57_344, 57_344, 5), (1000, 1000, 1),
+                                    (4 * 4096, 4096, 4096),
+                                    (2 * 57_344, 57_344, 57_344),
+                                    (4 * 2000, 2000, 1000),
+                                    (3 * 1001, 1001, 7)])
+def test_block_topk_kernel_matches_plain(cuda, d, bs, m, kind):
+    xt = torch.as_tensor(_topk_case(d, bs, m, kind), device=cuda)
     kv, ki = ops.block_topk(xt, bs, m, mode="kernel")
     pv, pi = ops.block_topk(xt, bs, m, mode="plain")
     _same(kv, pv)
@@ -155,6 +176,63 @@ def test_two_stage_topk_is_the_stable_top_k(cuda):
     ref_vals, ref_idx = torch.sort(x.abs(), descending=True, stable=True)
     _same(vals, ref_vals[:k])
     assert torch.equal(idxs.long(), ref_idx[:k])
+
+
+@pytest.mark.parametrize("stats", [False, True])
+def test_fairk_kernel_takes_unaligned_operands(cuda, stats):
+    """Views one float past a 16-byte boundary take the scalar path."""
+    x = _inputs(5001, seed=9, dev=cuda)
+    g, g_prev, age, res = (x[k][1:] for k in ("g", "g_prev", "age", "res"))
+    fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+    k = fn(g, g_prev, age, x["tm"], x["ta"], residual=res, mode="kernel")
+    p = fn(g, g_prev, age, x["tm"], x["ta"], residual=res, mode="plain")
+    for a, b in zip(k[:3], p[:3]):
+        _same(a, b)
+    if stats:
+        for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+            _same(k[3][key], p[3][key])
+
+
+def test_fairk_stats_row_resets_between_calls(cuda):
+    """Three calls in a row, each on other thresholds: the float32 row
+    equals the plain version's every time, so the accumulator and the
+    ticket the last block resets start at zero for the next call."""
+    x = _inputs(109_210, seed=11, dev=cuda)
+    for tm, ta in ((x["tm"], x["ta"]), (0.0, 0.0), (x["tm"] * 2, 30.5)):
+        k = ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], tm, ta,
+                                   residual=x["res"], mode="kernel")
+        p = ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], tm, ta,
+                                   residual=x["res"], mode="plain")
+        for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+            assert k[3][key].dtype == torch.float32
+            _same(k[3][key], p[3][key])
+
+
+@pytest.mark.parametrize("d", [109_210, 2**22])
+def test_fairk_stats_update_is_one_device_kernel(cuda, d):
+    from torch.profiler import ProfilerActivity, profile
+    x = _inputs(d, seed=5, dev=cuda)
+    tm = torch.tensor(x["tm"], device=cuda)
+    ta = torch.tensor(x["ta"], device=cuda)
+
+    def call():
+        return ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], tm, ta,
+                                      residual=x["res"])
+    call()
+    torch.cuda.synchronize()
+    # a session with no device records at all is the tracer dropping them
+    # (the kernel surely ran): ask again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ops_on_card = {ev.key: ev.count for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if ops_on_card:
+            break
+    assert sum(ops_on_card.values()) == 1, ops_on_card
+    assert "fairk_kernel" in next(iter(ops_on_card))
 
 
 def test_exact_engine_kernel_matches_plain(cuda):
@@ -200,13 +278,16 @@ def test_dispatch_launches_on_cuda_and_counts(cuda):
 
 def test_wrappers_check_their_operands(cuda):
     x = _inputs(64, seed=2, dev=cuda)
-    thetas = torch.zeros(2, device=cuda)
+    theta = torch.zeros((), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         fairk_update.fairk_update_cuda(x["g"].double(), x["g_prev"],
-                                       x["age"], thetas)
+                                       x["age"], theta, theta)
     with pytest.raises(ValueError, match="shape"):
         fairk_update.fairk_update_cuda(x["g"], x["g_prev"][:10], x["age"],
-                                       thetas)
+                                       theta, theta)
+    with pytest.raises(ValueError, match="one float32 value"):
+        fairk_update.fairk_update_cuda(x["g"], x["g_prev"], x["age"],
+                                       torch.zeros(2, device=cuda), theta)
     with pytest.raises(ValueError, match="contiguous"):
         sign_mv.sign_mv_cuda(torch.zeros(8, 4, device=cuda).t())
     with pytest.raises(ValueError, match="shape"):

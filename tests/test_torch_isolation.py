@@ -96,7 +96,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         block_topk.block_topk_cuda(x, 2, 1)
     with pytest.raises(ValueError, match="CUDA"):
-        fairk_update.fairk_update_cuda(x, x, x, torch.zeros(2))
+        fairk_update.fairk_update_cuda(x, x, x, torch.zeros(()),
+                                       torch.zeros(()))
     with pytest.raises(ValueError, match="CUDA"):
         sign_mv.sign_mv_cuda(x[None])
     with pytest.raises(ValueError, match="CUDA"):

@@ -330,6 +330,71 @@ def test_global_topk_from_candidates_matches_jax():
         np.testing.assert_array_equal(to_np(ti), np.asarray(ji))
 
 
+def _topk_edge_input(kind: str, d: int, bs: int) -> np.ndarray:
+    """``_topk_input`` plus NaNs of both signs, infinities of both signs,
+    or whole blocks of one magnitude (the first of -2.5, the second of
+    zeros)."""
+    x = _topk_input(d, seed=d + bs)
+    rng = np.random.default_rng(d - bs)
+    if kind == "nan":
+        x[rng.choice(d, d // 50, replace=False)] = np.nan
+        x[rng.choice(d, d // 50, replace=False)] = -np.nan
+    elif kind == "inf":
+        x[rng.choice(d, d // 50, replace=False)] = np.inf
+        x[rng.choice(d, d // 50, replace=False)] = -np.inf
+    elif kind == "equal":
+        x[:bs] = -2.5
+        x[bs:2 * bs] = 0.0
+    return x
+
+
+def test_block_topk_ranks_nan_first_as_jax():
+    x = np.array([1.0, np.nan, 3.0, -np.nan, 3.0, 0.0, -0.0, 2.0],
+                 np.float32)
+    tv, ti = ops.block_topk(to_torch(x), 8, 5)
+    np.testing.assert_array_equal(to_np(ti), [[1, 3, 2, 4, 7]])
+    for jax_mode in ("ref", "interpret"):
+        jv, ji = jax_ops.block_topk(jnp.asarray(x), 8, 5, mode=jax_mode)
+        np.testing.assert_array_equal(np.asarray(ji), [[1, 3, 2, 4, 7]])
+        _same_floats(tv, jv)
+
+
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+@pytest.mark.parametrize("kind", ["nan", "inf", "equal"])
+@pytest.mark.parametrize("d,bs,m", [(2048, 512, 8), (2048, 512, 1),
+                                    (1024, 256, 256), (1024, 512, 37)])
+def test_block_topk_edge_values_match_jax(d, bs, m, kind, jax_mode):
+    x = _topk_edge_input(kind, d, bs)
+    jv, ji = jax_ops.block_topk(jnp.asarray(x), bs, m, mode=jax_mode)
+    tv, ti = ops.block_topk(to_torch(x), bs, m)
+    _same_floats(tv, jv)
+    np.testing.assert_array_equal(to_np(ti), np.asarray(ji))
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("variant", ["base", "res_fresh_sanitize"])
+def test_fairk_thresholds_as_floats_or_tensors(variant, stats):
+    v, x = _case(variant, seed=13)
+    tm, ta = theta_cases(x["g"], x["age"])["finite"]
+    args = [to_torch(x[k]) for k in ("g", "g_prev", "age")]
+    kw = dict(residual=to_torch(x["residual"]) if v["res"] else None,
+              fresh=to_torch(x["fresh"]) if v["fresh"] else None,
+              sanitize=v["sanitize"], mode="plain")
+    fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+    as_float = fn(*args, float(tm), float(ta), **kw)
+    as_tensor = fn(*args, torch.tensor(tm, dtype=torch.float32),
+                   torch.tensor(ta, dtype=torch.float32), **kw)
+    for a, b in zip(as_float[:3], as_tensor[:3]):
+        if a is None:
+            assert b is None
+        else:
+            _same_floats(a, b)
+    if stats:
+        for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+            assert as_float[3][key].dtype == torch.float32
+            _same_floats(as_float[3][key], as_tensor[3][key])
+
+
 def test_block_topk_shape_checks():
     x = torch.zeros(1000)
     with pytest.raises(ValueError, match="divisible"):

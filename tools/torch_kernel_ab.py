@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time the port's ``fairk_update`` and ``block_topk`` kernels of one tree
+on one NVIDIA GPU, so that two trees (a parent commit and its change) can
+be compared on one card in one run.
+
+    python3 tools/torch_kernel_ab.py --root DIR --label NAME
+
+``DIR`` is the root of a checkout whose ``src/repro_torch`` is measured
+(its kernels build into ``DIR/build``); the timing helpers come from this
+checkout's ``chip_smoke.py``.  Every measured call is first held against
+its plain version (bit for bit).  Measures, with CUDA-graph replay (device
+time) and eager calls (host time):
+
+- the launch floor: one graph-replayed ``t.add_(0)`` on a one-element
+  tensor;
+- ``ops.fairk_stats_update`` [stats] and [stats+res] at d = 109,210 and
+  2^24, and the device operations one warm call makes (``torch.profiler``);
+- ``ops.block_topk`` at 2^24 for every ``chip_smoke.TOPK_CASES`` shape,
+  beside ``torch.topk`` on the same rows;
+- ``ops.two_stage_topk(x, d/100)`` at 2^24 beside ``torch.topk(x.abs(),
+  k)``.
+
+Prints one line per measurement and writes them all to
+``chiprun_out/kernel_ab_<NAME>.json``.  Run alternately on two roots
+(parent, change, change, parent) to compare them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main(argv) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--label", required=True)
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build(force=True)
+    out = {"root": str(root), "card": cs.card_line(),
+           "kind": torch.cuda.get_device_name(0), "rows": {}}
+
+    def put(name, **row):
+        out["rows"][name] = row
+        print(f"{args.label} {name}: " + ", ".join(
+            f"{k} {v}" for k, v in row.items()), flush=True)
+
+    one = torch.zeros(1, device=dev)
+    put("launch_floor", ms=cs._time_ms(lambda: one.add_(0))[0])
+
+    rng = np.random.default_rng(0)
+    for d in (cs.D, cs.BIG):
+        blocks = 50 if d == cs.D else 10
+        g = torch.as_tensor((rng.standard_t(3, size=d) * 0.1
+                             ).astype(np.float32), device=dev)
+        g_prev = torch.as_tensor(rng.normal(size=d).astype(np.float32),
+                                 device=dev)
+        age = torch.as_tensor(rng.integers(0, 131, size=d).astype(
+            np.float32), device=dev)
+        res = torch.as_tensor((rng.normal(size=d) * 0.05).astype(np.float32),
+                              device=dev)
+        tm = torch.quantile(g.abs()[:1 << 20], 0.9).reshape(())
+        ta = torch.tensor(40.5, device=dev)
+        for variant, r in (("stats", None), ("stats+res", res)):
+            def call(mode):
+                return ops.fairk_stats_update(g, g_prev, age, tm, ta,
+                                              residual=r, mode=mode)
+            k_out, p_out = call("kernel"), call("plain")
+            for i in range(3 if r is not None else 2):
+                cs._same(k_out[i], p_out[i], f"fairk {variant} out {i}")
+            for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+                cs._same(k_out[3][key], p_out[3][key], f"fairk {key}")
+            ms, eager = cs._time_ms(lambda: call("kernel"), blocks=blocks)
+            plain = cs._time_ms(lambda: call("plain"), blocks=blocks)[0]
+            n_bytes = 4 * d * (5 if r is None else 7) + 4 * 258 + 8
+            bound, by = cs._bound_ms(n_bytes, (12 + (3 if r is not None
+                                                     else 0)) * d)
+            put(f"fairk_update[{variant}][{d}]", ms=ms, eager_ms=eager,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                device_ops={k[:60]: n for k, n in cs._device_ops(
+                    lambda: call("kernel")).items()})
+
+    x = rng.normal(size=cs.BIG).astype(np.float32)
+    x[rng.random(cs.BIG) < 0.01] = 1.25
+    x[rng.random(cs.BIG) < 0.01] = -1.25
+    xt = torch.as_tensor(x, device=dev)
+    absx = xt.abs()
+    for bs, m in cs.TOPK_CASES:
+        kv, ki = ops.block_topk(xt, bs, m, mode="kernel")
+        pv, pi = ops.block_topk(xt, bs, m, mode="plain")
+        cs._same(kv, pv, "block_topk values")
+        cs._same(ki, pi, "block_topk indices")
+        ms = cs._time_ms(lambda: ops.block_topk(xt, bs, m, mode="kernel"),
+                         blocks=10)[0]
+        lib = cs._time_ms(lambda: torch.topk(absx.view(-1, bs), m, dim=1),
+                          blocks=10)[0]
+        nb = cs.BIG // bs
+        put(f"block_topk[{cs.BIG}/{bs}x{m}]", ms=ms, library_ms=lib,
+            bound_ms=cs._bound_ms(4 * cs.BIG + 8 * nb * m, 2 * cs.BIG)[0])
+    k = cs.BIG // 100
+    ms = cs._time_ms(lambda: ops.two_stage_topk(xt, k, mode="kernel"),
+                     blocks=10)[0]
+    lib = cs._time_ms(lambda: torch.topk(xt.abs(), k), blocks=10)[0]
+    put(f"two_stage_topk[{cs.BIG}, k {k}]", ms=ms, library_ms=lib)
+
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"kernel_ab_{args.label}.json").write_text(
+        json.dumps(out, indent=1))
+    print(out["card"], flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
