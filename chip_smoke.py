@@ -17,12 +17,18 @@ failure):
 3. kernels against their plain versions at the shapes their paths give
    them (d = 109,210 and the exact one-bit row of k = 21,842; 2^24 for
    ``fairk_update``, ``aou_merge`` and ``block_topk``, ties included, and
-   ``block_topk`` on NaN, ±inf, blocks of one value and m = block_size):
-   merged values bit for bit, ages, counts, histograms, signs, energies
-   and top-k indices exactly; timed with CUDA events beside the launch
-   floor (one graph-replayed one-element ``add_``) and, for the top-k,
-   ``torch.topk``; a warm ``fairk_update`` call must make exactly one
-   device operation (``torch.profiler``);
+   ``block_topk`` on NaN, ±inf, blocks of one value and m = block_size;
+   the one-bit chunk fold ``ops.vote_fold`` dense and gathered, and the
+   detection fed the draw ``z`` with and without the packed path's
+   score): merged values bit for bit, ages, counts, histograms, signs,
+   energies, folded accumulators, scores and top-k indices exactly; timed
+   with CUDA events beside the launch floor (one graph-replayed
+   one-element ``add_``) and, for the top-k, ``torch.topk``; a warm
+   ``fairk_update`` call, a warm fold (dense and gathered), the exact
+   path's detection and the packed path's detection with its score must
+   each make exactly one device operation: one kernel node in a CUDA
+   graph captured around the call, and one kernel of the right name in
+   ``torch.profiler``, whose sessions now and then record nothing;
 4. the packed path at full width: the FL round on the 109,210-parameter
    prototype CNN over 50 EMNIST-shaped synthetic clients — (a) 5 coherent
    rounds, (b) 5 one-bit rounds, (c) 3 coherent rounds with error
@@ -39,7 +45,7 @@ failure):
    k = d/100): one ``block_topk`` launch, equal to the stable-sort top-k;
 8. the same rounds (2 each of (a), (b) and exact one-bit) with the
    kernels and with the plain versions from one generator seed: identical
-   ages and weights;
+   ages and weights (max |Δw| = 0);
 9. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
@@ -148,11 +154,13 @@ def _time_ms(fn, blocks: int = 50, per_block: int = 20):
     return out[0], out[1]
 
 
-def _device_ops(fn, sessions: int = 3):
+def _device_ops(fn, sessions: int = 5):
     """The device operations (kernels, memsets, copies) one warm call of
     ``fn`` makes, by name, from ``torch.profiler``.  A session that
     recorded no device activity at all (the tracer sometimes drops a
-    session's records) is repeated, up to ``sessions`` times."""
+    session's records, most often when the session's only work is one
+    launch made right after it starts) is repeated, up to ``sessions``
+    times; the call waits 10 ms into each session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -162,6 +170,7 @@ def _device_ops(fn, sessions: int = 3):
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
             fn()
             torch.cuda.synchronize()
         ops = {ev.key: ev.count for ev in prof.key_averages()
@@ -169,6 +178,58 @@ def _device_ops(fn, sessions: int = 3):
         if ops:
             break
     return ops
+
+
+# CUgraphNodeType values (cuda.h) a captured call may leave
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+               4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
+               10: "mem_alloc", 11: "mem_free"}
+
+
+def _graph_ops(fn):
+    """The device operations one warm call of ``fn`` makes, by type: the
+    nodes of a CUDA graph captured around the call, read through
+    libcuda's ``cuGraphGetNodes``, which no tracer can drop."""
+    import ctypes
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                         ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        name = _NODE_TYPES.get(kind.value, str(kind.value))
+        kinds[name] = kinds.get(name, 0) + 1
+    return kinds
+
+
+def _one_op(fn, kernel: str, name: str) -> int:
+    """Check that one warm call of ``fn`` makes one device operation, the
+    kernel named ``kernel``: the call captured into a CUDA graph leaves
+    exactly one kernel node, and ``torch.profiler``, whenever a session
+    records device activity at all, sees exactly one operation of that
+    name.  Returns the count (1)."""
+    captured = _graph_ops(fn)
+    check(captured == {"kernel": 1},
+          f"{name}: one call captured the device operations {captured}")
+    on_card = _device_ops(fn)
+    check(not on_card or (sum(on_card.values()) == 1
+                          and kernel in next(iter(on_card))),
+          f"{name}: one call made the device operations {on_card}")
+    return 1
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -221,6 +282,11 @@ def kernel_phase(dev):
         return t, thetas
 
     records = {}
+    # the node count itself: two elementwise launches are two kernel nodes
+    one = torch.zeros(1, device=dev)
+    counted = _graph_ops(lambda: one.add_(1.0).mul_(0.5))
+    check(counted == {"kernel": 2},
+          f"the graph count of two launches is {counted}")
 
     def fairk_case(t, thetas, name, stats, res, fresh_key, g_key, sanitize,
                    n_in, n_out):
@@ -254,11 +320,8 @@ def kernel_phase(dev):
         fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
         # one warm call with float32 thresholds on the card is one device
         # operation: the kernel (no stack, memset or cast around it)
-        on_card = _device_ops(lambda: fn(t[g_key], t["g_prev"], t["age"],
-                                         tm, ta, mode="kernel", **kw))
-        check(sum(on_card.values()) == 1
-              and "fairk_kernel" in next(iter(on_card)),
-              f"{name}: one call made the device operations {on_card}")
+        n_ops = _one_op(lambda: fn(t[g_key], t["g_prev"], t["age"], tm, ta,
+                                   mode="kernel", **kw), "fairk_kernel", name)
         ms = {m: _time_ms(lambda m=m: fn(t[g_key], t["g_prev"], t["age"],
                                          tm, ta, mode=m, **kw),
                           blocks=50 if d == D else 10)
@@ -266,7 +329,7 @@ def kernel_phase(dev):
         n_bytes = 4 * d * (n_in + n_out) + (4 * 258 if stats else 0) + 8
         bound, by = _bound_ms(n_bytes, (12 + (3 if res else 0)) * d)
         records[name] = _record(max(errs), ms, n_bytes, bound, by)
-        records[name]["device_ops"] = sum(on_card.values())
+        records[name]["device_ops"] = n_ops
 
     t, thetas = fairk_inputs(D)
     fairk_case(t, thetas, "fairk_update[stats]", True, False, None, "g",
@@ -317,6 +380,7 @@ def kernel_phase(dev):
     n_bytes = 4 * CHUNK * K_ONE_BIT + 8 * K_ONE_BIT
     records[name] = _record(err, ms, n_bytes,
                             *_bound_ms(n_bytes, 2 * CHUNK * K_ONE_BIT))
+    one_bit_call_sites(dev, rng, records)
     energy = vec(2.0 * rng.integers(-25, 26, size=D))
     for noisy, width in ((False, D), (True, D), (True, K_ONE_BIT)):
         e = energy[:width]
@@ -342,17 +406,93 @@ def kernel_phase(dev):
     for name, rec in records.items():
         lib = ("" if rec["library_ms"] is None else
                f", library {rec['library_ms'] * 1e3:.2f} us")
+        n_ops = ("" if "device_ops" not in rec else
+                 f", {rec['device_ops']} device operation per call")
         print(f"kernel {name}: exact match; device {rec['ms'] * 1e3:.2f} us "
               f"(plain {rec['plain_ms'] * 1e3:.2f} us{lib}), eager "
               f"{rec['eager_ms'] * 1e3:.2f} us (plain "
               f"{rec['plain_eager_ms'] * 1e3:.2f} us), bound "
-              f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']}",
+              f"{rec['bound_ms'] * 1e3:.3f} us by {rec['bound_by']}{n_ops}",
               flush=True)
     two = extras["two_stage_topk"]
     print(f"two_stage_topk(d = {BIG}, k = {two['k']}): device "
           f"{two['ms'] * 1e3:.2f} us (block_topk + stage 2), torch.topk of "
           f"|x| {two['library_ms'] * 1e3:.2f} us", flush=True)
     return records, extras
+
+
+def one_bit_call_sites(dev, rng, records):
+    """The one-bit uplink's call sites at the paths' shapes, each one
+    kernel launch: the chunk fold ``ops.vote_fold`` of a (10, 109,210)
+    chunk dense (packed path) and gathered at an unsorted selection of
+    21,842 (exact path) into a non-zero accumulator, the packed detection
+    with its score (109,210, ``noise_std`` 2.0 times the draw ``z``) and
+    the exact detection (21,842, ``quantize.fsk_majority_from_energy``).
+    Kernel against plain bit for bit, one device operation per call,
+    timed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.kernels import ops
+
+    x = rng.normal(size=(CHUNK, D)).astype(np.float32)
+    u = rng.random((CHUNK, D))
+    x[u < 0.05] = 0.0
+    x[(u >= 0.05) & (u < 0.1)] = -0.0
+    x[0, :3] = [np.nan, np.inf, -np.inf]
+    x = torch.as_tensor(x, device=dev)
+    idx = torch.as_tensor(rng.permutation(D)[:K_ONE_BIT], device=dev)
+    for name, sel in ((f"sign_mv[fold {CHUNK}x{D}]", None),
+                      (f"sign_mv[fold {CHUNK}x{D} at {K_ONE_BIT}]", idx)):
+        k = D if sel is None else K_ONE_BIT
+        acc = torch.as_tensor((rng.normal(size=k) * 7.0).astype(np.float32),
+                              device=dev)
+        outs = {}
+        for m in ("kernel", "plain"):
+            outs[m] = acc.clone()
+            check(ops.vote_fold(outs[m], x, sel, mode=m) is outs[m],
+                  f"{name}: the fold did not update acc in place")
+        err = _same(outs["kernel"], outs["plain"], name)
+        n_ops = _one_op(lambda: ops.vote_fold(outs["kernel"], x, sel),
+                        "sign_mv_kernel", name)
+        ms = {m: _time_ms(lambda m=m: ops.vote_fold(outs[m], x, sel,
+                                                    mode=m))
+              for m in ("kernel", "plain")}
+        # x (at idx) read once, idx read once, acc read and written
+        n_bytes = 4 * CHUNK * k + 8 * k + (0 if sel is None else 8 * k)
+        records[name] = _record(err, ms, n_bytes,
+                                *_bound_ms(n_bytes, 2 * CHUNK * k))
+        records[name]["device_ops"] = n_ops
+    energy = torch.as_tensor(2.0 * rng.integers(-25, 26, size=D),
+                             dtype=torch.float32, device=dev)
+    z = torch.as_tensor(rng.normal(size=D).astype(np.float32), device=dev)
+    name = f"sign_from_energy[{D}+z+score]"
+    outs = {m: ops.sign_from_energy(energy, z=z, noise_std=2.0, score=True,
+                                    mode=m) for m in ("kernel", "plain")}
+    err = max(_same(a, b, f"{name} {what}") for a, b, what in zip(
+        outs["kernel"], outs["plain"], ("signs", "energy", "score")))
+    n_ops = _one_op(lambda: ops.sign_from_energy(energy, z=z, noise_std=2.0,
+                                                 score=True),
+                    "sign_from_energy_kernel", name)
+    ms = {m: _time_ms(lambda m=m: ops.sign_from_energy(
+        energy, z=z, noise_std=2.0, score=True, mode=m))
+        for m in ("kernel", "plain")}
+    n_bytes = 4 * D * 5                    # e, z in; signs, energy, score out
+    records[name] = _record(err, ms, n_bytes, *_bound_ms(n_bytes, 8 * D))
+    records[name]["device_ops"] = n_ops
+    e, zk = energy[:K_ONE_BIT], z[:K_ONE_BIT]
+    name = f"sign_from_energy[{K_ONE_BIT}+z]"
+    outs = {m: quantize.fsk_majority_from_energy(e, zk, 2.0, mode=m)
+            for m in ("kernel", "plain")}
+    err = _same(outs["kernel"], outs["plain"], name)
+    n_ops = _one_op(lambda: quantize.fsk_majority_from_energy(e, zk, 2.0),
+                    "sign_from_energy_kernel", name)
+    ms = {m: _time_ms(lambda m=m: quantize.fsk_majority_from_energy(
+        e, zk, 2.0, mode=m)) for m in ("kernel", "plain")}
+    n_bytes = 4 * K_ONE_BIT * 4            # e, z in; signs, energy out
+    records[name] = _record(err, ms, n_bytes,
+                            *_bound_ms(n_bytes, 4 * K_ONE_BIT))
+    records[name]["device_ops"] = n_ops
 
 
 def merge_and_topk_checks(dev, rng, records):
@@ -673,8 +813,9 @@ def topk_path_phase(dev):
 def parity_phase(dev, task):
     """2 rounds each of (a), (b) and exact one-bit with the kernels and
     with the plain versions, same generator seed, cuDNN deterministic and
-    TF32 off: identical ages; ``w`` within 1e-6 on (a) and (b) and
-    identical on exact one-bit (its kernels reduce exact integer votes)."""
+    TF32 off: identical ages and weights (every kernel equals its plain
+    version bit for bit, and the rest of the round runs the same
+    operations)."""
     import dataclasses
     import torch
     from repro_torch.fl import train
@@ -684,7 +825,7 @@ def parity_phase(dev, task):
     params0, loss_fn, _, sample_round = task
     packed, exact = run_configs()
     configs = {**packed, **exact}
-    for name, w_tol in (("a_coherent", 1e-6), ("b_one_bit", 1e-6),
+    for name, w_tol in (("a_coherent", 0.0), ("b_one_bit", 0.0),
                         ("exact_one_bit", 0.0)):
         fl = dataclasses.replace(configs[name], rounds=2)
         runs = {mode: train(fl, params0, loss_fn, sample_round,
@@ -809,8 +950,8 @@ def main(argv) -> None:
     # each kernel's line reports the variant at the shape of the path that
     # launches it most
     main_variant = {"fairk_update": "fairk_update[stats]",
-                    "sign_mv": f"sign_mv[{CHUNK}x{D}]",
-                    "sign_from_energy": f"sign_from_energy[{D}+noise]",
+                    "sign_mv": f"sign_mv[fold {CHUNK}x{D}]",
+                    "sign_from_energy": f"sign_from_energy[{D}+z+score]",
                     "aou_merge": f"aou_merge[{D}]",
                     "block_topk": f"block_topk[{BIG}/4096x164]"}
     sources = {

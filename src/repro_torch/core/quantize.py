@@ -30,14 +30,10 @@ def fsk_majority_from_energy(energy: Tensor, z: Optional[Tensor] = None,
                              noise_std: float = 0.0,
                              mode: Optional[str] = None) -> Tensor:
     """Majority vote over a pre-reduced (k,) vote-energy row: noise
-    ``noise_std · z`` on the energy, then the sign (``sign_from_energy``
-    kernel)."""
-    noise = None
-    if noise_std > 0.0:
-        if z is None:
-            raise ValueError("noise_std > 0 needs a noise draw z")
-        noise = noise_std * z
-    return ops.sign_from_energy(energy, noise=noise, mode=mode)[0]
+    ``noise_std · z`` on the energy, then the sign — one
+    ``sign_from_energy`` kernel that scales the draw itself."""
+    return ops.sign_from_energy(energy, z=z, noise_std=noise_std,
+                                mode=mode)[0]
 
 
 def fsk_majority_vote(votes: Tensor, z: Optional[Tensor] = None,

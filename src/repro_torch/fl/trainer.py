@@ -11,13 +11,15 @@ accumulator, so the (N, d) matrix is never live.
   the six policies) scores ``(g_prev, age)`` before the clients compute,
   so each chunk is gathered at the ``k`` selected coordinates and folded
   into a (k,) row — the faded contraction on the coherent uplink (Eq. 7),
-  the ±1 vote sum (``sign_mv`` kernel) on the one-bit FSK-MV uplink.
+  the ±1 vote sum on the one-bit FSK-MV uplink (``ops.vote_fold``: one
+  ``sign_mv`` launch quantizes, gathers and adds each chunk).
   The receiver tail (noise and 1/N, or the majority vote through
   ``sign_from_energy``), the Eq. 8 scatter, client-side error feedback,
   the model step (Eq. 9) and the index-form Eq. 10 follow.
 * ``packed``: the coherent uplink superposes the faded gradients over all
-  d coordinates; the one-bit uplink reduces each chunk's votes with
-  ``sign_mv`` and detects with ``sign_from_energy``; then one fused FAIR-k
+  d coordinates; the one-bit uplink folds each chunk's votes with
+  ``ops.vote_fold`` and detects with one ``sign_from_energy`` launch
+  (noise, signs and the selection score); then one fused FAIR-k
   pass (``fairk_update`` kernel) selects, merges and advances the age,
   with server-side error feedback.
 
@@ -41,7 +43,7 @@ import torch
 
 from repro_torch.core import aou, oac, packing, quantize, selection
 from repro_torch.core.engine import (EngineConfig, SelectionEngine,
-                                     budgets_for, index_jitter)
+                                     budgets_for)
 from repro_torch.core.oac import ChannelConfig
 from repro_torch.device import DeviceLike, resolve_device, set_numerics
 from repro_torch.kernels import ops
@@ -202,11 +204,12 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
         for c0 in range(0, n, chunk):
             g = clients(w, xs[c0:c0 + chunk], ys[c0:c0 + chunk])
             eff = g + residual.unsqueeze(0) if client_ef else g
-            sent = eff if idx is None else eff[:, idx]
             if fl.one_bit:
-                votes = quantize.one_bit(sent).contiguous()
-                acc = acc + ops.sign_mv(votes, mode=kernel_mode)[1]
+                # quantize, gather at idx and add the ±1 vote counts into
+                # acc: one sign_mv kernel launch
+                ops.vote_fold(acc, eff, idx, mode=kernel_mode)
             else:
+                sent = eff if idx is None else eff[:, idx]
                 acc = acc + h[c0:c0 + chunk] @ sent
             if client_ef:
                 ef_sum = ef_sum + eff.sum(dim=0)
@@ -250,13 +253,13 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
         """One-bit detection, the fused FAIR-k pass (which selects: no
         ``idx``), the EF residual and the model step."""
         if fl.one_bit:
-            noise = (fl.channel.noise_std * draws["z"]
-                     if fl.channel.noise_std > 0.0 else None)
-            fresh_sign, energy = ops.sign_from_energy(agg, noise=noise,
-                                                      mode=kernel_mode)
-            # noiseless energies tie at even integers: break |energy| ties
-            # with the sub-unit index jitter (levels sit 2 apart)
-            score = energy.abs() + index_jitter(d, device=dev)
+            # one sign_from_energy launch: the noise noise_std·z, the
+            # signs and the score |energy| + index jitter (noiseless
+            # energies tie at even integers; the sub-unit jitter breaks
+            # the ties, levels sit 2 apart)
+            fresh_sign, _, score = ops.sign_from_energy(
+                agg, z=draws.get("z"), noise_std=fl.channel.noise_std,
+                score=True, mode=kernel_mode)
             g_t, age_next, stats = engine.select_and_merge(
                 score, g_prev, age, fresh=fresh_sign, tstate=tstate)
             sel_mask = (age_next == 0.0).to(torch.float32)

@@ -45,8 +45,13 @@ _SIGNATURES = {
                                        ctypes.c_int, ctypes.c_int, _P],
     # votes, noise, signs, energy, n, k, stream
     "repro_sign_mv": [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P],
-    # energy_in, noise, signs, energy_out, k, stream
-    "repro_sign_from_energy": [_P] * 4 + [ctypes.c_longlong, _P],
+    # x, ld, idx, acc, n, k, stream
+    "repro_vote_fold": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
+                        ctypes.c_longlong, _P],
+    # energy_in, noise, scaled, noise_std, signs, energy_out, score, k,
+    # stream
+    "repro_sign_from_energy": [_P, _P, ctypes.c_int, ctypes.c_float,
+                               _P, _P, _P, ctypes.c_longlong, _P],
     # g_new, g_old, age, mask, g_out, age_out, d, stream
     "repro_aou_merge": [_P] * 6 + [ctypes.c_longlong, _P],
     # x, vals, idxs, scratch, nb, block_size, m, stream

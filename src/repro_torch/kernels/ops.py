@@ -107,13 +107,44 @@ def sign_mv(votes: Tensor, noise: Optional[Tensor] = None,
     return smv.sign_mv_cuda(_f32(votes), _f32(noise))
 
 
+def vote_fold(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None,
+              mode: Optional[str] = None) -> Tensor:
+    """The one-bit chunk fold: ``acc[j] += Σ_r (x[r, idx[j]] >= 0 ? +1 :
+    −1)`` in place on the (k,) float32 ``acc`` (k = d without ``idx``),
+    for the chunk's (C, d) effective gradients ``x`` and the exact path's
+    int64 selection ``idx``.  Returns ``acc``.  The counts are the energy
+    row of ``sign_mv`` (``x`` needs no ``one_bit`` first: ``v >= 0`` votes
+    +1, NaN −1).  On the card one call is one device operation for float32
+    ``x`` with contiguous rows and int64 ``idx``."""
+    if resolve_mode(mode, x) == "plain":
+        return ref.vote_fold_ref(acc, x, idx)
+    if x.dtype != torch.float32 or x.stride(-1) != 1:
+        x = x.to(torch.float32).contiguous()
+    if idx is not None:
+        idx = idx.to(torch.int64).contiguous()
+    return smv.vote_fold_cuda(acc, x, idx)
+
+
 def sign_from_energy(energy: Tensor, noise: Optional[Tensor] = None,
-                     mode: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+                     mode: Optional[str] = None, *,
+                     z: Optional[Tensor] = None, noise_std: float = 0.0,
+                     score: bool = False) -> Tuple[Tensor, ...]:
     """Majority stage for a pre-reduced (k,) vote-energy row ->
-    ``(signs, energy')``."""
+    ``(signs, energy')``.  The channel noise is ``noise`` as it is, or
+    ``noise_std * z`` for a standard-normal draw ``z`` (off when
+    ``noise_std`` is 0).  With ``score`` a third row, the packed path's
+    selection score ``|energy'| + knuth_jitter(j)``.  On the card one call
+    is one device operation."""
+    if noise is not None and z is not None:
+        raise ValueError("pass the noise or the draw z, not both")
+    if noise_std > 0.0 and z is None:
+        raise ValueError("noise_std > 0 needs a noise draw z")
+    z = z if noise_std > 0.0 else None
     if resolve_mode(mode, energy) == "plain":
-        return ref.sign_from_energy_ref(energy, noise)
-    return smv.sign_from_energy_cuda(_f32(energy), _f32(noise))
+        return ref.sign_from_energy_ref(energy, noise, z=z,
+                                        noise_std=noise_std, score=score)
+    return smv.sign_from_energy_cuda(_f32(energy), _f32(noise), z=_f32(z),
+                                     noise_std=noise_std, score=score)
 
 
 def fairk_ef_update(g: Tensor, g_prev: Tensor, age: Tensor, theta_m,

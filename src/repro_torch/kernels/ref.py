@@ -51,15 +51,24 @@ def strided_hists_ref(score: Tensor, age_next: Tensor, valid: Tensor,
                          packing.STATS_AGE_BINS))
 
 
-def sign_from_energy_ref(energy: Tensor, noise: Optional[Tensor] = None
-                         ) -> Tuple[Tensor, Tensor]:
+def sign_from_energy_ref(energy: Tensor, noise: Optional[Tensor] = None,
+                         z: Optional[Tensor] = None, noise_std: float = 0.0,
+                         score: bool = False) -> Tuple[Tensor, ...]:
     """Majority stage for a pre-reduced (k,) vote-energy row:
-    ``s = energy (+ noise)`` -> ``(s >= 0 ? +1 : -1, s)``."""
+    ``s = energy (+ noise)``, the noise given as it is or as the draw ``z``
+    scaled by ``noise_std`` -> ``(s >= 0 ? +1 : -1, s)``, and with
+    ``score`` the packed path's selection score ``|s| + knuth_jitter(j)``
+    as a third row."""
+    if z is not None:
+        noise = noise_std * z
     s = energy
     if noise is not None:
         s = s + noise.to(s.dtype)
     signs = torch.where(s >= 0, 1.0, -1.0).to(energy.dtype)
-    return signs, s
+    if not score:
+        return signs, s
+    return signs, s, s.abs() + knuth_jitter(torch.arange(s.shape[0],
+                                                         device=s.device))
 
 
 def sign_mv_ref(votes: Tensor, noise: Optional[Tensor] = None
@@ -68,6 +77,13 @@ def sign_mv_ref(votes: Tensor, noise: Optional[Tensor] = None
     ``v >= 0`` votes +1 (so ±0.0 count +1), NaN votes -1."""
     s = torch.where(votes >= 0, 1.0, -1.0).to(torch.float32).sum(dim=0)
     return sign_from_energy_ref(s, noise)
+
+
+def vote_fold_ref(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None
+                  ) -> Tensor:
+    """The one-bit chunk fold, in place: ``acc += `` the vote energy of the
+    (C, d) chunk ``x``, gathered at ``idx`` when given -> ``acc``."""
+    return acc.add_(sign_mv_ref(x if idx is None else x[:, idx])[1])
 
 
 def aou_merge_ref(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor

@@ -43,6 +43,30 @@ def _same(a, b):
         assert torch.equal(a, b)
 
 
+def _device_ops(fn):
+    """The device operations of one warm call of ``fn`` by name, from
+    ``torch.profiler``.  A session with no device records at all is the
+    tracer dropping them (the kernel surely ran; most often when the
+    session's only work is one launch made right after it starts): the
+    call waits 10 ms into the session, and an empty session is asked
+    again, up to five times."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            fn()
+            torch.cuda.synchronize()
+        ops_on_card = {ev.key: ev.count for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if ops_on_card:
+            break
+    return ops_on_card
+
+
 def _inputs(d, seed, dev, nonfinite=False):
     rng = np.random.default_rng(seed)
     g = (rng.standard_t(3, size=d) * 0.1).astype(np.float32)
@@ -109,6 +133,132 @@ def test_sign_kernels_match_plain(cuda, n, k, noisy):
     for a, b in zip(ops.sign_from_energy(energy, noise, mode="kernel"),
                     ops.sign_from_energy(energy, noise, mode="plain")):
         _same(a, b)
+
+
+def _chunk(c, d, dev, seed):
+    """(c, d) effective gradients with NaN, ±0.0 and ±inf, made on the
+    card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(c, d, generator=gen, device=dev)
+    u = torch.rand(c, d, generator=gen, device=dev)
+    x[u < 0.05] = 0.0
+    x[(u >= 0.05) & (u < 0.1)] = -0.0
+    x[(u >= 0.1) & (u < 0.11)] = float("nan")
+    x[(u >= 0.11) & (u < 0.115)] = float("inf")
+    x[(u >= 0.115) & (u < 0.12)] = -float("inf")
+    return x
+
+
+def _acc(k, dev, seed):
+    """A non-zero accumulator: arbitrary floats, ±0.0 among them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    acc = torch.randn(k, generator=gen, device=dev) * 7.0
+    acc[: min(k, 2)] = torch.tensor([0.0, -0.0], device=dev)[: min(k, 2)]
+    return acc
+
+
+def _fold_both(acc, x, idx=None):
+    """The fold's kernel and plain results on copies of ``acc``; the
+    kernel's is the same tensor it was given."""
+    k_acc, p_acc = acc.clone(), acc.clone()
+    assert ops.vote_fold(k_acc, x, idx, mode="kernel") is k_acc
+    ops.vote_fold(p_acc, x, idx, mode="plain")
+    torch.cuda.synchronize()
+    return k_acc, p_acc
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("c", [1, 10, 50])
+@pytest.mark.parametrize("d", [1, 7, 109_210, 1_000_003])
+def test_vote_fold_kernel_matches_plain(cuda, d, c, gathered):
+    x = _chunk(c, d, cuda, seed=d + c)
+    idx = None
+    if gathered:                 # unsorted, about a fifth of the columns
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        idx = torch.randperm(d, generator=gen, device=cuda)[:max(1, d // 5)]
+    k = d if idx is None else idx.shape[0]
+    _same(*_fold_both(_acc(k, cuda, seed=c), x, idx))
+
+
+def test_vote_fold_kernel_takes_odd_views_and_selections(cuda):
+    """Chunk views off an 8-byte boundary and with an odd row stride take
+    the scalar path; a selection of one, repeated and unsorted indices."""
+    d, c = 109_210, 10
+    buf = _chunk(1, c * d + 3, cuda, seed=1)[0]
+    wide = _chunk(c, d + 1, cuda, seed=2)
+    views = {"offset by one float": buf[1:1 + c * d].view(c, d),
+             "offset by two floats": buf[2:2 + c * d].view(c, d),
+             "odd row stride": wide[:, :d],
+             "odd row stride, offset": wide[:, 1:]}
+    idxs = [None, torch.tensor([5], device=cuda),
+            torch.tensor([d - 1, 0, 3, 3, 17], device=cuda),
+            torch.randperm(d, device=cuda)[:21_842]]
+    for name, x in views.items():
+        assert x.stride(1) == 1, name
+        for idx in idxs:
+            k = d if idx is None else idx.shape[0]
+            _same(*_fold_both(_acc(k, cuda, seed=3), x, idx))
+
+
+@pytest.mark.parametrize("c,d", [(10, 109_210), (50, 21_842)])
+def test_vote_fold_kernel_equals_the_composition_it_replaces(cuda, c, d):
+    """``acc + sign_mv(one_bit(x[:, idx]))[1]``, the fold the trainer ran
+    before, on the kernels: the same bits."""
+    from repro_torch.core import quantize
+    x = _chunk(c, d, cuda, seed=c)
+    for idx in (None, torch.randperm(d, device=cuda)[:d // 5]):
+        acc = _acc(d if idx is None else idx.shape[0], cuda, seed=4)
+        sent = x if idx is None else x[:, idx]
+        want = acc + ops.sign_mv(quantize.one_bit(sent).contiguous(),
+                                 mode="kernel")[1]
+        _same(ops.vote_fold(acc, x, idx, mode="kernel"), want)
+
+
+@pytest.mark.parametrize("score", [False, True])
+@pytest.mark.parametrize("noise", ["none", "noise", "z"])
+@pytest.mark.parametrize("k", [1, 7, 21_842, 109_210, 1_000_003])
+def test_sign_from_energy_fused_matches_plain(cuda, k, noise, score):
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    energy = 2.0 * torch.randint(-25, 26, (k,), generator=gen,
+                                 device=cuda).float()
+    energy[: min(k, 2)] = torch.tensor([0.0, -0.0], device=cuda)[: min(k, 2)]
+    if k > 5:
+        energy[2:5] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf")], device=cuda)
+    draw = torch.randn(k, generator=gen, device=cuda)
+    kw = {"none": {}, "noise": {"noise": draw * 2.0},
+          "z": {"z": draw, "noise_std": 2.0}}[noise]
+    k_out = ops.sign_from_energy(energy, mode="kernel", score=score, **kw)
+    p_out = ops.sign_from_energy(energy, mode="plain", score=score, **kw)
+    assert len(k_out) == len(p_out) == (3 if score else 2)
+    for a, b in zip(k_out, p_out):
+        _same(a, b)
+
+
+def test_one_bit_call_sites_are_one_device_operation(cuda):
+    """After warm-up, one ``ops.vote_fold`` call (dense or gathered), the
+    exact path's detection and the packed path's detection with its score
+    each make exactly one device operation: the kernel."""
+    from repro_torch.core import quantize
+    d, k = 109_210, 21_842
+    x = _chunk(10, d, cuda, seed=5)
+    idx = torch.randperm(d, device=cuda)[:k]
+    acc_d, acc_k = _acc(d, cuda, seed=6), _acc(k, cuda, seed=7)
+    energy = 2.0 * torch.randint(-25, 26, (d,), device=cuda).float()
+    z = torch.randn(d, device=cuda)
+    calls = {
+        "sign_mv_kernel": [lambda: ops.vote_fold(acc_d, x),
+                           lambda: ops.vote_fold(acc_k, x, idx)],
+        "sign_from_energy_kernel": [
+            lambda: quantize.fsk_majority_from_energy(energy[:k], z[:k],
+                                                      2.0),
+            lambda: ops.sign_from_energy(energy, z=z, noise_std=2.0,
+                                         score=True)]}
+    for kernel, fns in calls.items():
+        for fn in fns:
+            ops_on_card = _device_ops(fn)
+            assert sum(ops_on_card.values()) == 1, ops_on_card
+            assert kernel in next(iter(ops_on_card)), ops_on_card
 
 
 @pytest.mark.parametrize("d", [1, 255, 5000, 109_210, 1_000_003])
@@ -210,27 +360,11 @@ def test_fairk_stats_row_resets_between_calls(cuda):
 
 @pytest.mark.parametrize("d", [109_210, 2**22])
 def test_fairk_stats_update_is_one_device_kernel(cuda, d):
-    from torch.profiler import ProfilerActivity, profile
     x = _inputs(d, seed=5, dev=cuda)
     tm = torch.tensor(x["tm"], device=cuda)
     ta = torch.tensor(x["ta"], device=cuda)
-
-    def call():
-        return ops.fairk_stats_update(x["g"], x["g_prev"], x["age"], tm, ta,
-                                      residual=x["res"])
-    call()
-    torch.cuda.synchronize()
-    # a session with no device records at all is the tracer dropping them
-    # (the kernel surely ran): ask again, up to three times
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        ops_on_card = {ev.key: ev.count for ev in prof.key_averages()
-                       if ev.device_type == torch.autograd.DeviceType.CUDA}
-        if ops_on_card:
-            break
+    ops_on_card = _device_ops(lambda: ops.fairk_stats_update(
+        x["g"], x["g_prev"], x["age"], tm, ta, residual=x["res"]))
     assert sum(ops_on_card.values()) == 1, ops_on_card
     assert "fairk_kernel" in next(iter(ops_on_card))
 
@@ -276,6 +410,23 @@ def test_dispatch_launches_on_cuda_and_counts(cuda):
     assert after == tuple(b + 1 for b in before)
 
 
+def test_fold_and_fused_detection_count_as_their_kernels(cuda):
+    """``ops.vote_fold`` counts as a ``sign_mv`` launch and the fused
+    detection as a ``sign_from_energy`` launch; their plain modes count
+    nothing."""
+    x = _chunk(4, 4096, cuda, seed=8)
+    acc = torch.zeros(4096, device=cuda)
+    before = (sign_mv.SIGN_MV_LAUNCHES, sign_mv.SIGN_FROM_ENERGY_LAUNCHES)
+    ops.vote_fold(acc, x)
+    ops.vote_fold(acc[:3], x, torch.tensor([4, 1, 9], device=cuda))
+    ops.sign_from_energy(acc, z=x[0], noise_std=0.5, score=True)
+    ops.vote_fold(acc, x, mode="plain")
+    ops.sign_from_energy(acc, z=x[0], noise_std=0.5, mode="plain")
+    torch.cuda.synchronize()
+    assert (sign_mv.SIGN_MV_LAUNCHES, sign_mv.SIGN_FROM_ENERGY_LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+
+
 def test_wrappers_check_their_operands(cuda):
     x = _inputs(64, seed=2, dev=cuda)
     theta = torch.zeros((), device=cuda)
@@ -290,6 +441,19 @@ def test_wrappers_check_their_operands(cuda):
                                        torch.zeros(2, device=cuda), theta)
     with pytest.raises(ValueError, match="contiguous"):
         sign_mv.sign_mv_cuda(torch.zeros(8, 4, device=cuda).t())
+    with pytest.raises(ValueError, match="contiguous rows"):
+        sign_mv.vote_fold_cuda(torch.zeros(8, device=cuda),
+                               torch.zeros(8, 4, device=cuda).t())
+    with pytest.raises(ValueError, match="int64"):
+        sign_mv.vote_fold_cuda(torch.zeros(2, device=cuda),
+                               torch.zeros(3, 8, device=cuda),
+                               torch.tensor([1, 2], dtype=torch.int32,
+                                            device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        sign_mv.vote_fold_cuda(torch.zeros(7, device=cuda),
+                               torch.zeros(3, 8, device=cuda))
+    with pytest.raises(ValueError, match="not both"):
+        sign_mv.sign_from_energy_cuda(x["g"], x["g"], z=x["g"])
     with pytest.raises(ValueError, match="shape"):
         aou_merge.aou_merge_cuda(x["g"], x["g_prev"], x["age"][:10],
                                  x["fresh"])

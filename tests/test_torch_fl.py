@@ -11,22 +11,31 @@ its named key ladder, handed to the port as tensors.
 * Whole rounds (each side's own clients): ``w`` within atol 1e-5, ages
   equal on at least 99.9% of the coordinates (a float32 gradient summed in
   another order can move a coordinate across a threshold).
+* The one-bit uplink's two call sites on the same inputs: the chunk fold
+  (``ops.vote_fold``) against the JAX trainer's ``fold_votes`` on both
+  backends, and the detection fed the draw ``z`` (with the packed path's
+  score) against the JAX receiver: bit for bit.
 """
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.flatten_util import ravel_pytree
 from torchutil import (round_draws, run_jax_rounds, small_fl_task, to_np,
                        to_torch, torch_loss, torch_params)
 
 from repro.core import engine as jax_engine_mod
 from repro.core import oac as jax_oac
+from repro.core import quantize as jax_quantize
 from repro.fl import trainer as jax_trainer
 from repro.kernels import ops as jax_ops
-from repro_torch.core import oac
+from repro_torch.core import oac, quantize
 from repro_torch.fl import trainer
+from repro_torch.kernels import ops
 from repro_torch.models import cnn
 
 ROUNDS = 3
@@ -175,3 +184,71 @@ def test_unsupported_settings_raise():
     with pytest.raises(ValueError, match="client_chunk"):
         trainer.make_fl_step(dataclasses.replace(tfl, client_chunk=3),
                              lambda w: w, torch_loss, 8, device="cpu")
+
+
+def _bits(t):
+    return to_np(t).view(np.uint32)
+
+
+@pytest.mark.parametrize("ef", [False, True])
+@pytest.mark.parametrize("exact", [False, True])
+def test_one_bit_fold_matches_jax_fold_votes(exact, ef):
+    """The one-bit chunk fold as ``clients_fold`` runs it (one
+    ``ops.vote_fold`` per chunk of effective gradients) against the JAX
+    trainer's ``fold_votes`` on the same gradients: packed,
+    ``acc + sign_mv(one_bit(eff))[1]``; exact, ``acc +
+    one_bit(eff[:, idx]).sum(0)`` at an unsorted selection.  Bit for
+    bit, signed zeros and NaN gradients included."""
+    n, chunk, d = 8, 2, 1400
+    rng = np.random.default_rng(int(exact) + 2 * int(ef))
+    grads = (rng.normal(size=(n, d)) * 0.01).astype(np.float32)
+    grads[rng.random((n, d)) < 0.03] = 0.0
+    grads[rng.random((n, d)) < 0.03] = -0.0
+    grads[1, :4] = np.nan
+    residual = (rng.normal(size=d) * 0.01).astype(np.float32)
+    residual[:50] = 0.0
+    idx = rng.permutation(d)[:280] if exact else None
+    k = d if idx is None else idx.shape[0]
+    j_acc = jnp.zeros((k,), jnp.float32)
+    t_acc = torch.zeros(k)
+    for c0 in range(0, n, chunk):
+        g = jnp.asarray(grads[c0:c0 + chunk])
+        eff = g + jnp.asarray(residual)[None, :] if ef else g
+        if exact:
+            j_acc = j_acc + jax_quantize.one_bit(eff[:, idx]).sum(axis=0)
+        else:
+            j_acc = j_acc + jax_ops.sign_mv(jax_quantize.one_bit(eff))[1]
+        g_t = to_torch(grads[c0:c0 + chunk])
+        eff_t = g_t + to_torch(residual).unsqueeze(0) if ef else g_t
+        ops.vote_fold(t_acc, eff_t, None if idx is None else to_torch(idx))
+    np.testing.assert_array_equal(_bits(t_acc), _bits(j_acc))
+
+
+@pytest.mark.parametrize("noise_std", [0.0, 2.0])
+@pytest.mark.parametrize("exact", [False, True])
+def test_one_bit_detection_matches_jax_receiver(exact, noise_std):
+    """The detection fed the round's draw ``z``: on the exact path
+    ``quantize.fsk_majority_from_energy`` against the JAX receiver drawing
+    the same ``z`` from its key; on the packed path the one fused call
+    ``(signs, energy, score)`` against ``ops.sign_from_energy`` on
+    ``noise_std * z`` and ``|energy| + index_jitter(d)``."""
+    d = 1400
+    key = jax.random.PRNGKey(7)
+    rng = np.random.default_rng(4)
+    agg = (2.0 * rng.integers(-4, 5, size=d)).astype(np.float32)
+    z = jax.random.normal(key, (d,), jnp.float32)
+    if exact:
+        j = jax_quantize.fsk_majority_from_energy(key, jnp.asarray(agg),
+                                                  noise_std=noise_std)
+        t = quantize.fsk_majority_from_energy(to_torch(agg), to_torch(z),
+                                              noise_std)
+        np.testing.assert_array_equal(to_np(t), np.asarray(j))
+        return
+    noise = noise_std * z if noise_std > 0.0 else None
+    js, je = jax_ops.sign_from_energy(jnp.asarray(agg), noise=noise)
+    j_score = jnp.abs(je) + jax_engine_mod.index_jitter(d)
+    ts, te, t_score = ops.sign_from_energy(
+        to_torch(agg), z=to_torch(z), noise_std=noise_std, score=True)
+    np.testing.assert_array_equal(to_np(ts), np.asarray(js))
+    np.testing.assert_array_equal(_bits(te), _bits(je))
+    np.testing.assert_array_equal(_bits(t_score), _bits(j_score))

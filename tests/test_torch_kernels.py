@@ -199,10 +199,112 @@ def test_sign_from_energy_matches_jax(jax_mode, noisy):
     _same_floats(te, je)
 
 
+def _fold_inputs(n: int, k: int, seed: int):
+    """A chunk's (n, k) effective gradients with NaN, ±0.0 and ±inf, and
+    a non-zero accumulator of arbitrary floats."""
+    rng = np.random.default_rng(seed)
+    eff = rng.normal(size=(n, k)).astype(np.float32)
+    eff[rng.random((n, k)) < 0.05] = 0.0
+    eff[rng.random((n, k)) < 0.05] = -0.0
+    eff[0, :6] = [np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0]
+    eff[-1, 6:9] = [np.nan, np.inf, -0.0]
+    acc = (rng.normal(size=k) * 7.0).astype(np.float32)
+    acc[:3] = [0.0, -0.0, 3.0]
+    return eff, acc
+
+
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+@pytest.mark.parametrize("n", [1, 4, 7])
+def test_vote_fold_matches_jax_sign_mv(n, jax_mode):
+    """The packed one-bit fold: ``acc + sign_mv(one_bit(eff))[1]`` as the
+    JAX trainer's ``fold_votes`` computes it, in place."""
+    from repro.core import quantize as jax_quantize
+    eff, acc = _fold_inputs(n, D_KERNEL, seed=10 + n)
+    j = jnp.asarray(acc) + jax_ops.sign_mv(
+        jax_quantize.one_bit(jnp.asarray(eff)), mode=jax_mode)[1]
+    acc_t = to_torch(acc)
+    out = ops.vote_fold(acc_t, to_torch(eff))
+    assert out is acc_t
+    _same_floats(acc_t, j)
+
+
+@pytest.mark.parametrize("n", [1, 4, 7])
+def test_vote_fold_gathered_matches_jax(n):
+    """The exact one-bit fold at an unsorted selection, repeated
+    coordinates and a selection of one included."""
+    from repro.core import quantize as jax_quantize
+    eff, _ = _fold_inputs(n, D_KERNEL, seed=20 + n)
+    rng = np.random.default_rng(n)
+    for idx in (rng.permutation(D_KERNEL)[:1000], np.array([3]),
+                np.array([7, 0, 7, D_KERNEL - 1])):
+        acc = (rng.normal(size=idx.shape[0]) * 3.0).astype(np.float32)
+        j = jnp.asarray(acc) + jax_quantize.one_bit(
+            jnp.asarray(eff)[:, jnp.asarray(idx)]).sum(axis=0)
+        acc_t = to_torch(acc)
+        ops.vote_fold(acc_t, to_torch(eff), to_torch(idx))
+        _same_floats(acc_t, j)
+
+
+def _energy_and_draw(k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    e = (2.0 * rng.integers(-5, 6, size=k)).astype(np.float32)
+    e[:5] = [0.0, -0.0, np.nan, np.inf, -np.inf]
+    z = rng.normal(size=k).astype(np.float32)
+    z[5:8] = [0.0, -0.0, np.nan]
+    return e, z
+
+
+@pytest.mark.parametrize("jax_mode", ["ref", "interpret"])
+@pytest.mark.parametrize("noise_std", [0.0, 0.1, 2.0])
+def test_sign_from_energy_of_a_draw_matches_jax(noise_std, jax_mode):
+    """The detection fed the draw ``z`` and ``noise_std``: the energy is
+    ``energy + noise_std * z`` (the product rounded first), as
+    ``repro.core.quantize`` computes it, and the signs follow."""
+    e, z = _energy_and_draw(D_KERNEL, seed=int(10 * noise_std))
+    je = jnp.asarray(e)
+    if noise_std > 0.0:
+        je = je + noise_std * jnp.asarray(z)
+    js, je_out = jax_ops.sign_from_energy(je, mode=jax_mode)
+    ts, te = ops.sign_from_energy(to_torch(e), z=to_torch(z),
+                                  noise_std=noise_std)
+    _same_floats(te, je)
+    _same_floats(te, je_out)
+    np.testing.assert_array_equal(to_np(ts), np.asarray(js))
+
+
+@pytest.mark.parametrize("noise_std", [0.0, 2.0])
+def test_sign_from_energy_score_matches_jax(noise_std):
+    """The packed path's score ``|energy| + index_jitter(d)``."""
+    from repro.core import engine as jax_engine
+    e, z = _energy_and_draw(D_KERNEL, seed=3)
+    noise = jnp.asarray(noise_std * z) if noise_std > 0.0 else None
+    js, je = jax_ops.sign_from_energy(jnp.asarray(e), noise=noise,
+                                      mode="interpret")
+    j_score = jnp.abs(je) + jax_engine.index_jitter(D_KERNEL)
+    ts, te, t_score = ops.sign_from_energy(
+        to_torch(e), z=to_torch(z), noise_std=noise_std, score=True)
+    np.testing.assert_array_equal(to_np(ts), np.asarray(js))
+    _same_floats(te, je)
+    _same_floats(t_score, j_score)
+
+
+def test_sign_from_energy_takes_one_kind_of_noise():
+    x = torch.zeros(8)
+    with pytest.raises(ValueError, match="not both"):
+        ops.sign_from_energy(x, x, z=x, noise_std=1.0)
+    with pytest.raises(ValueError, match="needs a noise draw z"):
+        ops.sign_from_energy(x, noise_std=1.0)
+    # noise_std 0 leaves the draw out, as the call sites always did
+    z = torch.full((8,), float("nan"))
+    _same_floats(ops.sign_from_energy(x, z=z)[1], x)
+
+
 def test_kernel_mode_on_cpu_raises():
     x = torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
         ops.sign_from_energy(x, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.vote_fold(x, x[None], mode="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         ops.aou_merge(x, x, x, x, mode="kernel")
     with pytest.raises(ValueError, match="CUDA"):
@@ -218,15 +320,19 @@ def test_counters_count_dispatches_not_cpu_launches():
     from repro_torch.kernels import sign_mv
     before = (ops.FAIRK_UPDATE_CALLS, packing.G_READS,
               fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
-              aou_merge.LAUNCHES, block_topk.LAUNCHES)
+              sign_mv.SIGN_FROM_ENERGY_LAUNCHES, aou_merge.LAUNCHES,
+              block_topk.LAUNCHES)
     x = torch.zeros(16)
     ops.fairk_stats_update(x, x, x, 0.0, 0.0)
     ops.sign_mv(x[None])
+    ops.vote_fold(x.clone(), x[None])
+    ops.sign_from_energy(x, z=x, noise_std=1.0, score=True)
     ops.aou_merge(x, x, x, x)
     ops.two_stage_topk(x, 3, block_size=8)
     after = (ops.FAIRK_UPDATE_CALLS, packing.G_READS,
              fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES,
-             aou_merge.LAUNCHES, block_topk.LAUNCHES)
+             sign_mv.SIGN_FROM_ENERGY_LAUNCHES, aou_merge.LAUNCHES,
+             block_topk.LAUNCHES)
     assert after == (before[0] + 1, before[1] + 1) + before[2:]
 
 

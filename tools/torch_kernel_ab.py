@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's ``fairk_update`` and ``block_topk`` kernels of one tree
+"""Time the port's kernels and the one-bit uplink's call sites of one tree
 on one NVIDIA GPU, so that two trees (a parent commit and its change) can
 be compared on one card in one run.
 
@@ -18,7 +18,15 @@ time) and eager calls (host time):
 - ``ops.block_topk`` at 2^24 for every ``chip_smoke.TOPK_CASES`` shape,
   beside ``torch.topk`` on the same rows;
 - ``ops.two_stage_topk(x, d/100)`` at 2^24 beside ``torch.topk(x.abs(),
-  k)``.
+  k)``;
+- the one-bit uplink's call sites at the paths' shapes, each as one call
+  where the tree has ``ops.vote_fold`` and the fused detection, and as the
+  composition of operations the trainer ran before where it has not: the
+  chunk fold of (10, 109,210) dense and gathered at 21,842 unsorted
+  coordinates, the packed detection with its score (109,210, noise 2.0
+  times a draw ``z``), the exact detection (21,842); and ``ops.sign_mv``
+  at (10, 21,842), (10, 109,210) and (50, 109,210).  Each result is held
+  against plain PyTorch arithmetic that does not depend on the tree.
 
 Prints one line per measurement and writes them all to
 ``chiprun_out/kernel_ab_<NAME>.json``.  Run alternately on two roots
@@ -33,6 +41,91 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+
+
+def _short(on_card):
+    """Device operations by the first 60 characters of their names."""
+    out = {}
+    for key, cnt in on_card.items():
+        out[key[:60]] = out.get(key[:60], 0) + cnt
+    return out
+
+
+def one_bit_sites(cs, ops, dev, rng, put) -> None:
+    """The one-bit uplink's call sites (module docstring), timed and
+    checked; ``composed`` in a row says which form the tree ran."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.core.engine import index_jitter
+
+    fused = hasattr(ops, "vote_fold")
+    d, k, c = cs.D, cs.K_ONE_BIT, cs.CHUNK
+    x = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32),
+                        device=dev)
+    x[0, :5] = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                             -float("inf")])
+    idx = torch.as_tensor(rng.permutation(d)[:k], device=dev)
+    energy = torch.as_tensor(2.0 * rng.integers(-25, 26, size=d),
+                             dtype=torch.float32, device=dev)
+    z = torch.as_tensor(rng.normal(size=d).astype(np.float32), device=dev)
+
+    def votes(sent):
+        return torch.where(sent >= 0, 1.0, -1.0).sum(dim=0)
+
+    def fold(acc, sel):
+        if fused:
+            return ops.vote_fold(acc, x, sel)
+        sent = x if sel is None else x[:, sel]
+        return acc + ops.sign_mv(quantize.one_bit(sent).contiguous())[1]
+
+    def detect_packed():
+        if fused:
+            return ops.sign_from_energy(energy, z=z, noise_std=2.0,
+                                        score=True)
+        signs, e = ops.sign_from_energy(energy, noise=2.0 * z)
+        return signs, e, e.abs() + index_jitter(d, device=dev)
+
+    def detect_exact():
+        return quantize.fsk_majority_from_energy(energy[:k], z[:k], 2.0)
+
+    s_ref = energy + 2.0 * z
+    sign_ref = torch.where(s_ref >= 0, 1.0, -1.0)
+    score_ref = s_ref.abs() + index_jitter(d, device=dev)
+    sites = {}
+    for name, sel, n_bytes in (
+            (f"fold[{c}x{d}]", None, 4 * c * d + 8 * d),
+            (f"fold[{c}x{d} at {k}]", idx, 4 * c * k + 16 * k)):
+        width = d if sel is None else k
+        acc = torch.as_tensor((rng.normal(size=width) * 7.0).astype(
+            np.float32), device=dev)
+        want = acc + votes(x if sel is None else x[:, sel])
+        cs._same(fold(acc.clone(), sel), want, name)
+        sites[name] = (lambda acc=acc, sel=sel: fold(acc, sel), n_bytes,
+                       2 * c * width)
+    for got, want, what in zip(detect_packed(), (sign_ref, s_ref, score_ref),
+                               ("signs", "energy", "score")):
+        cs._same(got, want, f"packed detection {what}")
+    cs._same(detect_exact(), sign_ref[:k], "exact detection")
+    sites[f"detect+score[{d}]"] = (detect_packed, 20 * d, 8 * d)
+    sites[f"detect[{k}]"] = (detect_exact, 16 * k, 4 * k)
+    for n, width in ((c, k), (c, d), (50, d)):
+        v = torch.as_tensor(np.sign(rng.normal(size=(n, width))).astype(
+            np.float32), device=dev)
+        e = votes(v)
+        got = ops.sign_mv(v)
+        cs._same(got[1], e, "sign_mv energy")
+        cs._same(got[0], torch.where(e >= 0, 1.0, -1.0), "sign_mv signs")
+        sites[f"sign_mv[{n}x{width}]"] = (lambda v=v: ops.sign_mv(v),
+                                          4 * n * width + 8 * width,
+                                          2 * n * width)
+    for name, (fn, n_bytes, n_ops) in sites.items():
+        ms, eager = cs._time_ms(fn)
+        on_card = cs._device_ops(fn)
+        put(name, composed=not fused and not name.startswith("sign_mv"),
+            ms=ms, eager_ms=eager,
+            bound_ms=cs._bound_ms(n_bytes, n_ops)[0],
+            n_device_ops=sum(on_card.values()), device_ops=_short(on_card))
 
 
 def main(argv) -> None:
@@ -94,8 +187,7 @@ def main(argv) -> None:
                                                      else 0)) * d)
             put(f"fairk_update[{variant}][{d}]", ms=ms, eager_ms=eager,
                 plain_ms=plain, bound_ms=bound, bound_by=by,
-                device_ops={k[:60]: n for k, n in cs._device_ops(
-                    lambda: call("kernel")).items()})
+                device_ops=_short(cs._device_ops(lambda: call("kernel"))))
 
     x = rng.normal(size=cs.BIG).astype(np.float32)
     x[rng.random(cs.BIG) < 0.01] = 1.25
@@ -119,6 +211,7 @@ def main(argv) -> None:
                      blocks=10)[0]
     lib = cs._time_ms(lambda: torch.topk(xt.abs(), k), blocks=10)[0]
     put(f"two_stage_topk[{cs.BIG}, k {k}]", ms=ms, library_ms=lib)
+    one_bit_sites(cs, ops, dev, rng, put)
 
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
