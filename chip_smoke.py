@@ -18,15 +18,19 @@ failure):
    them (d = 109,210 and the exact one-bit row of k = 21,842; 2^24 for
    ``fairk_update``, ``aou_merge`` and ``block_topk``, ties included, and
    ``block_topk`` on NaN, ±inf, blocks of one value and m = block_size;
-   the one-bit chunk fold ``ops.vote_fold`` dense and gathered, and the
+   the one-bit chunk fold ``ops.vote_fold`` dense and gathered, the
    detection fed the draw ``z`` with and without the packed path's
-   score): merged values bit for bit, ages, counts, histograms, signs,
+   score, and the exact path's state updates, ``aou_merge``'s index form
+   for the trainer and the engine at k = 10,921 and 21,842): merged
+   values, masks and counts bit for bit, ages, counts, histograms, signs,
    energies, folded accumulators, scores and top-k indices exactly; timed
    with CUDA events beside the launch floor (one graph-replayed
    one-element ``add_``) and, for the top-k, ``torch.topk``; a warm
    ``fairk_update`` call, a warm fold (dense and gathered), the exact
-   path's detection and the packed path's detection with its score must
-   each make exactly one device operation: one kernel node in a CUDA
+   path's detection, the packed path's detection with its score and
+   each index-form state update must each make exactly one device
+   operation (the plain composition's count is recorded): one kernel
+   node in a CUDA
    graph captured around the call, and one kernel of the right name in
    ``torch.profiler``, whose sessions now and then record nothing;
 4. the packed path at full width: the FL round on the 109,210-parameter
@@ -36,16 +40,19 @@ failure):
    round-0 full refresh;
 5. the exact path at the same width (the backend every paper figure
    runs): FAIR-k coherent 3 rounds, each other policy 2 rounds, one-bit
-   3 rounds, coherent with error feedback 2 rounds — exact launch counts,
-   k coordinates refreshed every round, finite weights and losses;
+   3 rounds, coherent with error feedback 2 rounds — exact launch counts
+   (one ``aou_merge`` per round: 18), k coordinates refreshed every
+   round, finite weights and losses;
 6. the exact engine path: 20 rounds of ``select_and_merge`` at
-   d = 109,210 with the kernel and with the plain versions — identical
-   outputs, 20 ``aou_merge`` launches;
+   d = 109,210 and 3 more with ``sanitize``, with the kernel and with the
+   plain versions — identical outputs, 23 ``aou_merge`` launches (20 of
+   the index form, 3 of the mask form);
 7. the two-stage top-k entry point (``ops.two_stage_topk``, d = 2^24,
    k = d/100): one ``block_topk`` launch, equal to the stable-sort top-k;
-8. the same rounds (2 each of (a), (b) and exact one-bit) with the
-   kernels and with the plain versions from one generator seed: identical
-   ages and weights (max |Δw| = 0);
+8. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+   FAIR-k with error feedback) with the kernels and with the plain
+   versions from one generator seed: identical ages and weights
+   (max |Δw| = 0);
 9. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
@@ -73,6 +80,7 @@ PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 D = 109_210                         # prototype CNN on 28x28x1, 26 classes
 N_CLIENTS, CHUNK, H, B = 50, 10, 5, 20
+K_EXACT = 10_921                    # the exact coherent row: rho 0.1 of D
 K_ONE_BIT = 21_842                  # the exact one-bit row: rho 0.2 of D
 BIG = 2**24                         # aou_merge / block_topk at scale
 TOPK_CASES = ((4096, 16), (4096, 164), (1024, 8))   # (block_size, m)
@@ -381,6 +389,7 @@ def kernel_phase(dev):
     records[name] = _record(err, ms, n_bytes,
                             *_bound_ms(n_bytes, 2 * CHUNK * K_ONE_BIT))
     one_bit_call_sites(dev, rng, records)
+    merge_call_sites(dev, rng, records)
     energy = vec(2.0 * rng.integers(-25, 26, size=D))
     for noisy, width in ((False, D), (True, D), (True, K_ONE_BIT)):
         e = energy[:width]
@@ -408,6 +417,9 @@ def kernel_phase(dev):
                f", library {rec['library_ms'] * 1e3:.2f} us")
         n_ops = ("" if "device_ops" not in rec else
                  f", {rec['device_ops']} device operation per call")
+        if "parent_device_ops" in rec:
+            n_ops += (f" (plain, the parent's composition: "
+                      f"{rec['parent_device_ops']})")
         print(f"kernel {name}: exact match; device {rec['ms'] * 1e3:.2f} us "
               f"(plain {rec['plain_ms'] * 1e3:.2f} us{lib}), eager "
               f"{rec['eager_ms'] * 1e3:.2f} us (plain "
@@ -493,6 +505,78 @@ def one_bit_call_sites(dev, rng, records):
     records[name] = _record(err, ms, n_bytes,
                             *_bound_ms(n_bytes, 4 * K_ONE_BIT))
     records[name]["device_ops"] = n_ops
+
+
+def merge_call_sites(dev, rng, records):
+    """The exact path's state updates, each one ``aou_merge`` launch of the
+    index form at the paths' shapes (d = 109,210; an unsorted selection of
+    k = 10,921 on the coherent uplink and in the engine, 21,842 on the
+    one-bit uplink): the trainer's (``ops.aou_merge_by_indices``) coherent
+    with and without error feedback and one-bit with it, and the engine's
+    (``ops.masked_merge_by_indices``) with noise and residual.  Inputs
+    carry −0.0, NaN and ±inf (on selected coordinates too), NaN ages and
+    ages past the cap.  Kernel against plain bit for bit; one device
+    operation per call; the plain version, which composes the operations
+    the call site ran before, is the parent's time and its device
+    operations (graph nodes) are recorded."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    def row(n, scale=1.0):
+        x = (rng.normal(size=n) * scale).astype(np.float32)
+        pos = rng.choice(n, 40, replace=False)
+        x[pos[:10]], x[pos[10:20]] = -0.0, np.nan
+        x[pos[20:30]], x[pos[30:]] = np.inf, -np.inf
+        return torch.as_tensor(x, device=dev)
+
+    age = rng.integers(0, 131, size=D).astype(np.float32)
+    age[rng.choice(D, 50, replace=False)] = np.nan
+    t = {"g_prev": row(D), "age": torch.as_tensor(age, device=dev),
+         "sel_count": torch.as_tensor(rng.integers(0, 9, size=D).astype(
+             np.float32), device=dev),
+         "ef_sum": row(D, 3.0), "sent": row(D), "score": row(D),
+         "noise": torch.as_tensor(rng.normal(size=D).astype(np.float32),
+                                  device=dev)}
+    sites = {}
+    for k in (K_EXACT, K_ONE_BIT):
+        idx = torch.as_tensor(rng.permutation(D)[:k], device=dev)
+        t["g_prev"][idx[:4]] = torch.tensor(
+            [-0.0, float("nan"), float("inf"), -float("inf")], device=dev)
+        t[k] = {"idx": idx, "fresh": row(k), "z": torch.as_tensor(
+            rng.normal(size=k).astype(np.float32), device=dev)}
+
+    def trainer(k, superposed, ef):
+        u = t[k]
+        return lambda mode=None: ops.aou_merge_by_indices(
+            u["idx"], u["fresh"], t["g_prev"], t["age"], t["sel_count"],
+            n_clients=N_CLIENTS, superposed=superposed, z=u["z"],
+            noise_std=0.1, ef_sum=t["ef_sum"] if ef else None, mode=mode)
+
+    # (call, bytes: the (d,) rows read and written once, idx and the (k,)
+    # rows read once)
+    sites[f"aou_merge[trainer coherent+ef {D} at {K_EXACT}]"] = (
+        trainer(K_EXACT, True, True), 36 * D + 16 * K_EXACT)
+    sites[f"aou_merge[trainer coherent {D} at {K_EXACT}]"] = (
+        trainer(K_EXACT, True, False), 28 * D + 16 * K_EXACT)
+    sites[f"aou_merge[trainer one-bit+ef {D} at {K_ONE_BIT}]"] = (
+        trainer(K_ONE_BIT, False, True), 36 * D + 12 * K_ONE_BIT)
+    sites[f"aou_merge[engine noise+res {D} at {K_EXACT}]"] = (
+        lambda mode=None: ops.masked_merge_by_indices(
+            t[K_EXACT]["idx"], t["sent"], t["g_prev"], t["age"],
+            noise=t["noise"], noise_scale=0.1 / N_CLIENTS, score=t["score"],
+            mode=mode), 32 * D + 8 * K_EXACT)
+    for name, (fn, n_bytes) in sites.items():
+        outs = {m: fn(m) for m in ("kernel", "plain")}
+        err = max(_same(a, b, name) for a, b in zip(outs["kernel"],
+                                                    outs["plain"])
+                  if a is not None)
+        n_ops = _one_op(fn, "aou_merge_idx_kernel", name)
+        parent_ops = sum(_graph_ops(lambda: fn("plain")).values())
+        ms = {m: _time_ms(lambda m=m: fn(m)) for m in ("kernel", "plain")}
+        records[name] = _record(err, ms, n_bytes,
+                                *_bound_ms(n_bytes, 8 * D))
+        records[name].update(device_ops=n_ops, parent_device_ops=parent_ops)
 
 
 def merge_and_topk_checks(dev, rng, records):
@@ -697,6 +781,8 @@ def fl_path_phase(dev, task, configs, path):
         rounds, exact = fl.rounds, fl.backend == "exact"
         want = dict.fromkeys(KERNELS, 0)
         want["fairk_update"] = 0 if exact else rounds
+        # the exact round's state update: one index-form launch
+        want["aou_merge"] = rounds if exact else 0
         if fl.one_bit:
             want["sign_mv"] = rounds * (N_CLIENTS // CHUNK)
             want["sign_from_energy"] = rounds
@@ -738,12 +824,14 @@ def fl_path_phase(dev, task, configs, path):
 def engine_phase(dev):
     """The exact engine's ``select_and_merge`` (FAIR-k, ρ 0.1, noise 0.1
     over 50 clients, error feedback, fused statistics) for 20 rounds at
-    d = 109,210 on seeded N(0, 1) scores, with the kernel and with the
-    plain versions: identical outputs; 20 ``aou_merge`` launches."""
+    d = 109,210 on seeded N(0, 1) scores, then 3 rounds with ``sanitize``
+    (the rank-form branch, on scores with NaN and ±inf), with the kernel
+    and with the plain versions: identical outputs; 23 ``aou_merge``
+    launches, 20 of the index form and 3 of the mask form."""
     import torch
     from repro_torch.core.engine import EngineConfig, SelectionEngine
 
-    rounds = 20
+    rounds, sanitized = 20, 3
     runs = {}
     for mode in (None, "plain"):
         eng = SelectionEngine(EngineConfig(
@@ -754,34 +842,44 @@ def engine_phase(dev):
         zeros = torch.zeros(D, device=dev)
         g_prev, age, res = zeros, zeros, zeros
         reset_counters()
-        for r in range(rounds):
+        for r in range(rounds + sanitized):
             if r == 1:                      # round 0 carries the warm-up
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
             g = torch.randn(D, generator=gen, device=dev)
             noise = torch.randn(D, generator=gen, device=dev)
+            if r >= rounds:
+                g[:300:3] = float("nan")
+                g[1:300:3] = float("inf")
+                g[2:300:3] = -float("inf")
             g_prev, age, stats = eng.select_and_merge(
-                g, g_prev, age, noise=noise, residual=res)
+                g, g_prev, age, noise=noise, residual=res,
+                sanitize=r >= rounds)
             res = stats["residual"]
+            if r == rounds - 1:
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / (rounds - 1)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / (rounds - 1)
         runs[mode] = (g_prev, age, res, stats, read_counters(), ms)
     k_out, p_out = runs[None], runs["plain"]
     for i, what in enumerate(("g_t", "age'", "residual'")):
         _same(k_out[i], p_out[i], f"engine {what}")
     for key in ("mag_hist", "age_hist", "n_sel_m"):
         _same(k_out[3][key], p_out[3][key], f"engine {key}")
+    check(bool(torch.isfinite(k_out[0]).all()),
+          "engine: sanitize let a non-finite value into g_t")
     want = dict.fromkeys(KERNELS, 0)
-    want["aou_merge"] = rounds
+    want["aou_merge"] = rounds + sanitized
     check(k_out[4] == want, f"engine: launches {k_out[4]}, expected {want}")
     check(p_out[4] == dict.fromkeys(KERNELS, 0),
           f"engine: the plain run launched {p_out[4]}")
-    print(f"engine path: {rounds} rounds of exact select_and_merge at "
-          f"d = {D}, kernel and plain identical; launches {k_out[4]}; "
-          f"host ms per round over rounds 1-{rounds - 1} {k_out[5]:.3f} "
-          f"(plain {p_out[5]:.3f})",
+    print(f"engine path: {rounds} rounds of exact select_and_merge and "
+          f"{sanitized} with sanitize at d = {D}, kernel and plain "
+          f"identical; launches {k_out[4]}; host ms per round over rounds "
+          f"1-{rounds - 1} {k_out[5]:.3f} (plain {p_out[5]:.3f})",
           flush=True)
-    return k_out[4], {"rounds": rounds, "ms_per_round": k_out[5],
+    return k_out[4], {"rounds": rounds, "sanitized_rounds": sanitized,
+                      "ms_per_round": k_out[5],
                       "plain_ms_per_round": p_out[5]}
 
 
@@ -811,7 +909,8 @@ def topk_path_phase(dev):
 
 
 def parity_phase(dev, task):
-    """2 rounds each of (a), (b) and exact one-bit with the kernels and
+    """2 rounds each of (a), (b), exact one-bit and exact coherent FAIR-k
+    with error feedback, with the kernels and
     with the plain versions, same generator seed, cuDNN deterministic and
     TF32 off: identical ages and weights (every kernel equals its plain
     version bit for bit, and the rest of the round runs the same
@@ -826,7 +925,7 @@ def parity_phase(dev, task):
     packed, exact = run_configs()
     configs = {**packed, **exact}
     for name, w_tol in (("a_coherent", 0.0), ("b_one_bit", 0.0),
-                        ("exact_one_bit", 0.0)):
+                        ("exact_one_bit", 0.0), ("exact_fairk_ef", 0.0)):
         fl = dataclasses.replace(configs[name], rounds=2)
         runs = {mode: train(fl, params0, loss_fn, sample_round,
                             device=dev, kernel_mode=mode)["state"]
@@ -879,6 +978,7 @@ def profile_phase(dev, task, summary):
                 if any(k in key for k in ("fairk_kernel", "sign_mv_kernel",
                                           "sign_from_energy_kernel",
                                           "aou_merge_kernel",
+                                          "aou_merge_idx_kernel",
                                           "block_topk_kernel"))}
         steady = statistics.median(summary[name]["round_ms"][1:])
         out[name] = {"profiled_wall_ms": wall_ms,
@@ -947,12 +1047,14 @@ def main(argv) -> None:
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
 
-    # each kernel's line reports the variant at the shape of the path that
-    # launches it most
+    # each kernel's line reports the variant at the shape of its busiest
+    # call site on the paths (aou_merge: the exact coherent round, the
+    # path of every paper figure)
     main_variant = {"fairk_update": "fairk_update[stats]",
                     "sign_mv": f"sign_mv[fold {CHUNK}x{D}]",
                     "sign_from_energy": f"sign_from_energy[{D}+z+score]",
-                    "aou_merge": f"aou_merge[{D}]",
+                    "aou_merge": f"aou_merge[trainer coherent {D} at "
+                                 f"{K_EXACT}]",
                     "block_topk": f"block_topk[{BIG}/4096x164]"}
     sources = {
         "fairk_update": ("src/repro_torch/kernels/csrc/fairk_update.cu",

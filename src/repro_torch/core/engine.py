@@ -6,8 +6,10 @@ phase: select on ``g``, merge the fresh values over the stale ``g_prev``
 (Eq. 8) and advance the age (Eq. 10).
 
 * ``exact``: index-form selection (``core.selection``, all six policies;
-  rank form under ``sanitize``), then the mask-form merge and age step in
-  one ``aou_merge`` kernel pass (``masked_merge``).
+  rank form under ``sanitize``), then one ``aou_merge`` kernel launch:
+  for the selected indices the noise, merge, age step and residual
+  (``ops.masked_merge_by_indices``); under ``sanitize`` the mask-form merge
+  and age step (``masked_merge``).
 * ``packed``: thresholds (θ_M, θ_A) from the carried statistics alone,
   then ONE fused kernel pass (``kernels.ops.fairk_stats_update``) that
   selects (Eq. 11), merges, advances the age, folds the error-feedback
@@ -276,13 +278,26 @@ class SelectionEngine:
 
     def _exact_update(self, g, g_prev, age, noise, u, residual=None,
                       fresh=None, sanitize=False):
-        """Index-form selection on the score, then the mask-form merge and
-        age step in one ``aou_merge`` pass."""
+        """Index-form selection on the score, then one ``aou_merge``
+        launch: the merge, age step and residual for the selected indices
+        (or, under ``sanitize``, the mask-form merge for the rank-form
+        mask)."""
         cfg = self.cfg
         k, k_m, _ = self.budgets()
         score = eff_score(g, residual)
         fin = mask_m_s = None
-        if sanitize:
+        if not sanitize:
+            idx = self.select(score, age, u)
+            sent = score if fresh is None else fresh.to(torch.float32)
+            noisy = noise is not None and cfg.noise_std > 0.0
+            g_t, age_next, res_next = ops.masked_merge_by_indices(
+                idx, sent, g_prev, age, noise=noise if noisy else None,
+                noise_scale=cfg.noise_std / cfg.n_clients,
+                score=score if residual is not None else None,
+                mode=cfg.kernel_mode)
+            stats = {"idx": idx, "k": k,
+                     "n_selected": torch.tensor(float(k), device=g.device)}
+        else:
             # rank form on demoted statistics: non-finite coordinates rank
             # below every healthy one in both stages, and the final AND
             # keeps them out even when k exceeds the healthy count
@@ -295,16 +310,17 @@ class SelectionEngine:
             mask = mask * finf
             mask_m_s = mask_m_s * finf
             stats = {"n_selected": mask.sum(), "k": k}
-        else:
-            idx = self.select(score, age, u)
-            mask = selection.mask_from_indices(idx, self.d)
-            stats = {"idx": idx, "k": k,
-                     "n_selected": torch.tensor(float(k), device=g.device)}
-        sent = score if fresh is None else fresh.to(torch.float32)
-        if sanitize and fresh is not None:
-            sent = torch.where(torch.isfinite(sent), sent, 0.0)
-        g_t, age_next = masked_merge(self._noisy(sent, noise), g_prev, age,
-                                     mask, mode=cfg.kernel_mode)
+            sent = score
+            if fresh is not None:
+                sent = fresh.to(torch.float32)
+                sent = torch.where(torch.isfinite(sent), sent, 0.0)
+            g_t, age_next = masked_merge(self._noisy(sent, noise), g_prev,
+                                         age, mask, mode=cfg.kernel_mode)
+            if residual is not None:
+                # noise-free accounting; sanitized-out coordinates keep
+                # their old residual
+                res_next = torch.where(fin, score - mask * sent,
+                                       residual.to(torch.float32))
         if cfg.fused_stats:
             valid = age.to(torch.float32) >= 0.0
             if fin is not None:
@@ -316,12 +332,6 @@ class SelectionEngine:
             stats.update(n_sel_m=n_sel_m, mag_hist=mag_hist,
                          age_hist=age_hist)
         if residual is not None:
-            # noise-free accounting; sanitized-out coordinates keep their
-            # old residual
-            res_next = score - mask * sent
-            if fin is not None:
-                res_next = torch.where(fin, res_next,
-                                       residual.to(torch.float32))
             stats["residual"] = res_next
         return g_t, age_next, stats
 

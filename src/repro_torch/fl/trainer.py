@@ -13,9 +13,11 @@ accumulator, so the (N, d) matrix is never live.
   into a (k,) row — the faded contraction on the coherent uplink (Eq. 7),
   the ±1 vote sum on the one-bit FSK-MV uplink (``ops.vote_fold``: one
   ``sign_mv`` launch quantizes, gathers and adds each chunk).
-  The receiver tail (noise and 1/N, or the majority vote through
-  ``sign_from_energy``), the Eq. 8 scatter, client-side error feedback,
-  the model step (Eq. 9) and the index-form Eq. 10 follow.
+  On the one-bit uplink the majority vote (``sign_from_energy``) follows;
+  then one ``aou_merge`` launch (``ops.aou_merge_by_indices``) applies the
+  coherent receiver tail (noise and 1/N), the Eq. 8 scatter, the
+  index-form Eq. 10, the participation count and client-side error
+  feedback, and the model step (Eq. 9) ends the round.
 * ``packed``: the coherent uplink superposes the faded gradients over all
   d coordinates; the one-bit uplink folds each chunk's votes with
   ``ops.vote_fold`` and detects with one ``sign_from_energy`` launch
@@ -41,7 +43,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import aou, oac, packing, quantize, selection
+from repro_torch.core import oac, packing, quantize, selection
 from repro_torch.core.engine import (EngineConfig, SelectionEngine,
                                      budgets_for)
 from repro_torch.core.oac import ChannelConfig
@@ -219,9 +221,9 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
 
     def tail(w, g_t, age_next, sel_mask, sel_count, residual, tstate,
              n_selected):
-        """The model step (Eq. 9), the participation count, the metrics."""
+        """The model step (Eq. 9) and the metrics; ``sel_count`` is the
+        updated participation count."""
         w_next = w - fl.global_lr * g_t                          # Eq. (9)
-        sel_count = sel_count + sel_mask
         metrics = {"mean_aou": age_next.mean(), "max_aou": age_next.max(),
                    "km_frac": torch.tensor(frac_static, device=dev),
                    "n_selected": n_selected}
@@ -231,20 +233,25 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
     def exact_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
                            residual, tstate, draws, idx=None):
         """The receiver tail on the (k,) row, the Eq. 8 scatter, the EF
-        residual, the model step and the index-form Eq. 10."""
+        residual, the index-form Eq. 10 and the participation count (one
+        ``aou_merge`` launch, which on the coherent uplink also applies
+        Eq. 7's tail), then the model step."""
         if idx is None:
             idx = engine.select(g_prev, age, draws.get("u"))
         if fl.one_bit:
-            fresh = quantize.fsk_majority_from_energy(
+            row = quantize.fsk_majority_from_energy(
                 agg, draws.get("z"), fl.channel.noise_std, mode=kernel_mode)
         else:
-            fresh = oac.finish_aggregate(agg, draws.get("z"), n,
-                                         fl.channel)             # Eq. (7)
-        g_t = oac.reconstruct(g_prev, idx, fresh)                # Eq. (8)
-        sel_mask = selection.mask_from_indices(idx, d)
+            row = agg                    # the kernel applies Eq. (7)'s tail
+        g_t, age_next, sel_mask, sel_count, ef_res = (
+            ops.aou_merge_by_indices(                    # Eqs. (8), (10)
+                idx, row, g_prev, age, sel_count, n_clients=n,
+                superposed=not fl.one_bit, z=draws.get("z"),
+                noise_std=fl.channel.noise_std,
+                ef_sum=ef_sum if fl.error_feedback else None,
+                mode=kernel_mode))
         if fl.error_feedback:
-            residual = (ef_sum / n) * (1.0 - sel_mask)
-        age_next = aou.update_age_by_indices(age, idx)          # Eq. (10)
+            residual = ef_res
         return tail(w, g_t, age_next, sel_mask, sel_count, residual,
                     tstate, torch.tensor(float(k), device=dev))
 
@@ -273,8 +280,8 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
             sel_mask = (age_next == 0.0).to(torch.float32)
             if fl.error_feedback:
                 residual = stats["residual"]
-        return tail(w, g_t, age_next, sel_mask, sel_count, residual,
-                    stats["tstate"], stats["n_selected"])
+        return tail(w, g_t, age_next, sel_mask, sel_count + sel_mask,
+                    residual, stats["tstate"], stats["n_selected"])
 
     server_phase = exact_server_phase if exact else packed_server_phase
 

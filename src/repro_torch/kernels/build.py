@@ -54,6 +54,12 @@ _SIGNATURES = {
                                _P, _P, _P, ctypes.c_longlong, _P],
     # g_new, g_old, age, mask, g_out, age_out, d, stream
     "repro_aou_merge": [_P] * 6 + [ctypes.c_longlong, _P],
+    # idx, row, noise, g_prev, age, sel_count, aux, g_out, age_out,
+    # mask_out, count_out, res_out, d, k, noise_mul, n, superposed, arith,
+    # stream
+    "repro_aou_merge_by_indices": [_P] * 12 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
     # x, vals, idxs, scratch, nb, block_size, m, stream
     "repro_block_topk": [_P] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_int, _P],

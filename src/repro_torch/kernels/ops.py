@@ -61,6 +61,61 @@ def aou_merge(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor,
     return am.aou_merge_cuda(*args)
 
 
+def aou_merge_by_indices(idx: Tensor, fresh: Tensor, g_prev: Tensor,
+                         age: Tensor, sel_count: Tensor, *, n_clients: int,
+                         superposed: bool = False,
+                         z: Optional[Tensor] = None, noise_std: float = 0.0,
+                         ef_sum: Optional[Tensor] = None,
+                         mode: Optional[str] = None
+                         ) -> Tuple[Tensor, Tensor, Tensor, Tensor,
+                                    Optional[Tensor]]:
+    """The exact trainer's whole server-state update for the int64
+    selection ``idx`` (k,) and its fresh (k,) row -> ``(g_t, age', mask,
+    sel_count', residual' | None)``: Eq. 8 as a scatter, Eq. 10 in index
+    form, the 0/1 mask, the participation count and, with ``ef_sum``, the
+    EF residual ``(ef_sum / N)·(1 − mask)``.  With ``superposed`` the row
+    is the raw faded sum, and Eq. 7's receiver tail ``(row +
+    noise_std·z) / N`` is applied to it first.  The values of ``idx`` must
+    be distinct and in [0, d).  On the card one call is one device
+    operation (``ref.aou_merge_by_indices_ref`` is the plain version)."""
+    if superposed and noise_std > 0.0 and z is None:
+        raise ValueError("noise_std > 0 needs a noise draw z")
+    z = z if superposed and noise_std > 0.0 else None
+    if resolve_mode(mode, g_prev) == "plain":
+        return ref.aou_merge_by_indices_ref(
+            idx, fresh, g_prev, age, sel_count, n_clients,
+            superposed=superposed, z=z, noise_std=noise_std, ef_sum=ef_sum)
+    return am.merge_by_indices_cuda(
+        idx.to(torch.int64).contiguous(), _f32(fresh), _f32(g_prev),
+        _f32(age), sel_count=_f32(sel_count), noise=_f32(z),
+        noise_mul=noise_std, n_clients=n_clients, superposed=superposed,
+        aux=_f32(ef_sum))
+
+
+def masked_merge_by_indices(idx: Tensor, sent: Tensor, g_prev: Tensor,
+                            age: Tensor, *, noise: Optional[Tensor] = None,
+                            noise_scale: float = 0.0,
+                            score: Optional[Tensor] = None,
+                            mode: Optional[str] = None
+                            ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """The exact engine's update for the int64 selection ``idx`` -> ``(g_t,
+    age', residual' | None)``: ``aou_merge`` of ``sent + noise_scale·noise``
+    over ``g_prev`` with the 0/1 mask of ``idx`` (the arithmetic form, not
+    a scatter), and with ``score`` the residual ``score − mask·sent``.
+    The values of ``idx`` must be distinct and in [0, d).  On the card one
+    call is one device operation (``ref.masked_merge_by_indices_ref`` is
+    the plain version)."""
+    if resolve_mode(mode, g_prev) == "plain":
+        return ref.masked_merge_by_indices_ref(
+            idx, sent, g_prev, age, noise=noise, noise_scale=noise_scale,
+            score=score)
+    g_t, age_out, _, _, res = am.merge_by_indices_cuda(
+        idx.to(torch.int64).contiguous(), _f32(sent), _f32(g_prev),
+        _f32(age), noise=_f32(noise), noise_mul=noise_scale,
+        aux=_f32(score), arith=True)
+    return g_t, age_out, res
+
+
 def block_topk(x: Tensor, block_size: int = 4096, m: int = 16,
                mode: Optional[str] = None) -> Tuple[Tensor, Tensor]:
     """Per-block top-m of ``|x|`` (d % block_size == 0) -> ``(vals,

@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import aou, oac, packing, selection
 
 Tensor = torch.Tensor
 
@@ -96,6 +96,57 @@ def aou_merge_ref(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor
     g = mask * g_new + keep * g_old
     age_next = torch.clamp((age + 1.0) * keep, max=packing.AGE_CAP)
     return g, age_next
+
+
+def aou_merge_by_indices_ref(idx: Tensor, fresh: Tensor, g_prev: Tensor,
+                             age: Tensor, sel_count: Tensor, n_clients: int,
+                             superposed: bool = False,
+                             z: Optional[Tensor] = None,
+                             noise_std: float = 0.0,
+                             ef_sum: Optional[Tensor] = None
+                             ) -> Tuple[Tensor, Tensor, Tensor, Tensor,
+                                        Optional[Tensor]]:
+    """The exact trainer's server-state update, as the round composed it
+    from separate operations: with ``superposed`` the (k,) row is the raw
+    faded sum and gets Eq. 7's receiver tail ``(row + noise_std·z) / N``
+    (the noise only when ``noise_std`` > 0); Eq. 8 as a scatter (a −0.0
+    value stays −0.0, a non-finite ``g_prev`` at ``idx`` is replaced);
+    the 0/1 selection mask; Eq. 10 in index form (``min(age+1, AGE_CAP)``,
+    +0.0 at ``idx`` even for a NaN age); the participation count
+    ``sel_count + mask``; with ``ef_sum`` the client-side EF residual
+    ``(ef_sum / N)·(1 − mask)`` -> ``(g_t, age', mask, sel_count',
+    residual' | None)``."""
+    d = g_prev.shape[0]
+    if superposed:
+        if noise_std > 0.0:
+            fresh = fresh + noise_std * z
+        fresh = fresh / n_clients
+    g_t = oac.reconstruct(g_prev, idx, fresh)
+    mask = selection.mask_from_indices(idx, d)
+    residual = ((ef_sum / n_clients) * (1.0 - mask)
+                if ef_sum is not None else None)
+    age_next = aou.update_age_by_indices(age, idx)
+    return g_t, age_next, mask, sel_count + mask, residual
+
+
+def masked_merge_by_indices_ref(idx: Tensor, sent: Tensor, g_prev: Tensor,
+                                age: Tensor, noise: Optional[Tensor] = None,
+                                noise_scale: float = 0.0,
+                                score: Optional[Tensor] = None
+                                ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """The exact engine's update for a selection ``idx``, as the engine
+    composed it: the 0/1 mask, ``sent + noise_scale·noise`` (when ``noise``
+    is given), the mask-form merge and age of ``aou_merge_ref`` (so a
+    selected −0.0 may come out +0.0 and a non-finite value on either side
+    makes NaN), and with ``score`` the residual ``score − mask·sent`` ->
+    ``(g_t, age', residual' | None)``."""
+    mask = selection.mask_from_indices(idx, g_prev.shape[0])
+    sent = sent.to(torch.float32)
+    noisy = sent if noise is None else sent + noise_scale * noise
+    g_t, age_next = aou_merge_ref(noisy, g_prev.to(torch.float32),
+                                  age.to(torch.float32), mask)
+    residual = score - mask * sent if score is not None else None
+    return g_t, age_next, residual
 
 
 def check_block_topk(d: int, block_size: int, m: int) -> int:

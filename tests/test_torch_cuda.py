@@ -278,6 +278,162 @@ def test_aou_merge_kernel_matches_plain(cuda, d):
         _same(a, b)
 
 
+def _trapped(d, dev, gen, scale=1.0, offset=0):
+    """A (d,) row of N(0, scale²) values with −0.0, NaN and ±inf, made on
+    the card; with ``offset`` a view that many floats past the start of
+    its storage (off a 16-byte boundary for 1-3)."""
+    x = (torch.randn(d + offset, generator=gen, device=dev) * scale)[offset:]
+    u = torch.rand(d, generator=gen, device=dev)
+    x[u < 0.01] = -0.0
+    x[(u >= 0.01) & (u < 0.012)] = float("nan")
+    x[(u >= 0.012) & (u < 0.014)] = float("inf")
+    x[(u >= 0.014) & (u < 0.016)] = -float("inf")
+    return x
+
+
+def _merge_state(d, k, dev, seed, offset=0):
+    """A selection of k distinct unsorted coordinates and the state rows
+    of both index forms, with the traps of the CPU tests: −0.0, NaN and
+    ±inf in the fresh row, ``g_prev``, ``sent``, ``ef_sum`` and the score
+    (on selected coordinates too); NaN ages, ages at and past ``AGE_CAP``
+    and below −1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randperm(d, generator=gen, device=dev)[:k]
+    age = torch.randint(0, 131, (d + offset,), generator=gen,
+                        device=dev).float()[offset:]
+    special = torch.tensor([float("nan"), 119.0, 120.0, 121.0, 130.0, -1.0,
+                            -2.5], device=dev)
+    age[idx[:len(special)]] = special[:min(k, len(special))]
+    age[torch.rand(d, generator=gen, device=dev) < 0.01] = float("nan")
+    x = {"idx": idx, "age": age,
+         "sel_count": torch.randint(0, 9, (d + offset,), generator=gen,
+                                    device=dev).float()[offset:]}
+    for name, scale in (("g_prev", 1.0), ("ef_sum", 3.0), ("sent", 1.0),
+                        ("noise", 1.0), ("score", 1.0)):
+        x[name] = _trapped(d, dev, gen, scale, offset)
+    traps = torch.tensor([-0.0, float("nan"), float("inf"), -float("inf")],
+                         device=dev)
+    x["g_prev"][idx[:4]] = traps[:min(k, 4)]
+    x["sent"][idx[-4:]] = traps[-min(k, 4):]
+    x["fresh"] = _trapped(k, dev, gen)
+    x["z"] = torch.randn(k, generator=gen, device=dev)
+    return x
+
+
+TRAINER_FORMS = {"coherent": dict(superposed=True, noise_std=0.1),
+                 "coherent_ef": dict(superposed=True, noise_std=0.1,
+                                     ef=True),
+                 "noiseless": dict(superposed=True, noise_std=0.0),
+                 "one_bit_ef": dict(superposed=False, ef=True)}
+
+
+def _trainer_both(x, superposed, noise_std=0.0, ef=False):
+    kw = dict(n_clients=50, superposed=superposed, z=x["z"],
+              noise_std=noise_std, ef_sum=x["ef_sum"] if ef else None)
+    return [ops.aou_merge_by_indices(x["idx"], x["fresh"], x["g_prev"],
+                                     x["age"], x["sel_count"], mode=m, **kw)
+            for m in ("kernel", "plain")]
+
+
+def _engine_both(x, noise, res):
+    kw = dict(noise=x["noise"] if noise else None, noise_scale=0.1 / 50,
+              score=x["score"] if res else None)
+    return [ops.masked_merge_by_indices(x["idx"], x["sent"], x["g_prev"],
+                                        x["age"], mode=m, **kw)
+            for m in ("kernel", "plain")]
+
+
+MERGE_SHAPES = [(1, 1), (7, 1), (7, 7), (109_210, 1), (109_210, 10_921),
+                (109_210, 21_842), (109_210, 109_210), (2**24 + 3, 1),
+                (2**24 + 3, 10_921), (2**24 + 3, 21_842),
+                (2**24 + 3, 2**24 + 3)]
+
+
+@pytest.mark.parametrize("d,k", MERGE_SHAPES)
+def test_aou_merge_by_indices_kernel_matches_plain(cuda, d, k):
+    x = _merge_state(d, k, cuda, seed=d + k)
+    for form, kw in TRAINER_FORMS.items():
+        k_out, p_out = _trainer_both(x, **kw)
+        assert (k_out[4] is None) == (p_out[4] is None), form
+        for a, b in zip(k_out, p_out):
+            if a is not None:
+                _same(a, b)
+
+
+@pytest.mark.parametrize("d,k", MERGE_SHAPES)
+def test_masked_merge_by_indices_kernel_matches_plain(cuda, d, k):
+    x = _merge_state(d, k, cuda, seed=2 * d + k)
+    for noise in (False, True):
+        for res in (False, True):
+            k_out, p_out = _engine_both(x, noise, res)
+            assert (k_out[2] is None) == (not res)
+            for a, b in zip(k_out, p_out):
+                if a is not None:
+                    _same(a, b)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_index_forms_take_views_off_a_16_byte_boundary(cuda, offset):
+    """Every (d,) row a view 1-3 floats into its storage: the scalar
+    path, the same bits."""
+    x = _merge_state(109_210, 10_921, cuda, seed=offset, offset=offset)
+    assert x["g_prev"].data_ptr() % 16 != 0
+    for kw in TRAINER_FORMS.values():
+        for a, b in zip(*_trainer_both(x, **kw)):
+            if a is not None:
+                _same(a, b)
+    for a, b in zip(*_engine_both(x, True, True)):
+        _same(a, b)
+
+
+def test_index_forms_are_one_device_operation_and_one_launch(cuda):
+    """After warm-up, one call of either index form at the exact path's
+    shapes makes one device operation, the merge kernel, and counts one
+    ``aou_merge`` launch; the plain mode counts none."""
+    x = _merge_state(109_210, 10_921, cuda, seed=12)
+    calls = [lambda: ops.aou_merge_by_indices(
+                 x["idx"], x["fresh"], x["g_prev"], x["age"],
+                 x["sel_count"], n_clients=50, superposed=True, z=x["z"],
+                 noise_std=0.1, ef_sum=x["ef_sum"]),
+             lambda: ops.masked_merge_by_indices(
+                 x["idx"], x["sent"], x["g_prev"], x["age"],
+                 noise=x["noise"], noise_scale=0.002, score=x["score"])]
+    for fn in calls:
+        ops_on_card = _device_ops(fn)
+        assert sum(ops_on_card.values()) == 1, ops_on_card
+        assert "aou_merge_idx_kernel" in next(iter(ops_on_card))
+        before = aou_merge.LAUNCHES
+        fn()
+        assert aou_merge.LAUNCHES == before + 1
+    before = aou_merge.LAUNCHES
+    _trainer_both(x, superposed=False)
+    _engine_both(x, True, True)
+    assert aou_merge.LAUNCHES == before + 2
+
+
+def test_index_form_equals_the_composition_it_replaces(cuda):
+    """The trainer's old composition on the card, Eq. 7's tail as
+    ``oac.finish_aggregate``, ``oac.reconstruct``, the mask,
+    ``aou.update_age_by_indices``, the count and the EF residual: the
+    same bits as one kernel call (so PyTorch's ``x / N`` on the card is
+    ``x * (1 / N)``, as the kernel computes it)."""
+    from repro_torch.core import aou, oac, selection
+    x = _merge_state(109_210, 10_921, cuda, seed=13)
+    idx, n = x["idx"], 50
+    cfg = oac.ChannelConfig(fading="none", noise_std=0.1)
+    fresh = oac.finish_aggregate(x["fresh"], x["z"], n, cfg)
+    mask = selection.mask_from_indices(idx, 109_210)
+    want = (oac.reconstruct(x["g_prev"], idx, fresh),
+            aou.update_age_by_indices(x["age"], idx), mask,
+            x["sel_count"] + mask, (x["ef_sum"] / n) * (1.0 - mask))
+    got = ops.aou_merge_by_indices(idx, x["fresh"], x["g_prev"], x["age"],
+                                   x["sel_count"], n_clients=n,
+                                   superposed=True, z=x["z"], noise_std=0.1,
+                                   ef_sum=x["ef_sum"], mode="kernel")
+    for a, b in zip(got, want):
+        _same(a, b)
+
+
 def _topk_case(d, bs, m, kind):
     """Ties inside and across blocks (both signs, exact zeros) plus, by
     ``kind``: NaNs of both signs, infinities of both signs, every value
@@ -462,3 +618,26 @@ def test_wrappers_check_their_operands(cuda):
     with pytest.raises(ValueError, match="shared-memory"):
         block_topk.block_topk_cuda(torch.zeros(2**16, device=cuda), 2**16,
                                    4)
+
+
+def test_index_form_wrapper_checks_its_operands(cuda):
+    x = _merge_state(64, 8, cuda, seed=3)
+    idx, row = x["idx"], x["fresh"]
+    with pytest.raises(ValueError, match="int64"):
+        aou_merge.merge_by_indices_cuda(idx.int(), row, x["g_prev"],
+                                        x["age"], sel_count=x["sel_count"])
+    with pytest.raises(ValueError, match="contiguous"):
+        aou_merge.merge_by_indices_cuda(torch.stack([idx, idx], 1)[:, 0],
+                                        row, x["g_prev"], x["age"],
+                                        sel_count=x["sel_count"])
+    with pytest.raises(ValueError, match="sel_count"):
+        aou_merge.merge_by_indices_cuda(idx, row, x["g_prev"], x["age"])
+    with pytest.raises(ValueError, match="shape"):
+        aou_merge.merge_by_indices_cuda(idx, x["sent"], x["g_prev"],
+                                        x["age"], sel_count=x["sel_count"])
+    with pytest.raises(ValueError, match="shape"):
+        aou_merge.merge_by_indices_cuda(idx, row, x["g_prev"], x["age"],
+                                        arith=True)
+    with pytest.raises(ValueError, match="float32"):
+        aou_merge.merge_by_indices_cuda(idx, x["sent"], x["g_prev"],
+                                        x["age"].double(), arith=True)

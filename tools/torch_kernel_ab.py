@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's kernels and the one-bit uplink's call sites of one tree
+"""Time the port's kernels and the one-bit and exact call sites of one tree
 on one NVIDIA GPU, so that two trees (a parent commit and its change) can
 be compared on one card in one run.
 
@@ -27,6 +27,16 @@ time) and eager calls (host time):
   times a draw ``z``), the exact detection (21,842); and ``ops.sign_mv``
   at (10, 21,842), (10, 109,210) and (50, 109,210).  Each result is held
   against plain PyTorch arithmetic that does not depend on the tree.
+- ``ops.aou_merge`` (the mask form) at d = 109,210 and 2^24;
+- the exact path's state updates at d = 109,210, each as one call where
+  the tree has the index form (``ops.aou_merge_by_indices``,
+  ``ops.masked_merge_by_indices``) and as the composition of operations
+  the call sites ran before where it has not: the trainer's coherent
+  update at k = 10,921 with and without error feedback and its one-bit
+  update with it at k = 21,842, and the engine's update with noise and
+  residual at k = 10,921 (the tree's ``ops.aou_merge`` in the middle).
+  Device operations are also counted as the nodes of a captured CUDA
+  graph (``chip_smoke._graph_ops``).
 
 Prints one line per measurement and writes them all to
 ``chiprun_out/kernel_ab_<NAME>.json``.  Run alternately on two roots
@@ -128,6 +138,116 @@ def one_bit_sites(cs, ops, dev, rng, put) -> None:
             n_device_ops=sum(on_card.values()), device_ops=_short(on_card))
 
 
+def merge_sites(cs, ops, dev, rng, put) -> None:
+    """``aou_merge``'s mask form and the exact path's state updates
+    (module docstring), timed and checked; ``composed`` in a row says
+    which form the tree ran."""
+    import numpy as np
+    import torch
+    from repro_torch.core import aou, oac, selection
+
+    fused = hasattr(ops, "aou_merge_by_indices")
+    d, n = cs.D, 50
+    for size in (d, cs.BIG):
+        a = [torch.as_tensor(rng.normal(size=size).astype(np.float32),
+                             device=dev) for _ in range(3)]
+        a.append(torch.as_tensor((rng.random(size) < 0.1).astype(
+            np.float32), device=dev))
+        keep = 1.0 - a[3]
+        cs._same(ops.aou_merge(*a)[0], a[3] * a[0] + keep * a[1],
+                 "aou_merge g")
+        ms, eager = cs._time_ms(lambda: ops.aou_merge(*a),
+                                blocks=50 if size == d else 10)
+        put(f"aou_merge[{size}]", ms=ms, eager_ms=eager,
+            bound_ms=cs._bound_ms(24 * size, 7 * size)[0],
+            n_device_ops=sum(cs._graph_ops(lambda: ops.aou_merge(*a))
+                             .values()))
+
+    def vec(scale=1.0):
+        x = (rng.normal(size=d) * scale).astype(np.float32)
+        x[rng.choice(d, 20, replace=False)] = -0.0
+        return torch.as_tensor(x, device=dev)
+
+    g_prev, ef_sum, sent, score, noise = vec(), vec(3.0), vec(), vec(), vec()
+    age = torch.as_tensor(rng.integers(0, 131, size=d).astype(np.float32),
+                          device=dev)
+    sel_count = torch.as_tensor(rng.integers(0, 9, size=d).astype(
+        np.float32), device=dev)
+    rows = {}
+    for k in (cs.K_EXACT, cs.K_ONE_BIT):
+        rows[k] = (torch.as_tensor(rng.permutation(d)[:k], device=dev),
+                   torch.as_tensor(rng.normal(size=k).astype(np.float32),
+                                   device=dev),
+                   torch.as_tensor(rng.normal(size=k).astype(np.float32),
+                                   device=dev))
+
+    def trainer(k, superposed, ef):
+        idx, row, z = rows[k]
+        if fused:
+            return lambda: ops.aou_merge_by_indices(
+                idx, row, g_prev, age, sel_count, n_clients=n,
+                superposed=superposed, z=z, noise_std=0.1,
+                ef_sum=ef_sum if ef else None)[:4]
+
+        def composed():
+            fresh = row
+            if superposed:
+                fresh = oac.finish_aggregate(
+                    row, z, n, oac.ChannelConfig(fading="none",
+                                                 noise_std=0.1))
+            g_t = oac.reconstruct(g_prev, idx, fresh)
+            mask = selection.mask_from_indices(idx, d)
+            if ef:
+                composed.residual = (ef_sum / n) * (1.0 - mask)
+            return (g_t, aou.update_age_by_indices(age, idx), mask,
+                    sel_count + mask)
+        return composed
+
+    def engine():
+        idx = rows[cs.K_EXACT][0]
+        if fused:
+            return ops.masked_merge_by_indices(
+                idx, sent, g_prev, age, noise=noise, noise_scale=0.1 / n,
+                score=score)[:2]
+        mask = selection.mask_from_indices(idx, d)
+        out = ops.aou_merge(sent + (0.1 / n) * noise, g_prev, age, mask)
+        engine.residual = score - mask * sent
+        return out
+
+    sites = {
+        f"trainer coherent+ef[{d} at {cs.K_EXACT}]": (
+            trainer(cs.K_EXACT, True, True), 36 * d + 16 * cs.K_EXACT),
+        f"trainer coherent[{d} at {cs.K_EXACT}]": (
+            trainer(cs.K_EXACT, True, False), 28 * d + 16 * cs.K_EXACT),
+        f"trainer one-bit+ef[{d} at {cs.K_ONE_BIT}]": (
+            trainer(cs.K_ONE_BIT, False, True), 36 * d + 12 * cs.K_ONE_BIT),
+        f"engine noise+res[{d} at {cs.K_EXACT}]": (
+            engine, 32 * d + 8 * cs.K_EXACT)}
+    for name, (fn, n_bytes) in sites.items():
+        k = cs.K_ONE_BIT if "one-bit" in name else cs.K_EXACT
+        idx, row, z = rows[k]
+        mask = torch.zeros(d, device=dev)
+        mask[idx] = 1.0
+        got = fn()
+        if name.startswith("engine"):
+            want = (mask * (sent + (0.1 / n) * noise) + (1.0 - mask) * g_prev,
+                    torch.clamp((age + 1.0) * (1.0 - mask), max=120.0))
+        else:
+            fresh = (row + 0.1 * z) / n if "coherent" in name else row
+            g_t = g_prev.clone()
+            g_t[idx] = fresh
+            want = (g_t, torch.where(mask > 0, 0.0,
+                                     torch.clamp(age + 1.0, max=120.0)),
+                    mask, sel_count + mask)
+        for a, b in zip(got, want):
+            cs._same(a, b, name)
+        ms, eager = cs._time_ms(fn)
+        put(name, composed=not fused, ms=ms, eager_ms=eager,
+            bound_ms=cs._bound_ms(n_bytes, 8 * d)[0],
+            n_device_ops=sum(cs._graph_ops(fn).values()),
+            profiler_ops=_short(cs._device_ops(fn)))
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
@@ -212,6 +332,7 @@ def main(argv) -> None:
     lib = cs._time_ms(lambda: torch.topk(xt.abs(), k), blocks=10)[0]
     put(f"two_stage_topk[{cs.BIG}, k {k}]", ms=ms, library_ms=lib)
     one_bit_sites(cs, ops, dev, rng, put)
+    merge_sites(cs, ops, dev, rng, put)
 
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
