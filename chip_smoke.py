@@ -15,7 +15,9 @@ failure):
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, compiled in parallel,
    with the build time and the ``-Xptxas -v`` report;
 3. kernels against their plain versions at the shapes their paths give
-   them (d = 109,210 and the exact one-bit row of k = 21,842; 2^24 for
+   them (d = 109,210 and the exact one-bit row of k = 21,842; the sweep's
+   80 × 2,048 block for ``aou_merge``'s mask form; fig 9's fold of 50 ×
+   112,346 at 22,469 and its detection at 22,469; 2^24 for
    ``fairk_update``, ``aou_merge`` and ``block_topk``, ties included, and
    ``block_topk`` on NaN, ±inf, blocks of one value and m = block_size;
    the one-bit chunk fold ``ops.vote_fold`` dense and gathered, the
@@ -49,18 +51,33 @@ failure):
    the index form, 3 of the mask form);
 7. the two-stage top-k entry point (``ops.two_stage_topk``, d = 2^24,
    k = d/100): one ``block_topk`` launch, equal to the stable-sort top-k;
-8. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+8. the adaptive split: ``fairk_auto`` as (a) on the exact and the packed
+   backend, 8 rounds each — one ``aou_merge`` launch per exact round, one
+   ``fairk_update`` per packed round, ``km_frac`` inside the controller's
+   range, kernel and plain trajectories identical (``km_frac`` and the
+   controller state included), and no host sync in a warm round (sync
+   debug mode) on the adaptive routes and on the static (a) and exact
+   FAIR-k;
+9. the figures: figs 4, 5, 7 and 9 through
+   ``benchmarks.torch_common.run_policy`` at their ``--full`` MLP width
+   (d = 111,306; fig 9 112,346), 3 rounds per policy — one ``aou_merge``
+   per round, fig 9's one-bit fold and detection once per round; each
+   run again with the plain versions: identical trajectories;
+10. the sweep: fig 6's grid (80 lanes × d = 2,048, N = 16), 20 rounds —
+   one mask-form ``aou_merge`` launch per round, kernel and plain grids
+   identical, k coordinates refreshed per lane per round;
+11. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-9. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+12. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-10. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+13. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-7) runs with every launch count set to 0 just before it and
-read just after; a kernel that none of them launched fails the run.
+Each path (4-10) runs with every launch count set to 0 just before it
+and read just after; a kernel that none of them launched fails the run.
 
 Imports neither JAX nor the JAX package.  Writes the full kernel timings to
 ``chiprun_out/chip_smoke.json``.
@@ -83,6 +100,13 @@ N_CLIENTS, CHUNK, H, B = 50, 10, 5, 20
 K_EXACT = 10_921                    # the exact coherent row: rho 0.1 of D
 K_ONE_BIT = 21_842                  # the exact one-bit row: rho 0.2 of D
 BIG = 2**24                         # aou_merge / block_topk at scale
+ADAPTIVE_ROUNDS = 8                 # the controller acts at round 5
+FIG_ROUNDS = 3                      # per policy, figs 4, 5, 7 and 9
+D_FIG, D_FIG9 = 111_306, 112_346    # the figures' MLP on 24x24x3, hidden 64
+K_FIG9 = 22_469                     # fig 9's one-bit row: rho 0.2 of D_FIG9
+SWEEP_D, SWEEP_N, SWEEP_SEEDS, SWEEP_ROUNDS = 2048, 16, 8, 20
+SWEEP_RATIOS = (0.0, 0.25, 0.5, 0.75, 1.0)
+SWEEP_LANES = 2 * len(SWEEP_RATIOS) * SWEEP_SEEDS   # fairk + fairk_auto
 TOPK_CASES = ((4096, 16), (4096, 164), (1024, 8))   # (block_size, m)
 KERNELS = ("fairk_update", "sign_mv", "sign_from_energy", "aou_merge",
            "block_topk")
@@ -123,7 +147,9 @@ def _same(a, b, what: str) -> float:
                            b[~nan_b].view(torch.int32))
     else:
         same = torch.equal(a, b)
-    diff = (a[~nan_a] - b[~nan_b]).abs()
+    a_n, b_n = a[~nan_a], b[~nan_b]
+    # equal infinities differ by 0, not by inf - inf = NaN
+    diff = torch.where(a_n == b_n, 0, (a_n - b_n).abs())
     err = float(diff.max()) if diff.numel() else 0.0
     check(bool(same), f"{what}: kernel and plain differ (max abs {err})")
     return err
@@ -437,26 +463,39 @@ def one_bit_call_sites(dev, rng, records):
     """The one-bit uplink's call sites at the paths' shapes, each one
     kernel launch: the chunk fold ``ops.vote_fold`` of a (10, 109,210)
     chunk dense (packed path) and gathered at an unsorted selection of
-    21,842 (exact path) into a non-zero accumulator, the packed detection
+    21,842 (exact path), and fig 9's fold of one chunk of 50 clients
+    (50, 112,346) gathered at 22,469 (the kernel's variant for chunks of
+    more than 16 rows), into a non-zero accumulator; the packed detection
     with its score (109,210, ``noise_std`` 2.0 times the draw ``z``) and
-    the exact detection (21,842, ``quantize.fsk_majority_from_energy``).
-    Kernel against plain bit for bit, one device operation per call,
-    timed."""
+    the exact detection (``quantize.fsk_majority_from_energy``, noise_std
+    2.0) at 21,842 and at fig 9's 22,469.  Kernel against plain bit for
+    bit, one device operation per call, timed."""
     import numpy as np
     import torch
     from repro_torch.core import quantize
     from repro_torch.kernels import ops
 
-    x = rng.normal(size=(CHUNK, D)).astype(np.float32)
-    u = rng.random((CHUNK, D))
-    x[u < 0.05] = 0.0
-    x[(u >= 0.05) & (u < 0.1)] = -0.0
-    x[0, :3] = [np.nan, np.inf, -np.inf]
-    x = torch.as_tensor(x, device=dev)
-    idx = torch.as_tensor(rng.permutation(D)[:K_ONE_BIT], device=dev)
-    for name, sel in ((f"sign_mv[fold {CHUNK}x{D}]", None),
-                      (f"sign_mv[fold {CHUNK}x{D} at {K_ONE_BIT}]", idx)):
-        k = D if sel is None else K_ONE_BIT
+    def chunk(rows, d):
+        x = rng.normal(size=(rows, d)).astype(np.float32)
+        u = rng.random((rows, d))
+        x[u < 0.05] = 0.0
+        x[(u >= 0.05) & (u < 0.1)] = -0.0
+        x[0, :3] = [np.nan, np.inf, -np.inf]
+        return torch.as_tensor(x, device=dev)
+
+    def sel_of(d, k):
+        return torch.as_tensor(rng.permutation(d)[:k], device=dev)
+
+    x = chunk(CHUNK, D)
+    fig9 = chunk(N_CLIENTS, D_FIG9)
+    for name, x, sel in (
+            (f"sign_mv[fold {CHUNK}x{D}]", x, None),
+            (f"sign_mv[fold {CHUNK}x{D} at {K_ONE_BIT}]", x,
+             sel_of(D, K_ONE_BIT)),
+            (f"sign_mv[fold {N_CLIENTS}x{D_FIG9} at {K_FIG9}]", fig9,
+             sel_of(D_FIG9, K_FIG9))):
+        rows = x.shape[0]
+        k = x.shape[1] if sel is None else sel.numel()
         acc = torch.as_tensor((rng.normal(size=k) * 7.0).astype(np.float32),
                               device=dev)
         outs = {}
@@ -471,9 +510,9 @@ def one_bit_call_sites(dev, rng, records):
                                                     mode=m))
               for m in ("kernel", "plain")}
         # x (at idx) read once, idx read once, acc read and written
-        n_bytes = 4 * CHUNK * k + 8 * k + (0 if sel is None else 8 * k)
+        n_bytes = 4 * rows * k + 8 * k + (0 if sel is None else 8 * k)
         records[name] = _record(err, ms, n_bytes,
-                                *_bound_ms(n_bytes, 2 * CHUNK * k))
+                                *_bound_ms(n_bytes, 2 * rows * k))
         records[name]["device_ops"] = n_ops
     energy = torch.as_tensor(2.0 * rng.integers(-25, 26, size=D),
                              dtype=torch.float32, device=dev)
@@ -492,19 +531,20 @@ def one_bit_call_sites(dev, rng, records):
     n_bytes = 4 * D * 5                    # e, z in; signs, energy, score out
     records[name] = _record(err, ms, n_bytes, *_bound_ms(n_bytes, 8 * D))
     records[name]["device_ops"] = n_ops
-    e, zk = energy[:K_ONE_BIT], z[:K_ONE_BIT]
-    name = f"sign_from_energy[{K_ONE_BIT}+z]"
-    outs = {m: quantize.fsk_majority_from_energy(e, zk, 2.0, mode=m)
-            for m in ("kernel", "plain")}
-    err = _same(outs["kernel"], outs["plain"], name)
-    n_ops = _one_op(lambda: quantize.fsk_majority_from_energy(e, zk, 2.0),
-                    "sign_from_energy_kernel", name)
-    ms = {m: _time_ms(lambda m=m: quantize.fsk_majority_from_energy(
-        e, zk, 2.0, mode=m)) for m in ("kernel", "plain")}
-    n_bytes = 4 * K_ONE_BIT * 4            # e, z in; signs, energy out
-    records[name] = _record(err, ms, n_bytes,
-                            *_bound_ms(n_bytes, 4 * K_ONE_BIT))
-    records[name]["device_ops"] = n_ops
+    for k in (K_ONE_BIT, K_FIG9):
+        e, zk = energy[:k], z[:k]
+        name = f"sign_from_energy[{k}+z]"
+        outs = {m: quantize.fsk_majority_from_energy(e, zk, 2.0, mode=m)
+                for m in ("kernel", "plain")}
+        err = _same(outs["kernel"], outs["plain"], name)
+        n_ops = _one_op(
+            lambda: quantize.fsk_majority_from_energy(e, zk, 2.0),
+            "sign_from_energy_kernel", name)
+        ms = {m: _time_ms(lambda m=m: quantize.fsk_majority_from_energy(
+            e, zk, 2.0, mode=m)) for m in ("kernel", "plain")}
+        n_bytes = 4 * k * 4                # e, z in; signs, energy out
+        records[name] = _record(err, ms, n_bytes, *_bound_ms(n_bytes, 4 * k))
+        records[name]["device_ops"] = n_ops
 
 
 def merge_call_sites(dev, rng, records):
@@ -592,7 +632,8 @@ def merge_and_topk_checks(dev, rng, records):
     import torch
     from repro_torch.kernels import ops
 
-    for d in (D, BIG):
+    # the exact path's width, the sweep grid's (lanes·d) block, 2^24
+    for d in (D, SWEEP_LANES * SWEEP_D, BIG):
         g_new = rng.normal(size=d).astype(np.float32)
         g_new[rng.random(d) < 0.02] = -0.0
         g_new[:3] = [np.nan, np.inf, -np.inf]
@@ -606,7 +647,7 @@ def merge_and_topk_checks(dev, rng, records):
             ops.aou_merge(*args, mode="kernel"),
             ops.aou_merge(*args, mode="plain")))
         ms = {m: _time_ms(lambda m=m: ops.aou_merge(*args, mode=m),
-                          blocks=50 if d == D else 10)
+                          blocks=10 if d == BIG else 50)
               for m in ("kernel", "plain")}
         n_bytes = 24 * d
         records[name] = _record(err, ms, n_bytes, *_bound_ms(n_bytes, 7 * d))
@@ -908,6 +949,325 @@ def topk_path_phase(dev):
     return got
 
 
+def adaptive_configs():
+    """``fairk_auto`` at full width, coherent as (a), on both backends."""
+    import dataclasses
+    packed, _ = run_configs()
+    base = dataclasses.replace(packed["a_coherent"], rounds=ADAPTIVE_ROUNDS,
+                               policy="fairk_auto")
+    return {"adaptive_exact": dataclasses.replace(base, backend="exact"),
+            "adaptive_packed": base}
+
+
+def host_syncs(dev, task, fl, rounds: int = 3):
+    """Host syncs per warm round of ``fl``: the round function called on
+    uploaded batches and draws under PyTorch's sync debug mode ("warn"),
+    counting its warnings -> (syncs per round, the source lines that
+    synchronised)."""
+    import os
+    import warnings
+    import torch
+    from repro_torch.fl import init_server, make_fl_step
+    from repro_torch.fl.trainer import draw_round
+
+    params0, loss_fn, _, sample_round = task
+    state, unravel = init_server(params0, fl, dev)
+    d = state.w.shape[0]
+    step = make_fl_step(fl, unravel, loss_fn, d, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    inputs = []
+    for t in range(rounds + 1):
+        xs, ys = sample_round(t)
+        inputs.append((torch.as_tensor(xs, device=dev),
+                       torch.as_tensor(ys, device=dev),
+                       draw_round(gen, fl, d, dev)))
+    carry = (state.w, state.g, state.age, state.sel_count, state.residual,
+             state.theta, state.ctrl)
+
+    def one(xs, ys, draws):
+        nonlocal carry
+        w, g, age, sc, res, ts, cs = carry
+        out = step(w, g, age, sc, xs, ys, res, ts, draws, cs)
+        carry = out[:5] + (out[6], out[7])
+
+    one(*inputs[0])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for xs, ys, draws in inputs[1:]:
+                one(xs, ys, draws)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    where = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                    for w in syncs})
+    return len(syncs) / rounds, where
+
+
+def adaptive_phase(dev, task):
+    """``fairk_auto`` (``adaptive_km``) at full width on the exact and the
+    packed backend, coherent as (a), ``ADAPTIVE_ROUNDS`` rounds each: one
+    ``aou_merge`` launch per exact round, one ``fairk_update`` per packed
+    round, the split inside [min_frac, max_frac]; then the same rounds
+    with cuDNN deterministic, with the kernels and with the plain
+    versions: identical trajectories, ``km_frac`` included; and no host
+    sync in a warm round (sync debug mode) on either adaptive route nor
+    on the static (a) and exact FAIR-k."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.fl import train
+
+    params0, loss_fn, eval_fn, sample_round = task
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    for name, fl in adaptive_configs().items():
+        exact = fl.backend == "exact"
+        reset_counters()
+        hist = train(fl, params0, loss_fn, sample_round, eval_fn=eval_fn,
+                     eval_every=ADAPTIVE_ROUNDS, device=dev)
+        torch.cuda.synchronize()
+        got = read_counters()
+        want = dict.fromkeys(KERNELS, 0)
+        want["aou_merge" if exact else "fairk_update"] = fl.rounds
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        for key in launches:
+            launches[key] += got[key]
+        c = fl.controller
+        kmf = hist["km_frac"]
+        check(all(c.min_frac <= f <= c.max_frac for f in kmf),
+              f"{name}: km_frac {kmf} outside [{c.min_frac}, "
+              f"{c.max_frac}]")
+        check(bool(torch.isfinite(hist["state"].w).all())
+              and all(math.isfinite(x) for x in hist["loss"]),
+              f"{name}: non-finite weights or loss")
+        if exact:
+            check(hist["n_selected"] == [float(hist["k"])] * fl.rounds,
+                  f"{name}: selected {hist['n_selected']}, not k")
+        steady = statistics.median(hist["round_ms"][1:])
+        summary[name] = {"km_frac": kmf, "round_ms": hist["round_ms"],
+                         "steady_round_ms": steady, "launches": got,
+                         "loss": hist["loss"], "acc": hist["acc"]}
+        print(f"adaptive {name}: {fl.rounds} rounds, launches {got}, "
+              f"km_frac {[round(x, 6) for x in kmf]}, round ms "
+              f"{[round(x, 3) for x in hist['round_ms']]} (steady "
+              f"{steady:.3f}), test loss {hist['loss'][-1]:.4f}",
+              flush=True)
+    # kernel against plain, cuDNN deterministic (restored afterwards)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for name, fl in adaptive_configs().items():
+            runs = {mode: train(fl, params0, loss_fn, sample_round,
+                                device=dev, kernel_mode=mode)
+                    for mode in (None, "plain")}
+            k, p = runs[None], runs["plain"]
+            check(k["km_frac"] == p["km_frac"],
+                  f"{name}: km_frac differs, kernel {k['km_frac']} plain "
+                  f"{p['km_frac']}")
+            for field in ("w", "g", "age", "sel_count"):
+                _same(getattr(k["state"], field), getattr(p["state"], field),
+                      f"{name} {field}")
+            for key in k["state"].ctrl:
+                _same(k["state"].ctrl[key], p["state"].ctrl[key],
+                      f"{name} ctrl.{key}")
+            print(f"adaptive {name}: kernel and plain trajectories "
+                  f"identical over {fl.rounds} rounds (w, g, ages, counts, "
+                  f"controller state, km_frac)", flush=True)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    packed, exact = run_configs()
+    syncs = {}
+    for name, fl in {**adaptive_configs(),
+                     "exact_fairk": exact["exact_fairk"],
+                     "a_coherent": packed["a_coherent"]}.items():
+        per_round, where = host_syncs(dev, task, fl)
+        syncs[name] = {"per_round": per_round, "where": where}
+        print(f"host syncs {name}: {per_round:g} per warm round "
+              f"{where}", flush=True)
+        check(per_round == 0,
+              f"host syncs {name}: {per_round:g} per warm round at {where}")
+    summary["host_syncs"] = syncs
+    return launches, summary
+
+
+def figures_phase(dev):
+    """Figs 4, 5, 7 and 9 through ``benchmarks.torch_common.run_policy``
+    at their ``--full`` task width (the MLP on 24x24x3 with hidden 64, d =
+    111,306, fig 9 with 26 classes d = 112,346, over 50 clients),
+    ``FIG_ROUNDS`` rounds per policy (and per H on fig 7): one
+    ``aou_merge`` launch per round, on fig 9's one-bit uplink one
+    ``sign_mv`` fold per round (one chunk of 50) and one
+    ``sign_from_energy``; k coordinates refreshed every round; finite
+    accuracy; then every run again with the plain versions (cuDNN
+    deterministic, restored afterwards), which launch no kernel:
+    identical weights, aggregates, ages, counts, accuracies and mean
+    AoU."""
+    import torch
+    from benchmarks import torch_common
+    from repro_torch.core.oac import ChannelConfig
+
+    task = torch_common.make_task(fast=False, device=dev)
+    task26 = torch_common.make_task(fast=False, n_classes=26, device=dev)
+    check(task.d == D_FIG and task26.d == D_FIG9,
+          f"figure MLPs have d = {task.d} / {task26.d}")
+    five = ("fairk", "topk", "agetopk", "toprand", "roundrobin")
+    one_bit = dict(rho=0.2, one_bit=True, lr=0.003,
+                   channel=ChannelConfig(fading="none", mean=1.0,
+                                         noise_std=2.0))
+    figures = {
+        "fig4": [(task, p, {"eval_every": 1}) for p in five],
+        "fig5": [(task, p, {}) for p in five],
+        "fig7": [(task, p, {"local_steps": h}) for h in (1, 5, 20)
+                 for p in ("fairk", "topk")],
+        "fig9": [(task26, p, one_bit) for p in ("fairk", "topk",
+                                                 "toprand")],
+    }
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for fig, runs in figures.items():
+            got, summary[fig] = figure(fig, runs)
+            for key in launches:
+                launches[key] += got[key]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    return launches, summary
+
+
+def figure(fig, runs):
+    """One figure's runs with the kernels (counted), then with the plain
+    versions -> (launches, summary)."""
+    import math
+    import torch
+    from benchmarks import torch_common
+
+    reset_counters()
+    steady, rows, hists = [], [], []
+    for t, policy, kw in runs:
+        h = torch_common.run_policy(t, policy, FIG_ROUNDS, **kw)
+        check(h["n_selected"] == [float(h["k"])] * FIG_ROUNDS,
+              f"{fig} {policy}: selected {h['n_selected']}, not k")
+        check(all(math.isfinite(a) for a in h["acc"]),
+              f"{fig} {policy}: accuracy {h['acc']}")
+        steady += h["round_ms"][1:]
+        rows.append((policy, kw.get("local_steps", 5), h["acc"][-1],
+                     h["round_ms"]))
+        hists.append(h)
+    torch.cuda.synchronize()
+    got = read_counters()
+    n_rounds = FIG_ROUNDS * len(runs)
+    want = dict.fromkeys(KERNELS, 0)
+    want["aou_merge"] = n_rounds
+    if fig == "fig9":
+        want["sign_mv"] = want["sign_from_energy"] = n_rounds
+    check(got == want, f"{fig}: launches {got}, expected {want}")
+    med = statistics.median(steady)
+    print(f"figures {fig}: {len(runs)} runs x {FIG_ROUNDS} rounds at "
+          f"d = {runs[0][0].d}, launches {got}, steady round ms median "
+          f"{med:.3f} (min {min(steady):.3f}, max {max(steady):.3f})",
+          flush=True)
+    for (t, policy, kw), k in zip(runs, hists):
+        what = f"{fig} {policy} H={kw.get('local_steps', 5)}"
+        p = torch_common.run_policy(t, policy, FIG_ROUNDS,
+                                    kernel_mode="plain", **kw)
+        check(k["acc"] == p["acc"] and k["mean_aou"] == p["mean_aou"],
+              f"{what}: accuracy or mean AoU differs, kernel {k['acc']} "
+              f"{k['mean_aou']} plain {p['acc']} {p['mean_aou']}")
+        for field in ("w", "g", "age", "sel_count"):
+            _same(getattr(k["state"], field), getattr(p["state"], field),
+                  f"{what} {field}")
+    torch.cuda.synchronize()
+    check(read_counters() == got,
+          f"{fig}: the plain runs launched a kernel")
+    print(f"figures {fig}: kernel and plain trajectories identical over "
+          f"{len(runs)} runs x {FIG_ROUNDS} rounds (w, g, ages, counts, "
+          f"accuracy, mean AoU)", flush=True)
+    return got, {"steady_round_ms": med, "launches": got,
+                 "runs": [{"policy": p, "H": hh, "acc": a, "round_ms": r}
+                          for p, hh, a, r in rows]}
+
+
+def sweep_phase(dev):
+    """Fig 6's grid through ``repro_torch.fl.sweep`` (d = 2,048, N = 16,
+    ρ = 0.2; fairk and fairk_auto × 5 ratios × 8 seeds = 80 lanes),
+    ``SWEEP_ROUNDS`` rounds: one mask-form ``aou_merge`` launch per round
+    over the (lanes·d) block; the kernel and plain grids identical; k
+    coordinates refreshed per lane per round; ms per grid round."""
+    import numpy as np
+    import torch
+    from repro_torch.fl import sweep
+
+    cfg = sweep.SweepConfig(d=SWEEP_D, n_clients=SWEEP_N, rho=0.2,
+                            rounds=SWEEP_ROUNDS)
+    seeds, pids, kms, adaptives, labels = sweep.sweep_grid(
+        ("fairk", "fairk_auto"), SWEEP_RATIOS, SWEEP_SEEDS, cfg)
+    check(len(labels) == SWEEP_LANES, f"{len(labels)} lanes")
+    draws = sweep.draw_lanes(cfg, seeds, dev)
+    def grid(mode):
+        """(metrics, ms per grid round) of one run of the grid."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = sweep.run_grid(cfg, seeds, pids, kms, adaptives,
+                                 draws=draws, device=dev, kernel_mode=mode)
+        torch.cuda.synchronize()
+        return metrics, (time.perf_counter() - t0) * 1e3 / SWEEP_ROUNDS
+
+    grid(None)                                                  # warm-up
+    reset_counters()
+    out, ms = grid(None)
+    got = read_counters()
+    want = dict.fromkeys(KERNELS, 0)
+    want["aou_merge"] = SWEEP_ROUNDS
+    check(got == want, f"sweep: launches {got}, expected {want}")
+    # host times in turns: kernel, plain, plain, kernel
+    plain, plain_ms = grid("plain")
+    times = {"kernel": [ms], "plain": [plain_ms, grid("plain")[1]]}
+    times["kernel"].append(grid(None)[1])
+    ms, plain_ms = (statistics.median(times[m]) for m in ("kernel",
+                                                           "plain"))
+    for key in out:
+        _same(out[key], plain[key], f"sweep {key}")
+    check(bool((out["frac_fresh"] == cfg.k / cfg.d).all()),
+          "sweep: a lane refreshed other than k coordinates")
+    check(bool(torch.isfinite(out["loss"]).all()), "sweep: non-finite loss")
+    loss = out["loss"][:, -1].cpu().numpy()
+    km = out["km_frac"][:, -1].cpu().numpy()
+    by = {}
+    for i, (pol, frac, _) in enumerate(labels):
+        by.setdefault(f"{pol} {frac:.2f}", []).append(float(loss[i]))
+    auto = [i for i, lab in enumerate(labels) if lab[0] == "fairk_auto"]
+    ctrl = cfg.controller
+    # km_frac is the realised split round(f·k)/k of the controller's f
+    check(bool(((km[auto] >= ctrl.min_frac - 0.5 / cfg.k)
+                & (km[auto] <= ctrl.max_frac + 0.5 / cfg.k)).all()),
+          f"sweep: adaptive km_frac {km[auto]}")
+    finals = {key: float(np.mean(v)) for key, v in by.items()}
+    print(f"sweep: {SWEEP_LANES} lanes x d = {SWEEP_D}, {SWEEP_ROUNDS} "
+          f"rounds, launches {got}, kernel and plain grids identical; "
+          f"ms per grid round {[round(x, 3) for x in times['kernel']]} "
+          f"(plain {[round(x, 3) for x in times['plain']]}); mean final "
+          f"loss {finals}; adaptive final km_frac mean "
+          f"{float(np.mean(km[auto])):.4f}", flush=True)
+    return got, {"lanes": SWEEP_LANES, "rounds": SWEEP_ROUNDS,
+                 "ms_per_round": ms, "plain_ms_per_round": plain_ms,
+                 "times_ms": times,
+                 "final_loss": finals}
+
+
 def parity_phase(dev, task):
     """2 rounds each of (a), (b), exact one-bit and exact coherent FAIR-k
     with error feedback, with the kernels and
@@ -1003,6 +1363,7 @@ def main(argv) -> None:
         fail("src/repro_torch not found: run chip_smoke.py from the root of "
              "a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))           # benchmarks.torch_common
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1037,6 +1398,9 @@ def main(argv) -> None:
     summary.update(exact_summary)
     by_path["engine"], engine_summary = engine_phase(dev)
     by_path["two_stage_topk"] = topk_path_phase(dev)
+    by_path["adaptive"], adaptive_summary = adaptive_phase(dev, task)
+    by_path["figures"], figures_summary = figures_phase(dev)
+    by_path["sweep"], sweep_summary = sweep_phase(dev)
     launches = {key: sum(p[key] for p in by_path.values())
                 for key in KERNELS}
     for key, n in launches.items():
@@ -1091,7 +1455,8 @@ def main(argv) -> None:
         {"card": card, "kind": kind, "build": {
             k: v for k, v in build.BUILD_INFO.items() if k != "ptxas"},
          "variants": records, "extras": extras, "paths": summary,
-         "engine": engine_summary,
+         "engine": engine_summary, "adaptive": adaptive_summary,
+         "figures": figures_summary, "sweep": sweep_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))

@@ -6,19 +6,24 @@ phase: select on ``g``, merge the fresh values over the stale ``g_prev``
 (Eq. 8) and advance the age (Eq. 10).
 
 * ``exact``: index-form selection (``core.selection``, all six policies;
-  rank form under ``sanitize``), then one ``aou_merge`` kernel launch:
-  for the selected indices the noise, merge, age step and residual
-  (``ops.masked_merge_by_indices``); under ``sanitize`` the mask-form merge
-  and age step (``masked_merge``).
+  rank form under ``sanitize`` and for a traced split), then one
+  ``aou_merge`` kernel launch: for the selected indices the noise, merge,
+  age step and residual (``ops.masked_merge_by_indices``); under
+  ``sanitize`` the mask-form merge and age step (``masked_merge``).
 * ``packed``: thresholds (θ_M, θ_A) from the carried statistics alone,
   then ONE fused kernel pass (``kernels.ops.fairk_stats_update``) that
   selects (Eq. 11), merges, advances the age, folds the error-feedback
   residual and emits the counts and histograms the next round's
   thresholds come from.
 
-The threshold and sharded backends, the sampled-quantile bootstrap, the
-traced split of the adaptive controller and async lag are not ported yet
-(ROADMAP Queue 1); asking for them raises ``NotImplementedError``.
+A traced split (``select_and_merge(k_m_frac=tensor)``, the adaptive
+controller's live ``k_m_frac``) keeps ``k`` static and moves ``k_M =
+traced_km(k, k_m_frac)`` as a 0-d device tensor: the exact backend selects
+by rank (the same coordinate set as the index form), the packed backend
+takes it into its statistics thresholds; neither reads it back to the
+host.  The threshold and sharded backends, the sampled-quantile bootstrap
+and async lag are not ported yet (ROADMAP Queue 1); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import packing, selection
+from repro_torch.core import oac, packing, selection
 from repro_torch.kernels import ops, ref
 
 Tensor = torch.Tensor
@@ -55,10 +60,12 @@ def index_jitter(n: int, offset: int = 0, device=None) -> Tensor:
 
 def rank_desc(x: Tensor) -> Tensor:
     """rank[i] = number of entries ranked above x[i] (descending, ties
-    toward the lower index, NaN last — ``jnp.argsort(-x, stable=True)``)."""
-    order = torch.sort(-x, stable=True).indices
+    toward the lower index, NaN last — ``jnp.argsort(-x, stable=True)``),
+    along the last axis (a (lanes, d) block ranks each row)."""
+    order = torch.sort(-x, dim=-1, stable=True).indices
+    ar = torch.arange(x.shape[-1], device=x.device)
     return torch.empty_like(order).scatter_(
-        0, order, torch.arange(x.shape[0], device=x.device))
+        -1, order, ar.expand_as(order).contiguous())
 
 
 def fair_k_masks_dynamic(score: Tensor, age: Tensor, k: int, k_m: int
@@ -66,7 +73,9 @@ def fair_k_masks_dynamic(score: Tensor, age: Tensor, k: int, k_m: int
     """Rank-form FAIR-k (Eq. 11) -> float32 ``(mask, mask_m)``:
     ``rank(score) < k_m``, then ``rank(age ⊙ ¬mask_m) < k − k_m`` — the
     coordinate set of the index form (ties toward the lower index in
-    both).  ``score`` is the magnitude-stage statistic."""
+    both), exactly k ones.  ``score`` is the magnitude-stage statistic;
+    ``k_m`` an int or an integer tensor (the traced split; a (lanes, 1)
+    column gives each row of a (lanes, d) block its own)."""
     mask_m = rank_desc(score) < k_m
     # the magnitude picks leave the age stage; -1 never wins (ages >= 0)
     age_rest = torch.where(mask_m, -1.0, age.to(torch.float32))
@@ -79,6 +88,36 @@ def fair_k_mask_dynamic(score: Tensor, age: Tensor, k: int, k_m: int
                         ) -> Tensor:
     """The combined mask of ``fair_k_masks_dynamic``."""
     return fair_k_masks_dynamic(score, age, k, k_m)[0]
+
+
+def traced_km(k: int, k_m_frac) -> Tensor:
+    """``k_M = round(clip(k_m_frac, 0, 1) · k)`` as int32, computed in
+    float32 and rounded half to even (``jnp.round``), on the device of
+    ``k_m_frac`` — the one rounding of the traced split (engine backends,
+    the trainer's exact route and the sweep lanes all call it)."""
+    f = torch.as_tensor(k_m_frac, dtype=torch.float32)
+    return torch.round(torch.clamp(f, 0.0, 1.0) * k).to(torch.int32)
+
+
+def km_frac_of(k_m: Tensor, k: int) -> Tensor:
+    """The realised split ``k_M / k`` of a traced budget in float32, as the
+    compiled reference computes it (the product with float32 ``1/k``)."""
+    if not k:
+        return torch.zeros_like(k_m, dtype=torch.float32)
+    return k_m.to(torch.float32) * oac.reciprocal(k)
+
+
+def mask_to_indices(mask: Tensor, k: int) -> Tensor:
+    """The ascending int64 indices of a 0/1 mask with exactly ``k`` ones
+    (``jnp.nonzero(mask, size=k)``) without a host sync: each selected
+    coordinate scatters its index to its position in the running count;
+    the unselected ones land in one spare slot that is cut off."""
+    sel = mask > 0.0
+    pos = torch.cumsum(sel.to(torch.int64), 0) - 1
+    pos = torch.where(sel, pos, k)
+    out = torch.zeros(k + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, pos, torch.arange(mask.shape[0], device=mask.device))
+    return out[:k]
 
 
 def eff_score(g: Tensor, residual: Optional[Tensor]) -> Tensor:
@@ -191,6 +230,19 @@ class SelectionEngine:
         k, k_m, _ = self.budgets()
         return k / self.d_budget, (k_m / k if k else 0.0)
 
+    def _km_traced(self, k_m_frac) -> Tensor:
+        """Traced magnitude budget: ``k`` stays static, ``k_M`` is data."""
+        return traced_km(self.budgets()[0], k_m_frac)
+
+    def select_traced(self, g: Tensor, age: Tensor, k_m_frac) -> Tensor:
+        """FAIR-k with a traced split, as indices of static size k
+        (ascending): the rank-form mask of ``(|g|, age)``, then
+        ``mask_to_indices`` — the exact trainer's adaptive selection."""
+        k = self.budgets()[0]
+        mask, _ = fair_k_masks_dynamic(g.to(torch.float32).abs(), age, k,
+                                       self._km_traced(k_m_frac))
+        return mask_to_indices(mask, k)
+
     # -- selection ----------------------------------------------------------
 
     def select(self, g: Tensor, age: Tensor, u: Optional[Tensor] = None
@@ -232,10 +284,10 @@ class SelectionEngine:
         the carried threshold state.  The exact backend's stats carry the
         index vector ``idx`` (without ``sanitize``), and with
         ``fused_stats`` the counts and histograms of the packed kernel."""
-        if k_m_frac is not None:
-            raise NotImplementedError("a traced k_m_frac (the adaptive "
-                                      "controller) is "
-                                      + _NOT_PORTED.format(item=5))
+        if k_m_frac is not None and self.cfg.policy != "fairk":
+            raise ValueError(
+                f"traced k_m_frac adapts the FAIR-k split only — policy "
+                f"{self.cfg.policy!r} pins or ignores it")
         if age_lag:
             raise NotImplementedError("age_lag (async rounds) is "
                                       + _NOT_PORTED.format(item=7))
@@ -260,14 +312,14 @@ class SelectionEngine:
                             g.to(torch.float32))
         if self.cfg.backend == "exact":
             return self._exact_update(g, g_prev, age, noise, u, residual,
-                                      fresh, sanitize)
+                                      fresh, sanitize, k_m_frac)
         if tstate is None:
             raise NotImplementedError(
                 "the packed round without a carried tstate needs the "
                 "sampled-quantile bootstrap, which is "
                 + _NOT_PORTED.format(item=3))
         return self._packed_update(g, g_prev, age, noise, tstate, residual,
-                                   fresh, sanitize)
+                                   fresh, sanitize, k_m_frac)
 
     def _noisy(self, fresh: Tensor, noise: Optional[Tensor]) -> Tensor:
         cfg = self.cfg
@@ -277,17 +329,20 @@ class SelectionEngine:
                 + (cfg.noise_std / cfg.n_clients) * noise)
 
     def _exact_update(self, g, g_prev, age, noise, u, residual=None,
-                      fresh=None, sanitize=False):
-        """Index-form selection on the score, then one ``aou_merge``
-        launch: the merge, age step and residual for the selected indices
-        (or, under ``sanitize``, the mask-form merge for the rank-form
-        mask)."""
+                      fresh=None, sanitize=False, k_m_frac=None):
+        """Index-form selection on the score (rank form for a traced
+        split), then one ``aou_merge`` launch: the merge, age step and
+        residual for the selected indices (or, under ``sanitize``, the
+        mask-form merge for the rank-form mask)."""
         cfg = self.cfg
         k, k_m, _ = self.budgets()
         score = eff_score(g, residual)
         fin = mask_m_s = None
+        if k_m_frac is not None:
+            k_m = self._km_traced(k_m_frac)
         if not sanitize:
-            idx = self.select(score, age, u)
+            idx = (self.select(score, age, u) if k_m_frac is None
+                   else self.select_traced(score, age, k_m_frac))
             sent = score if fresh is None else fresh.to(torch.float32)
             noisy = noise is not None and cfg.noise_std > 0.0
             g_t, age_next, res_next = ops.masked_merge_by_indices(
@@ -296,7 +351,8 @@ class SelectionEngine:
                 score=score if residual is not None else None,
                 mode=cfg.kernel_mode)
             stats = {"idx": idx, "k": k,
-                     "n_selected": torch.tensor(float(k), device=g.device)}
+                     "n_selected": torch.full((), float(k),
+                                              device=g.device)}
         else:
             # rank form on demoted statistics: non-finite coordinates rank
             # below every healthy one in both stages, and the final AND
@@ -327,21 +383,32 @@ class SelectionEngine:
                 valid = valid & fin
             mag_hist, age_hist = ref.strided_hists_ref(
                 score, age_next, valid, packing.hist_stride(self.d))
-            n_sel_m = (mask_m_s.sum() if mask_m_s is not None
-                       else torch.tensor(float(k_m), device=g.device))
+            if mask_m_s is not None:
+                n_sel_m = mask_m_s.sum()
+            elif k_m_frac is not None:
+                n_sel_m = k_m.to(torch.float32)
+            else:
+                n_sel_m = torch.full((), float(k_m), device=g.device)
             stats.update(n_sel_m=n_sel_m, mag_hist=mag_hist,
                          age_hist=age_hist)
+        if k_m_frac is not None:
+            stats["k_m"] = k_m
         if residual is not None:
             stats["residual"] = res_next
         return g_t, age_next, stats
 
-    def _stats_thresholds(self, tstate) -> Tuple[Tensor, Tensor, Tensor]:
+    def _stats_thresholds(self, tstate, k_m_frac=None
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
         """(θ_M, θ_A, streak') from the carried statistics alone: the
         warm-corrected thresholds once the streak is established, else the
-        histogram estimates (zero reads of the gradient buffer)."""
+        histogram estimates (zero reads of the gradient buffer).  A traced
+        ``k_m_frac`` replaces the static split in both."""
         cfg = self.cfg
         k, k_m, _ = self.budgets()
         rho, km_frac = self._rho_parts()
+        if k_m_frac is not None:
+            k_m = self._km_traced(k_m_frac)
+            km_frac = km_frac_of(k_m, k)
         hist_tm, hist_ta = packing.hist_thresholds(
             tstate["mag_hist"], tstate["age_hist"], rho=rho,
             k_m_frac=km_frac)
@@ -376,13 +443,13 @@ class SelectionEngine:
                            torch.zeros_like(tstate["streak"]))
 
     def _packed_update(self, g, g_prev, age, noise, tstate, residual=None,
-                       fresh=None, sanitize=False):
+                       fresh=None, sanitize=False, k_m_frac=None):
         """One fused FAIR-k pass over the whole packed buffer: the round's
         only read of (g, residual)."""
         cfg = self.cfg
         k, _, _ = self.budgets()
         # the fused-stats warm branch of the reference's _packed_thresholds
-        theta_m, theta_a, streak = self._stats_thresholds(tstate)
+        theta_m, theta_a, streak = self._stats_thresholds(tstate, k_m_frac)
         g_t, age_next, res_next, kstats = ops.fairk_stats_update(
             g, g_prev, age, theta_m, theta_a, residual=residual,
             fresh=fresh, mode=cfg.kernel_mode, sanitize=sanitize)

@@ -21,6 +21,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -79,6 +80,14 @@ def sample_fading(gen: torch.Generator, n_clients: int, cfg: ChannelConfig,
         n_clients, generator=gen, dtype=torch.float32, device=device)
 
 
+def reciprocal(n: int) -> float:
+    """``1/n`` as the float32 the compiled reference multiplies by: XLA
+    rewrites a division by a constant n as ``x * float32(1/n)``, which
+    differs from true division in the last place for most n that are not
+    powers of two.  Every 1/N of the port's round is this product."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
 def oac_aggregate(client_values: Tensor, h: Tensor, z: Optional[Tensor],
                   cfg: ChannelConfig) -> Tensor:
     """Eq. (7): superpose the (N, k) compacted client vectors through the
@@ -90,12 +99,13 @@ def oac_aggregate(client_values: Tensor, h: Tensor, z: Optional[Tensor],
 def finish_aggregate(superposed: Tensor, z: Optional[Tensor],
                      n_clients: int, cfg: ChannelConfig) -> Tensor:
     """Receiver tail of Eq. (7) for a pre-superposed (k,) row: channel
-    noise ``noise_std · z``, then the 1/N normalisation."""
+    noise ``noise_std · z``, then the 1/N normalisation (the product with
+    ``reciprocal(N)``)."""
     if cfg.noise_std > 0.0:
         if z is None:
             raise ValueError("noise_std > 0 needs a noise draw z")
         superposed = superposed + cfg.noise_std * z
-    return superposed / n_clients
+    return superposed * reciprocal(n_clients)
 
 
 def reconstruct(g_prev: Tensor, idx: Tensor, agg_values: Tensor) -> Tensor:

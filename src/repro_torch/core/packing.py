@@ -5,7 +5,8 @@ FL round on the packed backend needs).
 The FL trainer lays its flat ``(d,)`` server vector out as a single-leaf
 packed layout with ``lane=1`` (``d_valid == d_packed == d``, no pads).
 The multi-leaf lane-aligned layout with interior pads belongs to the
-launch path and is not ported yet (ROADMAP Queue 1).
+launch path and is not ported yet (ROADMAP Queue 1).  The threshold
+estimators take the adaptive controller's traced split as a 0-d tensor.
 
 Padding protocol (kept by the kernels): pad coordinates carry
 ``age = PAD_AGE`` (-1); real ages are >= 0, so ``age < 0`` marks a pad
@@ -90,8 +91,11 @@ def _tail_cut(hist: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     suffix_next = torch.cat([suffix[1:], suffix.new_zeros(1)])
     bstar = torch.clamp((suffix >= target).to(torch.float32).sum() - 1.0,
                         0.0, hist.shape[0] - 1).to(torch.int64)
-    need = target - suffix_next[bstar]
-    frac = torch.clamp(need / torch.clamp(hist[bstar], min=1.0), 0.0, 1.0)
+    # take(), not [bstar]: indexing with a 0-d tensor reads it back to the
+    # host
+    need = target - suffix_next.take(bstar)
+    frac = torch.clamp(need / torch.clamp(hist.take(bstar), min=1.0), 0.0,
+                       1.0)
     return bstar, frac
 
 
@@ -116,19 +120,28 @@ def _hist_theta_a(age_hist: Tensor, rho_a: float) -> Tensor:
 
 
 def hist_thresholds(mag_hist: Tensor, age_hist: Tensor, *, rho: float,
-                    k_m_frac: float) -> Tuple[Tensor, Tensor]:
+                    k_m_frac) -> Tuple[Tensor, Tensor]:
     """(θ_M, θ_A) from the in-kernel histograms: θ_M cuts the top
     ρ·k_m_frac of the magnitude mass, θ_A the top ρ_A = (ρ − ρ_M)/(1 − ρ_M)
     of the age mass.  An empty histogram (the first round) gives θ = 0 for
     an active stage — a full refresh; a degenerate stage gives θ = inf.
-    ``k_m_frac`` is a static float (the traced split of the adaptive
-    controller is not ported yet)."""
-    rho_m = rho * k_m_frac
-    rho_a = (rho - rho_m) / max(1.0 - rho_m, 1e-6)
-    inf = torch.tensor(float("inf"), dtype=torch.float32,
-                       device=mag_hist.device)
-    theta_m = _hist_theta_m(mag_hist, rho_m) if rho_m > 0.0 else inf
-    theta_a = _hist_theta_a(age_hist, rho_a) if rho_a > 0.0 else inf
+    ``k_m_frac`` is a float, or a 0-d float32 tensor (the adaptive
+    controller's traced split): then the degenerate-stage short-circuits
+    are ``where``s on data and nothing is read back to the host."""
+    device = mag_hist.device
+    if not isinstance(k_m_frac, Tensor):
+        rho_m = rho * k_m_frac
+        rho_a = (rho - rho_m) / max(1.0 - rho_m, 1e-6)
+        inf = torch.full((), float("inf"), device=device)
+        theta_m = _hist_theta_m(mag_hist, rho_m) if rho_m > 0.0 else inf
+        theta_a = _hist_theta_a(age_hist, rho_a) if rho_a > 0.0 else inf
+        return theta_m, theta_a
+    rho_m = rho * k_m_frac.to(torch.float32)
+    rho_a = (rho - rho_m) / torch.clamp(1.0 - rho_m, min=1e-6)
+    theta_m = torch.where(rho_m > 0.0, _hist_theta_m(mag_hist, rho_m),
+                          float("inf"))
+    theta_a = torch.where(rho_a > 0.0, _hist_theta_a(age_hist, rho_a),
+                          float("inf"))
     return theta_m, theta_a
 
 
@@ -148,7 +161,7 @@ def init_threshold_state(device) -> Dict[str, Tensor]:
                                     device=device)}
 
 
-def warm_corrected_thresholds(ts: Dict[str, Tensor], *, k: int, k_m: int,
+def warm_corrected_thresholds(ts: Dict[str, Tensor], *, k: int, k_m,
                               alpha: float = 0.5, clip: float = 2.0,
                               max_age_step: float = 0.5
                               ) -> Tuple[Tensor, Tensor]:
@@ -156,9 +169,29 @@ def warm_corrected_thresholds(ts: Dict[str, Tensor], *, k: int, k_m: int,
     ``(n_m / k_m) ** alpha`` clipped to [1/clip, clip]; θ_A moves
     additively by at most ``max_age_step`` scaled by the relative budget
     error of the age stage.  Degenerate stages (k_m = 0 or k_a = 0) give
-    θ = inf; an infinite carried θ passes through."""
+    θ = inf; an infinite carried θ passes through.  ``k_m`` is an int, or
+    a 0-d tensor (the traced split): then the same corrections with the
+    degenerate stages as ``where``s on data."""
     device = ts["theta_m"].device
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=device)
+    if isinstance(k_m, Tensor):
+        k_m_f = k_m.to(torch.float32)
+        k_a_f = k - k_m_f
+        f_m = torch.clamp((torch.clamp(ts["n_sel_m"], min=1.0)
+                           / torch.clamp(k_m_f, min=1.0)) ** alpha,
+                          1.0 / clip, clip)
+        theta_m = torch.where(
+            k_m_f > 0.0,
+            torch.where(torch.isinf(ts["theta_m"]), ts["theta_m"],
+                        ts["theta_m"] * f_m), float("inf"))
+        n_a = ts["n_sel"] - ts["n_sel_m"]
+        step = torch.clamp((n_a - k_a_f) / torch.clamp(k_a_f, min=1.0),
+                           -1.0, 1.0) * max_age_step
+        theta_a = torch.where(
+            k_a_f > 0.0,
+            torch.where(torch.isinf(ts["theta_a"]), ts["theta_a"],
+                        ts["theta_a"] + step), float("inf"))
+        return theta_m.to(torch.float32), theta_a.to(torch.float32)
+    inf = torch.full((), float("inf"), device=device)
     k_a = k - k_m
     if k_m > 0:
         f_m = torch.clamp((torch.clamp(ts["n_sel_m"], min=1.0) / k_m)

@@ -25,6 +25,16 @@ accumulator, so the (N, d) matrix is never live.
   pass (``fairk_update`` kernel) selects, merges and advances the age,
   with server-side error feedback.
 
+Adaptive split (``adaptive_km=True``, or the ``fairk_auto`` alias): the
+FAIR-k split ``k_m_frac`` is the carried controller state's live value (a
+0-d tensor on the device), and the ``BudgetController`` update ends the
+round.  Exact: the rank-form FAIR-k mask at ``traced_km(k, k_m_frac)``,
+its ``k`` indices taken without a host sync (``engine.mask_to_indices``),
+then the same clients fold and the same single ``aou_merge`` launch; the
+controller reads the post-update age histogram (``ref.strided_hists_ref``).
+Packed: the traced split goes into the engine's statistics thresholds, and
+the controller reads the kernel's age and magnitude histograms.
+
 Randomness: PyTorch cannot reproduce JAX's threefry streams, so a round
 takes its draws as tensors (``draw_round``): the fading ``h`` (N,) on the
 coherent uplink, the standard-normal channel noise ``z`` — (d,) on the
@@ -43,12 +53,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import controller as budget
 from repro_torch.core import oac, packing, quantize, selection
 from repro_torch.core.engine import (EngineConfig, SelectionEngine,
                                      budgets_for)
 from repro_torch.core.oac import ChannelConfig
 from repro_torch.device import DeviceLike, resolve_device, set_numerics
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.cnn import ravel_params
 
 Tensor = torch.Tensor
@@ -59,8 +70,8 @@ _NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {item})"
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
     """Field names and defaults of ``repro.fl.trainer.FLConfig``.  The
-    fields whose JAX defaults are objects of modules not ported yet
-    (``controller``, ``faults``) default to None here, meaning off."""
+    field whose JAX default is an object of a module not ported yet
+    (``faults``) defaults to None here, meaning off."""
     n_clients: int = 50
     local_steps: int = 5            # H
     batch_size: int = 50            # B
@@ -76,16 +87,21 @@ class FLConfig:
     one_bit: bool = False           # FSK-MV prototype uplink (Sec. V-B)
     error_feedback: bool = False    # client-side on exact, server-side on
                                     # packed (one-bit: client-side too)
-    adaptive_km: bool = False
+    adaptive_km: bool = False       # the adaptive split; "fairk_auto"
+                                    # is an alias
     async_lag: int = 0
     scan_rounds: int = 0
-    controller: Any = None
+    controller: budget.ControllerConfig = budget.ControllerConfig()
     faults: Any = None
     watchdog: Any = None
     population: Any = None
     wireless: Any = None
     client_chunk: Optional[int] = None
     seed: int = 0
+
+    @property
+    def adaptive(self) -> bool:
+        return self.adaptive_km or self.policy == "fairk_auto"
 
     def budgets(self, d: int) -> Tuple[int, int, int]:
         """(k, k_M, r) — the engine's rounding and Remark-1 pinning."""
@@ -105,7 +121,7 @@ class ServerState:
     sel_count: Tensor                # per-entry participation counter
     residual: Tensor = None          # EF accumulator (d,)
     theta: Dict[str, Tensor] = None  # packing.init_threshold_state()
-    ctrl: Dict[str, Tensor] = None   # adaptive controller (not ported)
+    ctrl: Dict[str, Tensor] = None   # controller.init_controller_state()
     round: int = 0
 
 
@@ -125,10 +141,6 @@ def check_supported(fl: FLConfig) -> None:
          + _NOT_PORTED.format(item=8)),
         (fl.async_lag != 0, "async_lag " + _NOT_PORTED.format(item=7)),
         (fl.scan_rounds > 1, "scan_rounds " + _NOT_PORTED.format(item=7)),
-        (fl.adaptive_km or fl.policy == "fairk_auto",
-         "the adaptive k_m controller " + _NOT_PORTED.format(item=5)),
-        (fl.controller is not None, "the controller config "
-         + _NOT_PORTED.format(item=5)),
     ]
     for bad, what in unsupported:
         if bad:
@@ -140,19 +152,27 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                  kernel_mode: Optional[str] = None) -> Callable:
     """Build the one-round function
 
-        fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate, draws)
+        fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate, draws,
+                 cstate=None)
           -> (w', g_t, age', sel_count', residual', sel_mask, tstate',
-              None, metrics)
+              cstate', metrics)
 
     ``loss_fn(params, x, y) -> scalar`` is the per-client loss on a
     parameter tree; ``xs``/``ys`` are (N, H, B, ...) tensors; ``draws``
-    is one round of ``draw_round``.  ``kernel_mode`` goes to every kernel
+    is one round of ``draw_round``; ``cstate`` is the controller state
+    (``controller.init_controller_state``), needed with ``fl.adaptive``
+    and passed through otherwise.  ``kernel_mode`` goes to every kernel
     dispatcher (``kernels.ops``).  ``fl_round.server_phase(w, agg, ef_sum,
-    g_prev, age, sel_count, residual, tstate, draws, idx=None)`` is the
-    round after the superposition, for feeding it an aggregate computed
-    elsewhere: on the exact backend ``agg`` is the (k,) row at the
-    selection ``idx`` (selected anew from ``(g_prev, age)`` when None)."""
+    g_prev, age, sel_count, residual, tstate, draws, idx=None,
+    cstate=None)`` is the round after the superposition, for feeding it an
+    aggregate computed elsewhere: on the exact backend ``agg`` is the (k,)
+    row at the selection ``idx`` (selected anew from ``(g_prev, age)`` and
+    the controller's split when None)."""
     check_supported(fl)
+    adaptive = fl.adaptive
+    if adaptive and fl.policy not in ("fairk", "fairk_auto"):
+        raise ValueError("adaptive_km moves the FAIR-k split — policy "
+                         f"{fl.policy!r} pins or ignores it")
     dev = resolve_device(device)
     set_numerics(dev)
     n, big_h, lr = fl.n_clients, fl.local_steps, fl.local_lr
@@ -162,8 +182,9 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                          f"[1, n_clients] and divide n_clients={n}")
     k, k_m, r = fl.budgets(d)
     exact = fl.backend == "exact"
+    policy_name = "fairk" if fl.policy == "fairk_auto" else fl.policy
     engine = SelectionEngine(
-        EngineConfig(policy=fl.policy, backend=fl.backend, k=k, k_m=k_m,
+        EngineConfig(policy=policy_name, backend=fl.backend, k=k, k_m=k_m,
                      r=r,
                      # the exact round adds the channel noise to the (k,)
                      # aggregate, the one-bit uplink to the vote energy:
@@ -174,6 +195,9 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                      fused_stats=not exact, warm_start=not exact), d,
         layout=None if exact else packing.PackedLayout([d], lane=1))
     frac_static = k_m / k if k else 0.0
+    bctrl = (budget.BudgetController(fl.controller,
+                                     rho=fl.compression_ratio)
+             if adaptive else None)
     # client-side error feedback: the exact round (both uplinks) and the
     # packed one-bit round; the packed coherent round folds the residual
     # into the fused server pass instead
@@ -217,27 +241,45 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                 ef_sum = ef_sum + eff.sum(dim=0)
         if fl.one_bit or exact:
             return acc, ef_sum
-        return acc / n, ef_sum
+        return acc * oac.reciprocal(n), ef_sum
+
+    def kmf_of(cstate):
+        """The round's split: the controller's live value, or None."""
+        if not adaptive:
+            return None
+        if cstate is None:
+            raise ValueError("an adaptive round needs the controller "
+                             "state cstate")
+        return cstate["k_m_frac"]
 
     def tail(w, g_t, age_next, sel_mask, sel_count, residual, tstate,
-             n_selected):
+             n_selected, cstate, kmf):
         """The model step (Eq. 9) and the metrics; ``sel_count`` is the
-        updated participation count."""
+        updated participation count, ``kmf`` this round's split."""
         w_next = w - fl.global_lr * g_t                          # Eq. (9)
         metrics = {"mean_aou": age_next.mean(), "max_aou": age_next.max(),
-                   "km_frac": torch.tensor(frac_static, device=dev),
+                   "km_frac": (kmf if kmf is not None else
+                               torch.full((), frac_static, device=dev)),
                    "n_selected": n_selected}
         return (w_next, g_t, age_next, sel_count, residual, sel_mask,
-                tstate, None, metrics)
+                tstate, cstate, metrics)
+
+    def exact_select(g_prev, age, draws, kmf):
+        """S_t (Eq. 11) on ``(g_prev, age)``: the index form, or the rank
+        form at the controller's split."""
+        if kmf is not None:
+            return engine.select_traced(g_prev, age, kmf)
+        return engine.select(g_prev, age, draws.get("u"))
 
     def exact_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-                           residual, tstate, draws, idx=None):
+                           residual, tstate, draws, idx=None, cstate=None):
         """The receiver tail on the (k,) row, the Eq. 8 scatter, the EF
         residual, the index-form Eq. 10 and the participation count (one
         ``aou_merge`` launch, which on the coherent uplink also applies
-        Eq. 7's tail), then the model step."""
+        Eq. 7's tail), the controller step, then the model step."""
+        kmf = kmf_of(cstate)
         if idx is None:
-            idx = engine.select(g_prev, age, draws.get("u"))
+            idx = exact_select(g_prev, age, draws, kmf)
         if fl.one_bit:
             row = quantize.fsk_majority_from_energy(
                 agg, draws.get("z"), fl.channel.noise_std, mode=kernel_mode)
@@ -252,13 +294,22 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                 mode=kernel_mode))
         if fl.error_feedback:
             residual = ef_res
+        if adaptive:
+            # no kernel emits statistics on the exact round: the age
+            # histogram comes from the plain helper (no magnitude one)
+            _, age_hist = ref.strided_hists_ref(
+                g_t, age_next, age >= 0.0, packing.hist_stride(d))
+            cstate = bctrl.update(cstate, age_hist)
         return tail(w, g_t, age_next, sel_mask, sel_count, residual,
-                    tstate, torch.tensor(float(k), device=dev))
+                    tstate, torch.full((), float(k), device=dev), cstate,
+                    kmf)
 
     def packed_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-                            residual, tstate, draws, idx=None):
+                            residual, tstate, draws, idx=None, cstate=None):
         """One-bit detection, the fused FAIR-k pass (which selects: no
-        ``idx``), the EF residual and the model step."""
+        ``idx``), the EF residual, the controller step and the model
+        step."""
+        kmf = kmf_of(cstate)
         if fl.one_bit:
             # one sign_from_energy launch: the noise noise_std·z, the
             # signs and the score |energy| + index jitter (noiseless
@@ -268,30 +319,38 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                 agg, z=draws.get("z"), noise_std=fl.channel.noise_std,
                 score=True, mode=kernel_mode)
             g_t, age_next, stats = engine.select_and_merge(
-                score, g_prev, age, fresh=fresh_sign, tstate=tstate)
+                score, g_prev, age, fresh=fresh_sign, tstate=tstate,
+                k_m_frac=kmf)
             sel_mask = (age_next == 0.0).to(torch.float32)
             if fl.error_feedback:
                 # unsent mass of the mean effective gradient
-                residual = (ef_sum / n) * (1.0 - sel_mask)
+                residual = (ef_sum * oac.reciprocal(n)) * (1.0 - sel_mask)
         else:
             g_t, age_next, stats = engine.select_and_merge(
                 agg, g_prev, age, noise=draws.get("z"), tstate=tstate,
-                residual=residual if fl.error_feedback else None)
+                residual=residual if fl.error_feedback else None,
+                k_m_frac=kmf)
             sel_mask = (age_next == 0.0).to(torch.float32)
             if fl.error_feedback:
                 residual = stats["residual"]
+        if adaptive:
+            # the controller reads the histograms the fused pass emitted
+            cstate = bctrl.update(cstate, stats["age_hist"],
+                                  stats["mag_hist"])
         return tail(w, g_t, age_next, sel_mask, sel_count + sel_mask,
-                    residual, stats["tstate"], stats["n_selected"])
+                    residual, stats["tstate"], stats["n_selected"], cstate,
+                    kmf)
 
     server_phase = exact_server_phase if exact else packed_server_phase
 
     def fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate,
-                 draws: Dict[str, Tensor]):
+                 draws: Dict[str, Tensor], cstate=None):
         # exact: S_t (Eq. 11) scores (g_prev, age), before the clients
-        idx = engine.select(g_prev, age, draws.get("u")) if exact else None
+        idx = (exact_select(g_prev, age, draws, kmf_of(cstate)) if exact
+               else None)
         agg, ef_sum = clients_fold(w, xs, ys, residual, draws.get("h"), idx)
         return server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-                            residual, tstate, draws, idx)
+                            residual, tstate, draws, idx, cstate)
 
     fl_round.server_phase = server_phase
     return fl_round
@@ -311,7 +370,9 @@ def init_server(init_params: Any, fl: Optional[FLConfig] = None,
 
     state = ServerState(w=flat.to(torch.float32), g=zeros(), age=zeros(),
                         sel_count=zeros(), residual=zeros(),
-                        theta=packing.init_threshold_state(dev), ctrl=None)
+                        theta=packing.init_threshold_state(dev),
+                        ctrl=budget.init_controller_state(
+                            fl.k_m_frac if fl is not None else 0.75, dev))
     return state, unravel
 
 
@@ -349,9 +410,9 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
     ``loss_fn(params, x, y) -> scalar``; ``sample_round(t) -> (xs, ys)``
     numpy client batches (N, H, B, ...); ``eval_fn(params) -> dict`` of
     metrics (e.g. ``acc``, ``loss``).  Returns a history dict: the eval
-    curve, per-round mean/max AoU, ``n_selected`` and ``round_ms`` (CUDA
-    events on the card, the host clock on the CPU), the final parameters
-    and the final ``ServerState``."""
+    curve, per-round mean/max AoU, ``km_frac``, ``n_selected`` and
+    ``round_ms`` (CUDA events on the card, the host clock on the CPU),
+    the final parameters and the final ``ServerState``."""
     dev = resolve_device(device)
     state, unravel = init_server(init_params, fl, dev)
     d = state.w.shape[0]
@@ -361,7 +422,7 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
     history: Dict[str, Any] = {"round": [], "acc": [], "loss": [],
                                "k": fl.budgets(d)[0], "d": d}
     w, g, age, sel_count = state.w, state.g, state.age, state.sel_count
-    residual, tstate = state.residual, state.theta
+    residual, tstate, cstate = state.residual, state.theta, state.ctrl
     per_round = {"mean_aou": [], "max_aou": [], "km_frac": [],
                  "n_selected": []}
     cuda = dev.type == "cuda"
@@ -381,8 +442,8 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
         ys = torch.as_tensor(np.asarray(ys), device=dev)
         draws = draw_round(gen, fl, d, dev)
         mark()
-        (w, g, age, sel_count, residual, _, tstate, _, rm) = fl_step(
-            w, g, age, sel_count, xs, ys, residual, tstate, draws)
+        (w, g, age, sel_count, residual, _, tstate, cstate, rm) = fl_step(
+            w, g, age, sel_count, xs, ys, residual, tstate, draws, cstate)
         mark()
         for key in per_round:
             per_round[key].append(rm[key])
@@ -410,5 +471,5 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
     history["params"] = unravel(w)
     history["state"] = ServerState(w=w, g=g, age=age, sel_count=sel_count,
                                    residual=residual, theta=tstate,
-                                   round=fl.rounds)
+                                   ctrl=cstate, round=fl.rounds)
     return history

@@ -31,23 +31,26 @@ def knuth_jitter(idx: Tensor) -> Tensor:
 
 
 def _hist_counts(bins: Tensor, weight: Tensor, n_bins: int) -> Tensor:
-    """Exact integer counts of f32 bin indices where ``weight`` holds; NaN
-    bins fall in no bin.  Scatter of int64 ones: no host sync."""
+    """Exact integer counts of f32 bin indices where ``weight`` holds, along
+    the last axis (one histogram per leading index); NaN bins fall in no
+    bin.  Scatter of int64 ones: no host sync."""
     take = weight & ~torch.isnan(bins)
     idx = torch.where(take, bins, torch.full_like(bins, float(n_bins)))
     idx = idx.to(torch.int64)
-    counts = torch.zeros(n_bins + 1, dtype=torch.int64, device=bins.device)
-    counts.scatter_add_(0, idx, torch.ones_like(idx))
-    return counts[:n_bins].to(torch.float32)
+    counts = torch.zeros(bins.shape[:-1] + (n_bins + 1,), dtype=torch.int64,
+                         device=bins.device)
+    counts.scatter_add_(-1, idx, torch.ones_like(idx))
+    return counts[..., :n_bins].to(torch.float32)
 
 
 def strided_hists_ref(score: Tensor, age_next: Tensor, valid: Tensor,
                       stride: int) -> Tuple[Tensor, Tensor]:
-    """(mag_hist, age_hist) over the global ``[::stride]`` sample."""
-    w = valid[::stride]
-    return (_hist_counts(packing.mag_bin(score[::stride].abs()), w,
+    """(mag_hist, age_hist) over the global ``[::stride]`` sample of the
+    last axis (a (lanes, d) block gives one pair of rows per lane)."""
+    w = valid[..., ::stride]
+    return (_hist_counts(packing.mag_bin(score[..., ::stride].abs()), w,
                          packing.STATS_MAG_BINS),
-            _hist_counts(packing.age_bin(age_next[::stride]), w,
+            _hist_counts(packing.age_bin(age_next[..., ::stride]), w,
                          packing.STATS_AGE_BINS))
 
 
@@ -109,6 +112,7 @@ def aou_merge_by_indices_ref(idx: Tensor, fresh: Tensor, g_prev: Tensor,
     """The exact trainer's server-state update, as the round composed it
     from separate operations: with ``superposed`` the (k,) row is the raw
     faded sum and gets Eq. 7's receiver tail ``(row + noise_std·z) / N``
+    (1/N as the product with ``oac.reciprocal(N)``)
     (the noise only when ``noise_std`` > 0); Eq. 8 as a scatter (a −0.0
     value stays −0.0, a non-finite ``g_prev`` at ``idx`` is replaced);
     the 0/1 selection mask; Eq. 10 in index form (``min(age+1, AGE_CAP)``,
@@ -120,10 +124,10 @@ def aou_merge_by_indices_ref(idx: Tensor, fresh: Tensor, g_prev: Tensor,
     if superposed:
         if noise_std > 0.0:
             fresh = fresh + noise_std * z
-        fresh = fresh / n_clients
+        fresh = fresh * oac.reciprocal(n_clients)
     g_t = oac.reconstruct(g_prev, idx, fresh)
     mask = selection.mask_from_indices(idx, d)
-    residual = ((ef_sum / n_clients) * (1.0 - mask)
+    residual = ((ef_sum * oac.reciprocal(n_clients)) * (1.0 - mask)
                 if ef_sum is not None else None)
     age_next = aou.update_age_by_indices(age, idx)
     return g_t, age_next, mask, sel_count + mask, residual

@@ -641,3 +641,99 @@ def test_index_form_wrapper_checks_its_operands(cuda):
     with pytest.raises(ValueError, match="float32"):
         aou_merge.merge_by_indices_cuda(idx, x["sent"], x["g_prev"],
                                         x["age"].double(), arith=True)
+
+
+# --- the adaptive split and the sweep: kernel against plain trajectories --
+
+def _small_task(cuda):
+    """A narrow prototype CNN (16x16x1, widths (4, 6, 8), fc 16, 10
+    classes) over 4 clients with H = 2, B = 3, from the port's own data
+    and a seeded generator."""
+    from repro_torch.data import partition, synthetic
+    from repro_torch.models import cnn
+    spec = synthetic.DatasetSpec("t", (16, 16, 1), 10, 400, 50,
+                                 sparsity=0.1)
+    (xtr, ytr), _ = synthetic.make_dataset(spec, seed=0)
+    parts = partition.dirichlet_partition(ytr, 4, 0.3, seed=0)
+    params = cnn.init_prototype_cnn(
+        torch.Generator(device=cuda).manual_seed(1), (16, 16, 1), 10,
+        (4, 6, 8), 16, device=cuda)
+
+    def loss_fn(p, x, y):
+        return cnn.softmax_xent(cnn.prototype_cnn(p, x), y)
+
+    return params, loss_fn, lambda t: partition.client_batches(
+        xtr, ytr, parts, 3, 2, seed=t)
+
+
+@pytest.mark.parametrize("backend", ["exact", "packed"])
+def test_adaptive_kernel_and_plain_trajectories_are_identical(cuda,
+                                                              backend):
+    from repro_torch.core.oac import ChannelConfig
+    from repro_torch.fl import FLConfig, train
+    torch.backends.cudnn.deterministic = True
+    params, loss_fn, sample_round = _small_task(cuda)
+    fl = FLConfig(n_clients=4, local_steps=2, batch_size=3, local_lr=0.05,
+                  global_lr=0.05, rounds=8, backend=backend,
+                  client_chunk=2, compression_ratio=0.2, policy="fairk_auto",
+                  channel=ChannelConfig(fading="rayleigh", mean=1.0,
+                                        noise_std=0.1))
+    before = (aou_merge.LAUNCHES, fairk_update.LAUNCHES)
+    runs = {m: train(fl, params, loss_fn, sample_round, device=cuda,
+                     kernel_mode=m) for m in (None, "plain")}
+    launched = (aou_merge.LAUNCHES - before[0],
+                fairk_update.LAUNCHES - before[1])
+    assert launched == ((8, 0) if backend == "exact" else (0, 8))
+    k, p = runs[None], runs["plain"]
+    assert k["km_frac"] == p["km_frac"]
+    for name in ("w", "age", "g", "sel_count"):
+        _same(getattr(k["state"], name), getattr(p["state"], name))
+    for key in k["state"].ctrl:
+        _same(k["state"].ctrl[key], p["state"].ctrl[key])
+
+
+def test_adaptive_server_steps_make_no_host_sync(cuda):
+    """The traced split, the index-form merge and the controller step of a
+    warm exact round, and the packed round's thresholds, fused pass and
+    controller step, with PyTorch's sync debug mode raising on any
+    synchronising call."""
+    from repro_torch.fl import FLConfig, init_server, make_fl_step
+    params, loss_fn, _ = _small_task(cuda)
+    for backend in ("exact", "packed"):
+        fl = FLConfig(n_clients=4, backend=backend, policy="fairk_auto",
+                      compression_ratio=0.2)
+        state, unravel = init_server(params, fl, device=cuda)
+        d = state.w.shape[0]
+        step = make_fl_step(fl, unravel, loss_fn, d, device=cuda)
+        k = fl.budgets(d)[0]
+        n_agg = k if backend == "exact" else d
+        agg = torch.randn(n_agg, device=cuda)
+        draws = {"z": torch.randn(n_agg, device=cuda)}
+        args = (state.w, agg, None, state.g, state.age, state.sel_count,
+                state.residual, state.theta, draws)
+        out = step.server_phase(*args, cstate=state.ctrl)     # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                out = step.server_phase(*args, cstate=out[7])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[0]).all()
+
+
+def test_sweep_kernel_and_plain_grids_are_identical(cuda):
+    from repro_torch.fl import sweep
+    cfg = sweep.SweepConfig(d=2048, n_clients=16, rho=0.2, rounds=12)
+    before = aou_merge.LAUNCHES
+    grids = {m: sweep.run_sweep(cfg, ("fairk", "topk", "randk",
+                                      "fairk_auto"), (0.25, 0.75), 3,
+                                device=cuda, kernel_mode=m)
+             for m in (None, "plain")}
+    assert aou_merge.LAUNCHES - before == cfg.rounds
+    for key in ("loss", "mean_age", "max_age", "frac_fresh", "km_frac",
+                "res_norm"):
+        np.testing.assert_array_equal(grids[None][key], grids["plain"][key])
+    np.testing.assert_array_equal(grids[None]["frac_fresh"],
+                                  cfg.k / cfg.d)

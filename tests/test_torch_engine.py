@@ -288,8 +288,9 @@ def test_engine_rejects_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="item 7"):
             e.select_and_merge(z, z, z, tstate=packing.init_threshold_state(
                 "cpu"), age_lag=2)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            e.select_and_merge(z, z, z, k_m_frac=0.5)
+        # the traced split is ported (ROADMAP Queue 1 item 5)
+        e.select_and_merge(z, z, z, tstate=packing.init_threshold_state(
+            "cpu"), k_m_frac=torch.tensor(0.5))
     rand = engine.SelectionEngine(engine.EngineConfig(backend="exact",
                                                       policy="randk"), 16)
     with pytest.raises(ValueError, match="uniform draw"):

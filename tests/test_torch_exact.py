@@ -10,8 +10,10 @@ ladder, handed to the port as tensors.
 * The server step, fed JAX's own compacted (k,) aggregate (recorded
   inside the compiled JAX round), selects anew from ``(g_prev, age)`` and
   gives exactly JAX's ages and participation counts, and its ``g_t`` bit
-  for bit — except with receiver noise on the coherent uplink, where
-  XLA folds the ``noise_std`` scale into the normal draw inside its
+  for bit — at N = 4 and, where 1/N is not a power of two and the
+  compiled reference multiplies by the float32 ``1/N``, at N = 5 and
+  N = 50 — except with receiver noise on the coherent uplink, where XLA
+  folds the ``noise_std`` scale into the normal draw inside its
   compiled round (the eager draw handed to the port is the same ``z``,
   the in-round product differs in the last place): there ``g_t`` is held
   within rtol 1e-6 and atol 2e-8 (a few ulps of the noise term
@@ -44,11 +46,11 @@ COHERENT = dict(fading="rayleigh", mean=1.0, noise_std=0.1)
 ONE_BIT = dict(fading="none", mean=1.0, noise_std=2.0)
 
 
-def _pair(policy="fairk", one_bit=False, ef=False, noise=True):
-    kw = dict(n_clients=4, local_steps=2, batch_size=3, local_lr=0.05,
+def _pair(policy="fairk", one_bit=False, ef=False, noise=True, n=4):
+    kw = dict(n_clients=n, local_steps=2, batch_size=3, local_lr=0.05,
               global_lr=0.05, rounds=ROUNDS, backend="exact",
-              client_chunk=2, compression_ratio=0.2, seed=0, policy=policy,
-              one_bit=one_bit, error_feedback=ef)
+              client_chunk={4: 2, 5: 5, 50: 10}[n], compression_ratio=0.2,
+              seed=0, policy=policy, one_bit=one_bit, error_feedback=ef)
     if one_bit:
         kw.update(local_lr=0.003, global_lr=0.003)
     ch = dict(ONE_BIT if one_bit else COHERENT)
@@ -61,6 +63,18 @@ def _pair(policy="fairk", one_bit=False, ef=False, noise=True):
 @pytest.fixture(scope="module")
 def task():
     return small_fl_task(ROUNDS)
+
+
+@pytest.fixture(scope="module")
+def tasks(task):
+    """The task for N clients, built once per N."""
+    cache = {4: task}
+
+    def get(n):
+        if n not in cache:
+            cache[n] = small_fl_task(ROUNDS, n)
+        return cache[n]
+    return get
 
 
 def _run_jax(jfl, params, batches):
@@ -77,13 +91,15 @@ def _draws(rnd):
     return {k: to_torch(v) for k, v in rnd["draws"].items()}
 
 
-@pytest.mark.parametrize("policy,one_bit,noise", [
-    ("fairk", False, False), ("fairk", False, True), ("fairk", True, True),
-    ("toprand", False, False), ("roundrobin", True, True)])
-def test_server_step_on_jax_aggregate_is_exact(task, policy, one_bit,
-                                               noise):
-    params, batches = task
-    jfl, tfl = _pair(policy, one_bit, noise=noise)
+@pytest.mark.parametrize("policy,one_bit,noise,n", [
+    ("fairk", False, False, 4), ("fairk", False, True, 4),
+    ("fairk", True, True, 4), ("toprand", False, False, 4),
+    ("roundrobin", True, True, 4), ("fairk", False, False, 5),
+    ("fairk", False, False, 50), ("toprand", False, False, 5)])
+def test_server_step_on_jax_aggregate_is_exact(tasks, policy, one_bit,
+                                               noise, n):
+    params, batches = tasks(n)
+    jfl, tfl = _pair(policy, one_bit, noise=noise, n=n)
     jax_rounds, d = _run_jax(jfl, params, batches)
     _, unravel = cnn.ravel_params(torch_params(params))
     step = trainer.make_fl_step(tfl, unravel, torch_loss, d, device="cpu")

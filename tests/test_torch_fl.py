@@ -7,7 +7,11 @@ Both sides take the same draws: the JAX trainer's fading and noise from
 its named key ladder, handed to the port as tensors.
 
 * The server phase, fed JAX's own aggregate (recorded inside the compiled
-  JAX round), gives exactly JAX's ages.
+  JAX round), gives exactly JAX's ages; without receiver noise, at N = 5
+  and N = 50 as well, its ``g_t`` bit for bit, and on the one-bit uplink
+  with error feedback its residual ``(ef_sum / N)·(1 − mask)`` bit for bit
+  against the compiled JAX expression (XLA multiplies by the float32
+  ``1/N``; so does the port, ``oac.reciprocal``).
 * Whole rounds (each side's own clients): ``w`` within atol 1e-5, ages
   equal on at least 99.9% of the coordinates (a float32 gradient summed in
   another order can move a coordinate across a threshold).
@@ -46,12 +50,19 @@ def _configs():
                 global_lr=0.05, rounds=ROUNDS, backend="packed",
                 client_chunk=2, compression_ratio=0.2, seed=0)
     coh = dict(fading="rayleigh", mean=1.0, noise_std=0.1)
+    quiet = dict(coh, noise_std=0.0)
     ob = dict(fading="none", mean=1.0, noise_std=2.0)
+    one_bit = dict(base, channel=ob, local_lr=0.003, global_lr=0.003)
     return {
         "coherent": (dict(base, channel=coh), {}),
-        "one_bit": (dict(base, channel=ob, local_lr=0.003, global_lr=0.003),
-                    dict(one_bit=True)),
+        "one_bit": (one_bit, dict(one_bit=True)),
         "ef": (dict(base, channel=coh), dict(error_feedback=True)),
+        "quiet_n5": (dict(base, channel=quiet, n_clients=5,
+                          client_chunk=5), {}),
+        "quiet_n50": (dict(base, channel=quiet, n_clients=50,
+                           client_chunk=10), {}),
+        "one_bit_ef_n50": (dict(one_bit, n_clients=50, client_chunk=10),
+                           dict(one_bit=True, error_feedback=True)),
     }
 
 
@@ -67,6 +78,18 @@ def _pair(name):
 @pytest.fixture(scope="module")
 def task():
     return small_fl_task(ROUNDS)
+
+
+@pytest.fixture(scope="module")
+def tasks(task):
+    """The task for N clients, built once per N."""
+    cache = {4: task}
+
+    def get(n):
+        if n not in cache:
+            cache[n] = small_fl_task(ROUNDS, n)
+        return cache[n]
+    return get
 
 
 def _run_jax(jfl, params, batches, capture=False):
@@ -86,30 +109,46 @@ def _torch_tstate(ts):
     return {k: to_torch(v) for k, v in ts.items()}
 
 
-@pytest.mark.parametrize("name", ["coherent", "one_bit", "ef"])
-def test_server_phase_on_jax_aggregate_gives_exact_ages(task, name):
-    params, batches = task
+@pytest.mark.parametrize("name", ["coherent", "one_bit", "ef", "quiet_n5",
+                                  "quiet_n50", "one_bit_ef_n50"])
+def test_server_phase_on_jax_aggregate_gives_exact_ages(tasks, name):
     jfl, tfl = _pair(name)
+    params, batches = tasks(tfl.n_clients)
     jax_rounds, d = _run_jax(jfl, params, batches, capture=True)
     _, unravel = cnn.ravel_params(torch_params(params))
     step = trainer.make_fl_step(tfl, unravel, torch_loss, d, device="cpu")
+    n = tfl.n_clients
+    ob_ef = tfl.one_bit and tfl.error_feedback
     for t, rnd in enumerate(jax_rounds):
         w, g, age, sc, res, ts, _ = rnd["before"]
         agg = (rnd["captured"]["energy"] if tfl.one_bit
                else rnd["captured"]["score"])
         draws = {k: to_torch(v) for k, v in rnd["draws"].items()}
-        out = step.server_phase(to_torch(w), to_torch(agg), None,
+        # the one-bit EF residual's input: a seeded Σ_n eff_n
+        ef_sum = (np.random.default_rng(t).normal(size=d) * 3.0).astype(
+            np.float32) if ob_ef else None
+        out = step.server_phase(to_torch(w), to_torch(agg),
+                                None if ef_sum is None else to_torch(ef_sum),
                                 to_torch(g), to_torch(age), to_torch(sc),
                                 to_torch(res), _torch_tstate(ts), draws)
         w2, g2, age2, sc2, res2, ts2 = rnd["after"]
         np.testing.assert_array_equal(to_np(out[2]), np.asarray(age2),
                                       err_msg=f"round {t} ages")
         np.testing.assert_array_equal(to_np(out[3]), np.asarray(sc2))
-        np.testing.assert_allclose(to_np(out[1]), np.asarray(g2), rtol=1e-6,
-                                   atol=1e-7)
+        if tfl.channel.noise_std == 0.0 or tfl.one_bit:
+            np.testing.assert_array_equal(_bits(out[1]), _bits(g2),
+                                          err_msg=f"round {t} g_t")
+        else:
+            np.testing.assert_allclose(to_np(out[1]), np.asarray(g2),
+                                       rtol=1e-6, atol=1e-7)
+        if ob_ef:
+            sel = (np.asarray(age2) == 0.0).astype(np.float32)
+            want = jax.jit(lambda e, m: (e / n) * (1.0 - m))(
+                jnp.asarray(ef_sum), jnp.asarray(sel))
+            np.testing.assert_array_equal(_bits(out[4]), _bits(want))
         np.testing.assert_allclose(to_np(out[0]), np.asarray(w2), rtol=1e-6,
                                    atol=1e-7)
-        if tfl.error_feedback:
+        if tfl.error_feedback and not ob_ef:
             np.testing.assert_allclose(to_np(out[4]), np.asarray(res2),
                                        rtol=1e-6, atol=1e-7)
         for key in ("theta_m", "theta_a", "n_sel", "n_sel_m", "streak"):
@@ -161,8 +200,7 @@ def test_train_runs_and_reports(task):
 def test_unsupported_settings_raise():
     _, tfl = _pair("coherent")
     for change, item in ((dict(backend="threshold"), 3),
-                         (dict(async_lag=1), 7), (dict(adaptive_km=True), 5),
-                         (dict(policy="fairk_auto"), 5),
+                         (dict(async_lag=1), 7),
                          (dict(scan_rounds=4), 7), (dict(faults=object()), 8),
                          (dict(watchdog=object()), 8),
                          (dict(population=object()), 8),
@@ -184,6 +222,17 @@ def test_unsupported_settings_raise():
     with pytest.raises(ValueError, match="client_chunk"):
         trainer.make_fl_step(dataclasses.replace(tfl, client_chunk=3),
                              lambda w: w, torch_loss, 8, device="cpu")
+    # the adaptive split is ported: it builds on both backends, for FAIR-k
+    for backend in ("packed", "exact"):
+        for change in (dict(adaptive_km=True), dict(policy="fairk_auto")):
+            trainer.make_fl_step(
+                dataclasses.replace(tfl, backend=backend, **change),
+                lambda w: w, torch_loss, 8, device="cpu")
+        with pytest.raises(ValueError, match="adaptive_km"):
+            trainer.make_fl_step(
+                dataclasses.replace(tfl, backend=backend, adaptive_km=True,
+                                    policy="roundrobin"),
+                lambda w: w, torch_loss, 8, device="cpu")
 
 
 def _bits(t):

@@ -21,23 +21,45 @@ def _port_modules():
         repro_torch.__path__, prefix="repro_torch."))
 
 
+BENCHMARKS = sorted(
+    "benchmarks." + f[:-3] for f in os.listdir(os.path.join(ROOT,
+                                                            "benchmarks"))
+    if f.startswith("torch_") and f.endswith(".py"))
+
+
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "repro_torch.fl.trainer" in mods and len(mods) >= 15
+    for name in ("repro_torch.fl.trainer", "repro_torch.fl.sweep",
+                 "repro_torch.core.controller", "repro_torch.core.markov",
+                 "repro_torch.core.lipschitz"):
+        assert name in mods
+    assert len(mods) >= 19
+    assert len(BENCHMARKS) == 9
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
-        f"for m in {mods!r}:\n"
+        f"for m in {mods + BENCHMARKS!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
-        "sys.modules.items() if v is not None)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
+        "or k.startswith('repro.') for k, v in sys.modules.items() "
+        "if v is not None)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=120)
+                         text=True, env=env, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", BENCHMARKS)
+def test_benchmark_sources_import_no_jax(name):
+    path = os.path.join(ROOT, *name.split(".")) + ".py"
+    with open(path) as f:
+        src = f.read()
+    assert "import jax" not in src and "from jax" not in src
+    assert "from repro." not in src and "import repro\n" not in src
+    assert "from repro " not in src
 
 
 def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
@@ -81,6 +103,17 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         ops.fairk_ef_update(torch.zeros(3), torch.zeros(3), torch.zeros(3),
                             0.0, 0.0, mode="kernel")
+    from repro_torch.fl import sweep
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.run_sweep(sweep.SweepConfig(d=8, rounds=1))
+    from benchmarks import torch_common, torch_run
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_common.make_task()
+    for name, mod in torch_run.MODULES.items():
+        if name == "fig3":           # numpy only: nothing runs on a device
+            continue
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.run(rounds=1)
     assert device_mod.resolve_device("cpu").type == "cpu"
     state, _ = trainer.init_server(params, fl, device="cpu")
     assert state.w.device.type == "cpu"

@@ -3,10 +3,16 @@ whole server-state update for a selection ``idx``, against the JAX
 package, through the plain versions the kernel is held to on the card.
 
 * ``ops.aou_merge_by_indices`` (the exact trainer): JAX's receiver tail
-  ``repro.core.oac.finish_aggregate`` (its noise drawn from a key, the
-  same draw handed to the port), ``oac.reconstruct`` (``.at[idx].set``),
-  ``aou.update_age_by_indices``, the mask ``.at[idx].set(1.0)``, the count
-  ``.at[idx].add(1.0)`` and the EF residual ``(ef_sum / N)·(1 − mask)``.
+  ``repro.core.oac.finish_aggregate`` compiled with ``jax.jit``, as the
+  trainer's round compiles it (XLA multiplies by the float32 ``1/N``),
+  ``oac.reconstruct`` (``.at[idx].set``), ``aou.update_age_by_indices``,
+  the mask ``.at[idx].set(1.0)``, the count ``.at[idx].add(1.0)`` and the
+  EF residual ``(ef_sum / N)·(1 − mask)``, also compiled; at N = 5 and
+  N = 50, where 1/N is not a power of two.  With receiver noise the
+  compiled tail's normal draw is the draw handed to the port, a constant
+  of the compiled function (drawn in the graph, XLA would fold the
+  ``noise_std`` scale into the draw and round differently in the last
+  place, a known trait of the reference).
 * ``ops.masked_merge_by_indices`` (the exact engine):
   ``repro.core.engine.masked_merge`` of ``sent + (noise_std / N)·noise``
   over the JAX mask of ``idx``, and the residual ``score − mask·sent``.
@@ -18,6 +24,8 @@ unsorted selections; ragged d.  The two call sites' arithmetic differs on
 purpose (a scatter against ``m·fresh + (1 − m)·g_old``), and the tests
 check that it stays apart.
 """
+
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +42,7 @@ from repro_torch.core import packing
 from repro_torch.kernels import aou_merge, ops
 
 N_CLIENTS = 50
+N_TRAINER = (5, 50)
 
 
 def _same_floats(a, b, what=""):
@@ -89,24 +98,38 @@ def _state(d, k, seed):
     return x
 
 
-def _jax_trainer_update(x, superposed, noise_std, ef):
-    """The JAX trainer's server step on the same inputs -> (g_t, age',
-    mask, sel_count', residual | None, the draw z handed to the port)."""
+def _compiled_tail(row, n, noise_std, z):
+    """``jax.jit(finish_aggregate)`` on ``row`` at N = ``n`` (a fresh
+    function each call, so no compiled trace is reused across draws); with
+    noise its normal draw is ``z``."""
+    cfg = jax_oac.ChannelConfig(fading="none", noise_std=noise_std)
+    fn = jax.jit(lambda key, r: jax_oac.finish_aggregate(key, r, n, cfg))
+    if z is None:
+        return fn(jax.random.PRNGKey(0), row)
+    with mock.patch.object(jax_oac.jax.random, "normal",
+                           lambda *a, **kw: jnp.asarray(z)):
+        return fn(jax.random.PRNGKey(0), row)
+
+
+def _jax_trainer_update(x, superposed, noise_std, ef, n):
+    """The JAX trainer's server step on the same inputs, its arithmetic
+    compiled -> (g_t, age', mask, sel_count', residual | None, the draw z
+    handed to the port)."""
     d, k = x["g_prev"].shape[0], x["idx"].shape[0]
     idx = jnp.asarray(x["idx"])
     row = jnp.asarray(x["fresh"])
     z = None
     if superposed:
-        key = jax.random.PRNGKey(k)
-        cfg = jax_oac.ChannelConfig(fading="none", noise_std=noise_std)
-        row = jax_oac.finish_aggregate(key, row, N_CLIENTS, cfg)
-        z = np.asarray(jax.random.normal(key, (k,), jnp.float32))
+        if noise_std > 0.0:
+            z = np.asarray(jax.random.normal(jax.random.PRNGKey(k), (k,),
+                                             jnp.float32))
+        row = _compiled_tail(row, n, noise_std, z)
     g_t = jax_oac.reconstruct(jnp.asarray(x["g_prev"]), idx, row)
     age = jax_aou.update_age_by_indices(jnp.asarray(x["age"]), idx)
     mask = jnp.zeros((d,), jnp.float32).at[idx].set(1.0)
     count = jnp.asarray(x["sel_count"]).at[idx].add(1.0)
-    res = ((jnp.asarray(x["ef_sum"]) / N_CLIENTS) * (1.0 - mask)
-           if ef else None)
+    res = (jax.jit(lambda e, m: (e / n) * (1.0 - m))(
+        jnp.asarray(x["ef_sum"]), mask) if ef else None)
     return g_t, age, mask, count, res, z
 
 
@@ -114,16 +137,17 @@ CASES = [(1, 1), (7, 1), (7, 7), (1001, 1), (1001, 3), (1001, 100),
          (1001, 1001), (5000, 500)]
 
 
+@pytest.mark.parametrize("n", N_TRAINER)
 @pytest.mark.parametrize("superposed,noise_std,ef", [
     (False, 0.0, False), (False, 0.0, True), (True, 0.0, False),
     (True, 0.1, False), (True, 0.1, True), (True, 2.0, True)])
 @pytest.mark.parametrize("d,k", CASES)
-def test_trainer_update_matches_jax(d, k, superposed, noise_std, ef):
+def test_trainer_update_matches_jax(d, k, superposed, noise_std, ef, n):
     x = _state(d, k, seed=d + 7 * k)
-    j = _jax_trainer_update(x, superposed, noise_std, ef)
+    j = _jax_trainer_update(x, superposed, noise_std, ef, n)
     t = ops.aou_merge_by_indices(
         to_torch(x["idx"]), to_torch(x["fresh"]), to_torch(x["g_prev"]),
-        to_torch(x["age"]), to_torch(x["sel_count"]), n_clients=N_CLIENTS,
+        to_torch(x["age"]), to_torch(x["sel_count"]), n_clients=n,
         superposed=superposed,
         z=None if j[5] is None else to_torch(j[5]), noise_std=noise_std,
         ef_sum=to_torch(x["ef_sum"]) if ef else None)

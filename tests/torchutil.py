@@ -137,14 +137,18 @@ def engine_draws(key, d: int) -> Dict[str, np.ndarray]:
 
 # --- the FL slice on a narrow prototype CNN --------------------------------
 
-def small_fl_task(rounds: int):
+def small_fl_task(rounds: int, n_clients: int = 4):
     """(params, batches): a narrow prototype CNN (16x16x1 input, widths
     (4, 6, 8), fc 16, 10 classes, d = 1400) and ``rounds`` rounds of client
-    batches for N = 4 clients, H = 2, B = 3 over a Dir(0.3) split."""
-    spec = jax_synthetic.DatasetSpec("t", (16, 16, 1), 10, 400, 50,
+    batches for ``n_clients`` clients (4 unless given), H = 2, B = 3 over a
+    Dir(0.3) split of max(400, 100 N) samples."""
+    # 400 training samples, more for many clients (every Dirichlet shard
+    # needs a few)
+    spec = jax_synthetic.DatasetSpec("t", (16, 16, 1), 10,
+                                     max(400, 100 * n_clients), 50,
                                      sparsity=0.1)
     (xtr, ytr), _ = jax_synthetic.make_dataset(spec, seed=0)
-    parts = jax_partition.dirichlet_partition(ytr, 4, 0.3, seed=0)
+    parts = jax_partition.dirichlet_partition(ytr, n_clients, 0.3, seed=0)
     params = jax_cnn.init_prototype_cnn(jax.random.PRNGKey(1), (16, 16, 1),
                                         10, (4, 6, 8), 16)
     batches = [jax_partition.client_batches(xtr, ytr, parts, 3, 2, seed=t)
@@ -167,8 +171,9 @@ def torch_params(params):
 def run_jax_rounds(jfl, params, batches, draws_fn: Callable,
                    spies: Sequence[Tuple[object, str, str, int]] = ()):
     """The JAX trainer's loop over ``batches``; per round the state before
-    and after it, the draws (``draws_fn(key, d)``) and the values recorded
-    from inside the compiled round.  ``spies``: (module, function name,
+    and after it, the draws (``draws_fn(key, d)``), the controller state
+    after it (``ctrl``), the round's metrics and the values recorded from
+    inside the compiled round.  ``spies``: (module, function name,
     record name, argument position) — the argument is recorded with
     ``jax.debug.callback`` every time the round calls the function."""
     state, unravel = jax_trainer.init_server(params, jfl)
@@ -196,13 +201,14 @@ def run_jax_rounds(jfl, params, batches, draws_fn: Callable,
         for xs, ys in batches:
             key, sub = jax.random.split(key)
             w, g, age, sc, res, ts, cs = carry
-            (w2, g2, age2, sc2, res2, _, ts2, cs2, _) = step(
+            (w2, g2, age2, sc2, res2, _, ts2, cs2, metrics) = step(
                 sub, w, g, age, sc, jnp.asarray(xs), jnp.asarray(ys), res,
                 ts, cs)
             jax.effects_barrier()
             out.append({"before": carry,
                         "after": (w2, g2, age2, sc2, res2, ts2),
                         "draws": draws_fn(sub, d),
+                        "ctrl": cs2, "metrics": metrics,
                         "captured": dict(captured)})
             carry = (w2, g2, age2, sc2, res2, ts2, cs2)
     finally:
