@@ -34,7 +34,12 @@ failure):
    operation (the plain composition's count is recorded): one kernel
    node in a CUDA
    graph captured around the call, and one kernel of the right name in
-   ``torch.profiler``, whose sessions now and then record nothing;
+   ``torch.profiler``, whose sessions now and then record nothing; the
+   no-residual ``ops.fairk_update`` at 109,210, and ``fairk_update``
+   [stats], [res] and no-residual on the ``--full`` transformer tree's
+   padded buffer (49,996,288 coordinates, pads after each of 195 leaves);
+   ``engine.quantile`` on the card equal to the CPU's on the same
+   samples;
 4. the packed path at full width: the FL round on the 109,210-parameter
    prototype CNN over 50 EMNIST-shaped synthetic clients — (a) 5 coherent
    rounds, (b) 5 one-bit rounds, (c) 3 coherent rounds with error
@@ -66,17 +71,34 @@ failure):
 10. the sweep: fig 6's grid (80 lanes × d = 2,048, N = 16), 20 rounds —
    one mask-form ``aou_merge`` launch per round, kernel and plain grids
    identical, k coordinates refreshed per lane per round;
-11. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+11. the threshold trainer: (a), (b) and (c) on ``backend="threshold"``, 3
+   rounds each — one ``fairk_update`` per round (and the one-bit route's
+   folds and detections), ``n_selected`` within 10% of k, kernel and
+   plain trajectories identical;
+12. async rounds (``async_lag = 2``): exact FAIR-k, threshold (a) and
+   packed (a) 3 rounds each and ``fairk_auto`` on packed 8 — every
+   selected coordinate at age 2 after its round, the synchronous launch
+   counts, kernel and plain identical; then ``scan_rounds = 3`` on packed
+   (a), 6 rounds, equal to the per-round loop bit for bit;
+13. the multi-leaf server phase on the ``--full`` tree through
+   ``benchmarks.torch_packed_bench``'s builders (packed, persisted,
+   persisted_ef, fused_stats after 5 carried rounds, adaptive, async,
+   sanitize): one launch per round, 1 pack and 1 unpack per persisted
+   round, 1 read of g on the fused rounds and 3 on the legacy ones, pads
+   never selected, every output equal to its plain rerun, each row timed;
+   the threshold engine at d = 10^8 equal to plain, and ``exact_theta``
+   selecting exact FAIR-k's set at 109,210;
+14. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-12. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+15. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-13. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+16. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-10) runs with every launch count set to 0 just before it
+Each path (4-13) runs with every launch count set to 0 just before it
 and read just after; a kernel that none of them launched fails the run.
 
 Imports neither JAX nor the JAX package.  Writes the full kernel timings to
@@ -110,6 +132,11 @@ SWEEP_LANES = 2 * len(SWEEP_RATIOS) * SWEEP_SEEDS   # fairk + fairk_auto
 TOPK_CASES = ((4096, 16), (4096, 164), (1024, 8))   # (block_size, m)
 KERNELS = ("fairk_update", "sign_mv", "sign_from_energy", "aou_merge",
            "block_topk")
+THRESH_ROUNDS = 3                   # threshold and async rounds per run
+ASYNC_LAG = 2
+TREE = (24, 320, 32_000)            # torch_packed_bench --full tree
+TREE_LEAVES, TREE_D_PACKED, TREE_D_VALID = 195, 49_996_288, 49_986_880
+ENGINE_BIG = 100_000_000            # the threshold engine at 10^8
 
 
 def fail(msg: str) -> None:
@@ -315,7 +342,7 @@ def kernel_phase(dev):
                   (float("inf"), 60.5)]
         return t, thetas
 
-    records = {}
+    records, extras = {}, {}
     # the node count itself: two elementwise launches are two kernel nodes
     one = torch.zeros(1, device=dev)
     counted = _graph_ops(lambda: one.add_(1.0).mul_(0.5))
@@ -323,14 +350,16 @@ def kernel_phase(dev):
           f"the graph count of two launches is {counted}")
 
     def fairk_case(t, thetas, name, stats, res, fresh_key, g_key, sanitize,
-                   n_in, n_out):
+                   n_in, n_out, fn=None):
         d = t["g"].shape[0]
         errs = []
+        fn = fn or (ops.fairk_stats_update if stats else ops.fairk_ef_update)
         for tm, ta in thetas:
             kw = dict(residual=t["res"] if res else None,
                       fresh=t[fresh_key] if fresh_key else None,
                       sanitize=sanitize)
-            fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+            if fn is ops.fairk_update:
+                kw = dict(sanitize=sanitize)
             outs = {m: fn(t[g_key], t["g_prev"], t["age"], tm, ta, mode=m,
                           **kw) for m in ("kernel", "plain")}
             k_out, p_out = outs["kernel"], outs["plain"]
@@ -351,14 +380,15 @@ def kernel_phase(dev):
         kw = dict(residual=t["res"] if res else None,
                   fresh=t[fresh_key] if fresh_key else None,
                   sanitize=sanitize)
-        fn = ops.fairk_stats_update if stats else ops.fairk_ef_update
+        if fn is ops.fairk_update:
+            kw = dict(sanitize=sanitize)
         # one warm call with float32 thresholds on the card is one device
         # operation: the kernel (no stack, memset or cast around it)
         n_ops = _one_op(lambda: fn(t[g_key], t["g_prev"], t["age"], tm, ta,
                                    mode="kernel", **kw), "fairk_kernel", name)
         ms = {m: _time_ms(lambda m=m: fn(t[g_key], t["g_prev"], t["age"],
                                          tm, ta, mode=m, **kw),
-                          blocks=50 if d == D else 10)
+                          blocks=50 if d <= D else 10)
               for m in ("kernel", "plain")}
         n_bytes = 4 * d * (n_in + n_out) + (4 * 258 if stats else 0) + 8
         bound, by = _bound_ms(n_bytes, (12 + (3 if res else 0)) * d)
@@ -374,6 +404,10 @@ def kernel_phase(dev):
                False, 4, 3)
     fairk_case(t, thetas, "fairk_update[res]", False, True, None, "g", False,
                4, 3)
+    # the engine's threshold and legacy packed rounds: no residual, no
+    # statistics (ops.fairk_update)
+    fairk_case(t, thetas, "fairk_update[no residual]", False, False, None,
+               "g", False, 3, 2, fn=ops.fairk_update)
     fairk_case(t, thetas, "fairk_update[stats+sanitize]", True, True,
                "bad_fresh", "bad", True, 5, 3)
     # where the bytes bound sets the pace: the launch path's sizes
@@ -383,6 +417,19 @@ def kernel_phase(dev):
     fairk_case(big, big_thetas, f"fairk_update[stats+res][{BIG}]", True,
                True, None, "g", False, 4, 3)
     del big
+    # the multi-leaf tree's padded buffer: pads after each of 195 leaves
+    tree_case = tree_buffers(dev)
+    fairk_case(tree_case, [(0.0, 0.0), (1.6, 30.5), (float("inf"), 30.5)],
+               f"fairk_update[stats][tree {TREE_D_PACKED}]", True, False,
+               None, "g", False, 3, 2)
+    fairk_case(tree_case, [(0.0, 0.0), (1.6, 30.5), (float("inf"), 30.5)],
+               f"fairk_update[res][tree {TREE_D_PACKED}]", False, True, None,
+               "g", False, 4, 3)
+    fairk_case(tree_case, [(0.0, 0.0), (1.6, 30.5), (float("inf"), 30.5)],
+               f"fairk_update[no residual][tree {TREE_D_PACKED}]", False,
+               False, None, "g", False, 3, 2, fn=ops.fairk_update)
+    del tree_case
+    extras["quantile"] = quantile_check(dev)
 
     noise = vec(rng.normal(size=D) * 2.0)
     for n in (10, 50):
@@ -430,7 +477,7 @@ def kernel_phase(dev):
         n_bytes = 4 * width * (3 + (1 if noisy else 0))
         bound, by = _bound_ms(n_bytes, 2 * width)
         records[name] = _record(err, ms, n_bytes, bound, by)
-    extras = merge_and_topk_checks(dev, rng, records)
+    extras.update(merge_and_topk_checks(dev, rng, records))
     # the card's floor for one graph-replayed launch, to subtract from the
     # kernels' device times when ranking them
     one = torch.zeros(1, device=dev)
@@ -1059,10 +1106,7 @@ def adaptive_phase(dev, task):
               f"{steady:.3f}), test loss {hist['loss'][-1]:.4f}",
               flush=True)
     # kernel against plain, cuDNN deterministic (restored afterwards)
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    flags = _deterministic()
     try:
         for name, fl in adaptive_configs().items():
             runs = {mode: train(fl, params0, loss_fn, sample_round,
@@ -1082,8 +1126,7 @@ def adaptive_phase(dev, task):
                   f"identical over {fl.rounds} rounds (w, g, ages, counts, "
                   f"controller state, km_frac)", flush=True)
     finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = flags
+        _restore(flags)
     packed, exact = run_configs()
     syncs = {}
     for name, fl in {**adaptive_configs(),
@@ -1133,18 +1176,14 @@ def figures_phase(dev):
     }
     launches = dict.fromkeys(KERNELS, 0)
     summary = {}
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    flags = _deterministic()
     try:
         for fig, runs in figures.items():
             got, summary[fig] = figure(fig, runs)
             for key in launches:
                 launches[key] += got[key]
     finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = flags
+        _restore(flags)
     return launches, summary
 
 
@@ -1358,6 +1397,538 @@ def profile_phase(dev, task, summary):
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 7: the threshold backend, async and staged rounds, the multi-leaf
+# packed tree, the threshold engine at 10^8
+# --------------------------------------------------------------------------
+
+_TREE = {}
+
+
+def full_tree(dev):
+    """The ``--full`` transformer tree of ``torch_packed_bench`` (24 layers,
+    d_model 320, vocab 32,000: 195 leaves, 49,996,288 packed coordinates)
+    with its server state, built once: ``(tree, g_prev, age, layout)``."""
+    if "tree" not in _TREE:
+        from benchmarks import torch_packed_bench as bench
+        from repro_torch.core import packing
+        tree = bench.make_transformer_tree(*TREE, device=dev)
+        g_prev, age = bench.server_state(tree)
+        lay = packing.PackedLayout.from_tree(tree)
+        check((lay.n_leaves, lay.d_packed, lay.d_valid)
+              == (TREE_LEAVES, TREE_D_PACKED, TREE_D_VALID),
+              f"tree layout {lay.n_leaves} leaves, {lay.d_packed} packed, "
+              f"{lay.d_valid} valid")
+        _TREE["tree"] = (tree, g_prev, age, lay)
+    return _TREE["tree"]
+
+
+def tree_buffers(dev):
+    """The tree's packed buffers in the kernel phase's form: ``g``,
+    ``g_prev``, ``age`` (PAD_AGE in the pads) and a residual that is 0 in
+    the pads."""
+    import torch
+    tree, g_prev, age, lay = full_tree(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = torch.randn(lay.d_packed, generator=gen, device=dev) * 0.05
+    return {"g": lay.pack(tree), "g_prev": lay.pack(g_prev),
+            "age": lay.pack_age(age), "res": res * lay.valid_mask(dev)}
+
+
+def quantile_check(dev):
+    """``engine.quantile`` (``jnp.quantile``'s arithmetic) on the card
+    against the CPU on the same samples — the threshold route's two
+    sample sizes (109,210 and the 10^8 engine's 65,574), static and
+    traced ``q``: bit for bit."""
+    import torch
+    from repro_torch.core import engine
+    gen = torch.Generator().manual_seed(11)
+    out = []
+    for n in (D, 65_574, 1_000):
+        x = torch.randn(n, generator=gen).abs()
+        for q in (0.925, 0.9, 0.99971):
+            for traced in (False, True):
+                qq = torch.tensor(q, dtype=torch.float32) if traced else q
+                cpu = engine.quantile(x, qq)
+                card = engine.quantile(x.to(dev), qq.to(dev) if traced
+                                       else qq)
+                _same(card.cpu(), cpu, f"quantile n={n} q={q} traced="
+                                       f"{traced}")
+                out.append(float(cpu))
+    print(f"quantile: engine.quantile on the card equals the CPU bit for "
+          f"bit on {len(out)} (sample, q) pairs (109,210, 65,574, 1,000; "
+          f"static and traced q)", flush=True)
+    return {"pairs": len(out), "exact": True}
+
+
+def threshold_configs():
+    """(a), (b), (c) on the threshold backend."""
+    import dataclasses
+    packed, _ = run_configs()
+    return {f"threshold_{name}": dataclasses.replace(
+        fl, backend="threshold", rounds=THRESH_ROUNDS)
+        for name, fl in packed.items()}
+
+
+def _identical_states(k, p, what):
+    for field in ("w", "g", "age", "sel_count", "residual"):
+        _same(getattr(k, field), getattr(p, field), f"{what} {field}")
+    for key in k.theta:
+        _same(k.theta[key], p.theta[key], f"{what} theta.{key}")
+    for key in k.ctrl:
+        _same(k.ctrl[key], p.ctrl[key], f"{what} ctrl.{key}")
+
+
+def _deterministic():
+    """cuDNN deterministic and no benchmark; returns the old flags."""
+    import torch
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return flags
+
+
+def _restore(flags):
+    import torch
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+
+
+def threshold_phase(dev, task):
+    """The threshold trainer at full width, (a), (b) and (c), 3 rounds
+    each: one ``fairk_update`` per round (plus the one-bit route's folds
+    and detections), finite weights and losses, ``n_selected`` within 10%
+    of k (the reference's threshold-vs-exact tolerance, 0.01 of d at ρ
+    0.1); then kernel and plain trajectories identical (cuDNN
+    deterministic).  Host syncs per warm round of (a) reported."""
+    import math
+    import torch
+    from repro_torch.fl import train
+
+    params0, loss_fn, eval_fn, sample_round = task
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    flags = _deterministic()
+    try:
+        for name, fl in threshold_configs().items():
+            reset_counters()
+            hist = train(fl, params0, loss_fn, sample_round, eval_fn=eval_fn,
+                         eval_every=1, device=dev)
+            torch.cuda.synchronize()
+            got = read_counters()
+            want = dict.fromkeys(KERNELS, 0)
+            want["fairk_update"] = fl.rounds
+            if fl.one_bit:
+                want["sign_mv"] = fl.rounds * (N_CLIENTS // CHUNK)
+                want["sign_from_energy"] = fl.rounds
+            check(got == want, f"{name}: launches {got}, expected {want}")
+            for key in launches:
+                launches[key] += got[key]
+            st = hist["state"]
+            check(bool(torch.isfinite(st.w).all())
+                  and all(math.isfinite(x) for x in hist["loss"]),
+                  f"{name}: non-finite weights or loss")
+            k, n_sel = hist["k"], hist["n_selected"]
+            check(all(abs(x - k) <= 0.1 * k for x in n_sel),
+                  f"{name}: selected {n_sel}, not within 10% of k = {k}")
+            plain = train(fl, params0, loss_fn, sample_round, device=dev,
+                          kernel_mode="plain")
+            _identical_states(st, plain["state"], name)
+            summary[name] = {"round_ms": hist["round_ms"], "k": k,
+                             "n_selected": n_sel, "loss": hist["loss"],
+                             "launches": got}
+            print(f"threshold {name}: {fl.rounds} rounds, launches {got}, "
+                  f"selected {n_sel} (k {k}), round ms "
+                  f"{[round(x, 3) for x in hist['round_ms']]}, test loss "
+                  f"{[round(x, 4) for x in hist['loss']]}; kernel and plain "
+                  f"trajectories identical", flush=True)
+    finally:
+        _restore(flags)
+    per_round, where = host_syncs(dev, task,
+                                  threshold_configs()["threshold_a_coherent"])
+    summary["host_syncs_a"] = {"per_round": per_round, "where": where}
+    print(f"host syncs threshold (a): {per_round:g} per warm round {where} "
+          f"(report only)", flush=True)
+    return launches, summary
+
+
+def _step_rounds(dev, task, fl, kernel_mode=None):
+    """``fl.rounds`` rounds through ``make_fl_step`` (the round ``train``
+    runs) -> (per-round (age', sel_mask) pairs, final carry)."""
+    import torch
+    from repro_torch.fl import init_server, make_fl_step
+    from repro_torch.fl.trainer import draw_round
+
+    params0, loss_fn, _, sample_round = task
+    state, unravel = init_server(params0, fl, dev)
+    d = state.w.shape[0]
+    step = make_fl_step(fl, unravel, loss_fn, d, dev, kernel_mode)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(fl.seed)
+    carry = (state.w, state.g, state.age, state.sel_count, state.residual,
+             state.theta, state.ctrl)
+    per_round = []
+    for t in range(fl.rounds):
+        xs, ys = sample_round(t)
+        w, g, age, sc, res, ts, cs = carry
+        out = step(w, g, age, sc, torch.as_tensor(xs, device=dev),
+                   torch.as_tensor(ys, device=dev), res, ts,
+                   draw_round(gen, fl, d, dev), cs)
+        carry = out[:5] + (out[6], out[7])
+        per_round.append((out[2], out[5]))
+    return per_round, carry
+
+
+def async_configs():
+    """``async_lag = 2``: exact FAIR-k, threshold (a) and packed (a), 3
+    rounds each, and ``fairk_auto`` on packed, 8 rounds."""
+    import dataclasses
+    packed, _ = run_configs()
+    a = dataclasses.replace(packed["a_coherent"], async_lag=ASYNC_LAG,
+                            rounds=THRESH_ROUNDS)
+    return {"async_exact": dataclasses.replace(a, backend="exact"),
+            "async_threshold": dataclasses.replace(a, backend="threshold"),
+            "async_packed": a,
+            "async_packed_auto": dataclasses.replace(
+                a, policy="fairk_auto", rounds=ADAPTIVE_ROUNDS)}
+
+
+def async_phase(dev, task):
+    """Async rounds at full width: after every round each selected
+    coordinate carries age ``ASYNC_LAG`` and none has age 0; the launch
+    counts of the synchronous route (one ``aou_merge`` per exact round,
+    one ``fairk_update`` per threshold or packed round); kernel and plain
+    identical (cuDNN deterministic)."""
+    import torch
+
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    flags = _deterministic()
+    try:
+        for name, fl in async_configs().items():
+            reset_counters()
+            rounds, carry = _step_rounds(dev, task, fl)
+            torch.cuda.synchronize()
+            got = read_counters()
+            want = dict.fromkeys(KERNELS, 0)
+            want["aou_merge" if fl.backend == "exact"
+                 else "fairk_update"] = fl.rounds
+            check(got == want, f"{name}: launches {got}, expected {want}")
+            for key in launches:
+                launches[key] += got[key]
+            n_sel = []
+            for t, (age, sel) in enumerate(rounds):
+                chosen = sel > 0
+                check(bool((age[chosen] == ASYNC_LAG).all())
+                      and int((age == 0.0).sum()) == 0,
+                      f"{name} round {t}: a selected coordinate without "
+                      f"age {ASYNC_LAG}, or an age 0")
+                n_sel.append(int(chosen.sum()))
+            p_rounds, p_carry = _step_rounds(dev, task, fl, "plain")
+            for i, (a, b) in enumerate(zip(carry, p_carry)):
+                if isinstance(a, dict):
+                    for key in a:
+                        _same(a[key], b[key], f"{name} carry {i}.{key}")
+                else:
+                    _same(a, b, f"{name} carry {i}")
+            for (a, sa), (b, sb) in zip(rounds, p_rounds):
+                _same(a, b, f"{name} age'")
+                _same(sa, sb, f"{name} sel_mask")
+            summary[name] = {"launches": got, "n_selected": n_sel,
+                             "km_frac": float(carry[6]["k_m_frac"])}
+            print(f"async {name}: lag {ASYNC_LAG}, {fl.rounds} rounds, "
+                  f"launches {got}, selected {n_sel}, every selected "
+                  f"coordinate at age {ASYNC_LAG}, km_frac "
+                  f"{float(carry[6]['k_m_frac']):.4f}; kernel and plain "
+                  f"identical", flush=True)
+    finally:
+        _restore(flags)
+    return launches, summary
+
+
+def scan_phase(dev, task):
+    """``scan_rounds = 3`` on packed (a), 6 rounds, against the per-round
+    loop: identical state bit for bit (cuDNN deterministic)."""
+    import dataclasses
+    import torch
+    from repro_torch.fl import train
+
+    params0, loss_fn, _, sample_round = task
+    packed, _ = run_configs()
+    fl = dataclasses.replace(packed["a_coherent"], rounds=6)
+    flags = _deterministic()
+    try:
+        reset_counters()
+        scanned = train(dataclasses.replace(fl, scan_rounds=3), params0,
+                        loss_fn, sample_round, device=dev)
+        torch.cuda.synchronize()
+        got = read_counters()
+        loop = train(fl, params0, loss_fn, sample_round, device=dev)
+    finally:
+        _restore(flags)
+    want = dict.fromkeys(KERNELS, 0)
+    want["fairk_update"] = fl.rounds
+    check(got == want, f"scan: launches {got}, expected {want}")
+    _identical_states(scanned["state"], loop["state"], "scan_rounds")
+    for key in ("mean_aou", "max_aou", "km_frac", "n_selected"):
+        check(scanned[key] == loop[key], f"scan_rounds: {key} differs")
+    print(f"scan_rounds: packed (a) 6 rounds in chunks of 3 equal the "
+          f"per-round loop bit for bit; launches {got}; round ms "
+          f"{[round(x, 3) for x in scanned['round_ms']]} (loop "
+          f"{[round(x, 3) for x in loop['round_ms']]})", flush=True)
+    return got, {"round_ms": scanned["round_ms"],
+                 "loop_round_ms": loop["round_ms"]}
+
+
+def _same_out(a, b, what):
+    """``_same`` over nested tuples, lists and dicts of tensors."""
+    import torch
+    if isinstance(a, dict):
+        check(set(a) == set(b), f"{what}: keys {set(a)} vs {set(b)}")
+        for key in a:
+            _same_out(a[key], b[key], f"{what}.{key}")
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_out(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        _same(a, b, what)
+    else:
+        check(a == b, f"{what}: {a} vs {b}")
+
+
+def _syncs(fn) -> int:
+    """Host syncs one warm call of ``fn`` makes (sync debug mode)."""
+    import warnings
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _profile_round(fn, top: int = 8):
+    """Device time of one call of ``fn`` by kernel (``torch.profiler``,
+    after a warm-up call): report only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profile of one fused tree round: device {total:.3f} ms in "
+          f"{sum(r[2] for r in rows)} operations", flush=True)
+    for ms, key, n in rows[:top]:
+        print(f"  {ms:8.4f} ms  x{n:<4d} {key[:90]}", flush=True)
+    return {"device_ms": total, "ops": sum(r[2] for r in rows),
+            "top": [(ms, key[:90], n) for ms, key, n in rows[:top]]}
+
+
+def tree_phase(dev):
+    """The multi-leaf server phase on the ``--full`` tree through
+    ``torch_packed_bench``'s builders: packed (cold, sampled bootstrap),
+    persisted (the legacy two-pass round), persisted_ef, fused_stats
+    (checked on its sixth carried round), adaptive, async and sanitize.
+    Each round makes one ``fairk_update`` launch; a persisted round 1 pack
+    and 1 unpack (the re-packing one 3 and 2); ``G_READS`` 1 on the fused
+    rounds, 3 on the legacy ones; pads are never selected and keep age −1;
+    every output (trees, flat buffers, threshold state, counts and
+    histograms) equals its plain rerun.  Each row is timed with CUDA
+    events (median of 5 rounds); the legacy warm round's host syncs are
+    counted."""
+    import torch
+    from benchmarks import torch_packed_bench as bench
+    from repro_torch.core import controller, packing
+    from repro_torch.kernels import fairk_update, ops
+
+    tree, g_prev, age, lay = full_tree(dev)
+    pads = ~lay.valid_mask(dev)
+    k = bench._mk_engine("packed", lay).budgets()[0]
+    ts0 = packing.init_threshold_state(dev)
+    _, flat_state, _ = bench.build_persisted_fn(tree, warm=False)
+    gp_flat, age_flat, _ = flat_state(g_prev, age)
+    res_flat = torch.zeros(lay.d_packed, device=dev)
+
+    def builders(mode):
+        packed_fn, _, _ = bench.build_packed_fn(tree, warm=False,
+                                                kernel_mode=mode)
+        pers, _, _ = bench.build_persisted_fn(tree, warm=True,
+                                              kernel_mode=mode)
+        pers_ef, _, _ = bench.build_persisted_fn(
+            tree, warm=False, error_feedback=True, kernel_mode=mode)
+        fused, _, _ = bench.build_persisted_fn(tree, warm=True,
+                                               fused_stats=True,
+                                               kernel_mode=mode)
+        adaptive, _ = bench.build_adaptive_fn(tree, kernel_mode=mode)
+        async_fn, _, _ = bench.build_async_fn(tree, kernel_mode=mode)
+        sanitize, _ = bench.build_sanitize_fn(tree, kernel_mode=mode)
+        return {"packed": packed_fn, "persisted": pers,
+                "persisted_ef": pers_ef, "fused_stats": fused,
+                "adaptive": adaptive, "async": async_fn,
+                "sanitize": sanitize}
+
+    kern, plain = builders(None), builders("plain")
+    # five carried fused rounds: the sixth is the one checked and timed
+    ts_f = ts0
+    gp_w, age_w = gp_flat, age_flat
+    for _ in range(5):
+        _, gp_w, age_w, _, ts_f = kern["fused_stats"](tree, gp_w, age_w,
+                                                      None, ts_f)
+    cvec = controller.controller_state_to_vec(
+        controller.init_controller_state(0.75, dev))
+    args = {"packed": (tree, g_prev, age, None),
+            "persisted": (tree, gp_flat, age_flat, None, None),
+            "persisted_ef": (tree, gp_flat, age_flat, res_flat, None),
+            "fused_stats": (tree, gp_w, age_w, None, ts_f),
+            "adaptive": (tree, gp_w, age_w, ts_f, cvec),
+            "async": (tree, gp_w, age_w, ts_f, gp_w, gp_w),
+            "sanitize": (tree, gp_w, age_w, ts_f)}
+    fused_rows = ("fused_stats", "adaptive", "async", "sanitize")
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {"streak_after_5": float(ts_f["streak"]), "k": k}
+    for name, fn in kern.items():
+        reset_counters()
+        out, cnt = bench.counted(fn, *args[name])
+        torch.cuda.synchronize()
+        got = read_counters()
+        want = dict.fromkeys(KERNELS, 0)
+        want["fairk_update"] = 1
+        check(got == want, f"tree {name}: launches {got}, expected {want}")
+        for key in launches:
+            launches[key] += got[key]
+        copies = (3, 2) if name == "packed" else (1, 1)
+        reads = 1 if name in fused_rows else 3
+        check(cnt == (1,) + copies + (reads,),
+              f"tree {name}: (launches, packs, unpacks, reads of g) {cnt}, "
+              f"expected {(1,) + copies + (reads,)}")
+        if name != "packed":         # the carried flat int8 age buffer
+            check(bool((out[2][pads] == packing.PAD_AGE).all()),
+                  f"tree {name}: a pad was selected or lost its age -1")
+        ts_out = out[{"packed": 2, "adaptive": 3, "async": 3,
+                      "sanitize": 3}.get(name, 4)]
+        n_sel = float(ts_out["n_sel"])
+        check(0 < n_sel <= lay.d_valid, f"tree {name}: selected {n_sel}")
+        if name == "async":
+            check(not bool((out[6][pads] > 0).any()),
+                  "tree async: a pad was selected")
+        _same_out(out, plain[name](*args[name]), f"tree {name}")
+        before = fairk_update.LAUNCHES
+        us, _ = bench.timed_med(lambda: fn(*args[name]), 5)
+        check(fairk_update.LAUNCHES - before == 6,
+              f"tree {name}: timed rounds launched "
+              f"{fairk_update.LAUNCHES - before}")
+        summary[name] = {"ms": us / 1e3, "counts": cnt, "n_sel": n_sel}
+        print(f"tree {name}: 1 fairk_update launch, (packs, unpacks) "
+              f"{copies}, reads of g {reads}, selected {n_sel:.0f} of "
+              f"{lay.d_valid} (k {k}), pads unselected at age -1, equal "
+              f"to its plain rerun; {us / 1e3:.3f} ms per round (median "
+              f"of 5, CUDA events)", flush=True)
+    summary["profile_fused"] = _profile_round(
+        lambda: kern["fused_stats"](*args["fused_stats"]))
+    summary["legacy_warm_syncs"] = _syncs(
+        lambda: kern["persisted"](tree, gp_flat, age_flat, None,
+                                  bench.warm_state(ts_f, k)))
+    print(f"tree persisted warm round: {summary['legacy_warm_syncs']} host "
+          f"syncs (the warm and bootstrap thresholds are both computed and "
+          f"chosen with torch.where)", flush=True)
+    # the bf16 g_prev / int8 age inputs: the f32 casts around the launch
+    gp32 = gp_flat.to(torch.float32)
+    age32 = age_flat.to(torch.float32)
+    g_flat = lay.pack(tree)
+    tm, ta = (torch.tensor(v, device=dev) for v in (1.6, 30.5))
+    summary["cast_ms"] = _time_ms(
+        lambda: (gp_flat.to(torch.float32), age_flat.to(torch.float32)),
+        blocks=10)[0]
+    summary["kernel_f32_ms"] = _time_ms(
+        lambda: ops.fairk_stats_update(g_flat, gp32, age32, tm, ta),
+        blocks=10)[0]
+    summary["kernel_bf16_int8_ms"] = _time_ms(
+        lambda: ops.fairk_stats_update(g_flat, gp_flat, age_flat, tm, ta),
+        blocks=10)[0]
+    print(f"tree persisted shape: the bf16 g_prev and int8 age casts take "
+          f"{summary['cast_ms']:.4f} ms (2 device operations, "
+          f"{6 * lay.d_packed / 1e6:.0f} MB read, {8 * lay.d_packed / 1e6:.0f}"
+          f" MB written); fairk_update [stats] on float32 inputs "
+          f"{summary['kernel_f32_ms']:.4f} ms, on the bf16/int8 buffers "
+          f"with the casts {summary['kernel_bf16_int8_ms']:.4f} ms",
+          flush=True)
+    return launches, summary
+
+
+def engine_big_phase(dev):
+    """The threshold engine at d = 10^8, one round, kernel equal to plain;
+    ``exact_theta`` at d = 109,210 on tie-free input (distinct magnitudes,
+    distinct ages): the selected set is exact FAIR-k's."""
+    import torch
+    from repro_torch.core.engine import EngineConfig, SelectionEngine
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d = ENGINE_BIG
+    g = torch.randn(d, generator=gen, device=dev)
+    g_prev = torch.randn(d, generator=gen, device=dev)
+    age = torch.randint(0, 40, (d,), generator=gen, device=dev).to(
+        torch.float32)
+    launches = dict.fromkeys(KERNELS, 0)
+    outs = {}
+    for mode in (None, "plain"):
+        eng = SelectionEngine(EngineConfig(backend="threshold",
+                                           kernel_mode=mode), d)
+        reset_counters()
+        outs[mode] = eng.select_and_merge(g, g_prev, age)
+        torch.cuda.synchronize()
+        if mode is None:
+            got = read_counters()
+    _same_out(outs[None], outs["plain"], "engine 1e8")
+    want = dict.fromkeys(KERNELS, 0)
+    want["fairk_update"] = 1
+    check(got == want, f"engine 1e8: launches {got}, expected {want}")
+    n_sel, k = float(outs[None][2]["n_selected"]), outs[None][2]["k"]
+    check(abs(n_sel - k) <= 0.1 * k, f"engine 1e8: selected {n_sel}, k {k}")
+    from benchmarks.torch_packed_bench import timed_med
+    eng = SelectionEngine(EngineConfig(backend="threshold"), d)
+    ms = timed_med(lambda: eng.select_and_merge(g, g_prev, age),
+                   5)[0] / 1e3
+    del g, g_prev, age, outs
+    for key in launches:
+        launches[key] += got[key]
+    # exact_theta against exact FAIR-k, tie-free
+    g = torch.randn(D, generator=gen, device=dev)
+    age = torch.randperm(D, generator=gen, device=dev).to(torch.float32)
+    thr = SelectionEngine(EngineConfig(backend="threshold",
+                                       exact_theta=True), D)
+    exact = SelectionEngine(EngineConfig(backend="exact"), D)
+    reset_counters()
+    _, age_t, _ = thr.select_and_merge(g, torch.zeros_like(g), age)
+    torch.cuda.synchronize()
+    got = read_counters()
+    launches["fairk_update"] += got["fairk_update"]
+    want_mask = torch.zeros(D, dtype=torch.bool, device=dev)
+    want_mask[exact.select(g, age)] = True
+    check(bool(torch.equal(age_t == 0.0, want_mask)),
+          "exact_theta: the selected set differs from exact FAIR-k's")
+    print(f"engine: threshold select_and_merge at d = {d} (k {k}, "
+          f"selected {n_sel:.0f}) equals its plain version, 1 fairk_update "
+          f"launch, {ms:.3f} ms per call (median of 5, CUDA events); "
+          f"exact_theta at "
+          f"d = {D} selects exact FAIR-k's {int(want_mask.sum())} "
+          f"coordinates", flush=True)
+    return launches, {"d": d, "k": k, "n_selected": n_sel, "ms": ms}
+
+
 def main(argv) -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found: run chip_smoke.py from the root of "
@@ -1401,6 +1972,11 @@ def main(argv) -> None:
     by_path["adaptive"], adaptive_summary = adaptive_phase(dev, task)
     by_path["figures"], figures_summary = figures_phase(dev)
     by_path["sweep"], sweep_summary = sweep_phase(dev)
+    by_path["threshold"], threshold_summary = threshold_phase(dev, task)
+    by_path["async"], async_summary = async_phase(dev, task)
+    by_path["scan_rounds"], scan_summary = scan_phase(dev, task)
+    by_path["tree"], tree_summary = tree_phase(dev)
+    by_path["engine_1e8"], engine_big_summary = engine_big_phase(dev)
     launches = {key: sum(p[key] for p in by_path.values())
                 for key in KERNELS}
     for key, n in launches.items():
@@ -1457,6 +2033,9 @@ def main(argv) -> None:
          "variants": records, "extras": extras, "paths": summary,
          "engine": engine_summary, "adaptive": adaptive_summary,
          "figures": figures_summary, "sweep": sweep_summary,
+         "threshold": threshold_summary, "async": async_summary,
+         "scan_rounds": scan_summary, "tree": tree_summary,
+         "engine_1e8": engine_big_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))

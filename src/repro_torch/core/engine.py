@@ -1,5 +1,5 @@
-"""The FAIR-k selection engine on the exact and packed backends (the
-subset of ``repro.core.engine`` that the FL round needs).
+"""The FAIR-k selection engine (``repro.core.engine``) on the exact,
+threshold and packed backends.
 
 ``SelectionEngine.select_and_merge(g, g_prev, age)`` runs one server
 phase: select on ``g``, merge the fresh values over the stale ``g_prev``
@@ -10,20 +10,27 @@ phase: select on ``g``, merge the fresh values over the stale ``g_prev``
   ``aou_merge`` kernel launch: for the selected indices the noise, merge,
   age step and residual (``ops.masked_merge_by_indices``); under
   ``sanitize`` the mask-form merge and age step (``masked_merge``).
-* ``packed``: thresholds (θ_M, θ_A) from the carried statistics alone,
-  then ONE fused kernel pass (``kernels.ops.fairk_stats_update``) that
-  selects (Eq. 11), merges, advances the age, folds the error-feedback
-  residual and emits the counts and histograms the next round's
-  thresholds come from.
+* ``threshold``: (θ_M, θ_A) from sampled quantiles (``sampled_thresholds``,
+  ``jnp.quantile``'s arithmetic written out) or, with ``exact_theta``,
+  from order statistics; then ONE fused kernel pass (``fairk_update``)
+  that selects (Eq. 11), merges, advances the age and folds the
+  error-feedback residual — with ``fused_stats`` also the counts and
+  histograms.
+* ``packed``: the threshold route over a ``packing.PackedLayout`` buffer
+  (budgets on its valid coordinates, the quantile sample on them only).
+  With ``fused_stats`` and ``warm_start`` the thresholds come from the
+  carried statistics alone; without ``fused_stats`` the legacy route
+  bootstraps from the sampled quantiles, trusts the warm-corrected
+  thresholds once their streak holds, and counts the magnitude stage in a
+  second pass.  ``select_and_merge_tree`` packs a parameter tree, runs
+  the pass and unpacks.
 
 A traced split (``select_and_merge(k_m_frac=tensor)``, the adaptive
 controller's live ``k_m_frac``) keeps ``k`` static and moves ``k_M =
-traced_km(k, k_m_frac)`` as a 0-d device tensor: the exact backend selects
-by rank (the same coordinate set as the index form), the packed backend
-takes it into its statistics thresholds; neither reads it back to the
-host.  The threshold and sharded backends, the sampled-quantile bootstrap
-and async lag are not ported yet (ROADMAP Queue 1); asking for them raises
-``NotImplementedError``.
+traced_km(k, k_m_frac)`` as a 0-d device tensor; no backend reads it back
+to the host.  ``age_lag`` (async rounds) records the delivery lag on the
+selected coordinates.  The sharded backend belongs to the launch path and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import oac, packing, selection
@@ -56,6 +64,174 @@ def jitter_from_ids(ids: Tensor) -> Tensor:
 def index_jitter(n: int, offset: int = 0, device=None) -> Tensor:
     """Jitter for coordinates [offset, offset + n)."""
     return jitter_from_ids(torch.arange(offset, offset + n, device=device))
+
+
+def strided_sample(x: Tensor, cap: int) -> Tensor:
+    """Every ``max(1, n // cap)``-th entry of ``x``."""
+    return x[::max(1, x.shape[0] // cap)]
+
+
+def quantile(x: Tensor, q) -> Tensor:
+    """``jnp.quantile(x, q)`` (linear method) for a 1-D ``x`` and a float
+    or 0-d float32 tensor ``q``, with the compiled reference's arithmetic:
+    ``pos = float32(q)·(n − 1)`` in float32, ``lo``/``hi`` its floor and
+    ceil, ``hw = pos − lo``, ``lw = 1 − hw``, and the result ``fma(hi_v,
+    hw, round32(lo_v·lw))`` — XLA contracts the final add into an FMA;
+    the FMA is emulated in float64 (the products of two float32 values
+    are exact there) and rounded to float32.  Any NaN in ``x`` gives NaN.
+    The positions of a float ``q`` are computed on the host, of a tensor
+    ``q`` on its device (no host sync either way)."""
+    n = x.shape[0]
+    s = torch.sort(x.to(torch.float32)).values           # NaN sorts last
+    if isinstance(q, Tensor):
+        pos = q.to(torch.float32) * float(n - 1)
+        lo, hi = torch.floor(pos), torch.ceil(pos)
+        hw = pos - lo
+        lw = 1.0 - hw
+        lo_v = s.take(torch.clamp(lo, 0.0, n - 1).to(torch.int64))
+        hi_v = s.take(torch.clamp(hi, 0.0, n - 1).to(torch.int64))
+        lw, hw = lw.to(torch.float64), hw.to(torch.float64)
+    else:
+        pos = np.float32(q) * np.float32(n - 1)
+        lo, hi = np.floor(pos), np.ceil(pos)
+        hw = np.float32(pos - lo)
+        lw = float(np.float32(1.0) - hw)
+        hw = float(hw)
+        lo_v = s[int(min(max(lo, 0.0), n - 1))]
+        hi_v = s[int(min(max(hi, 0.0), n - 1))]
+    low = (lo_v.to(torch.float64) * lw).to(torch.float32)
+    out = (hi_v.to(torch.float64) * hw + low.to(torch.float64)).to(
+        torch.float32)
+    return torch.where(torch.isnan(s[-1]), s[-1], out)
+
+
+def thresholds_from_samples(mag_s: Tensor, age_eff_s: Tensor, *, rho: float,
+                            k_m_frac) -> Tuple[Tensor, Tensor]:
+    """(θ_M, θ_A) quantiles from drawn samples of |g| and the jittered age:
+    θ_M at 1 − ρ·k_m_frac of |g|, θ_A at 1 − ρ_A of the age with ρ_A =
+    (ρ − ρ_M)/(1 − ρ_M), a degenerate stage θ = inf.  ``k_m_frac`` a float,
+    or a 0-d float32 tensor (the traced split): then the degenerate stages
+    are ``where``s on quantiles computed either way."""
+    inf = torch.full((), float("inf"), device=mag_s.device)
+    if not isinstance(k_m_frac, Tensor):
+        rho_m = rho * k_m_frac
+        rho_a = (rho - rho_m) / max(1.0 - rho_m, 1e-6)
+        theta_m = quantile(mag_s, 1.0 - rho_m) if rho_m > 0.0 else inf
+        theta_a = quantile(age_eff_s, 1.0 - rho_a) if rho_a > 0.0 else inf
+        return theta_m, theta_a
+    rho_m = rho * k_m_frac.to(torch.float32)
+    rho_a = (rho - rho_m) / torch.clamp(1.0 - rho_m, min=1e-6)
+    theta_m = torch.where(
+        rho_m > 0.0, quantile(mag_s, torch.clamp(1.0 - rho_m, 0.0, 1.0)),
+        inf)
+    theta_a = torch.where(
+        rho_a > 0.0, quantile(age_eff_s, torch.clamp(1.0 - rho_a, 0.0,
+                                                       1.0)), inf)
+    return theta_m, theta_a
+
+
+def sampled_thresholds(g: Tensor, age: Tensor, *, rho: float, k_m_frac,
+                       sample_cap: int, sample_ids: Optional[Tensor] = None,
+                       residual: Optional[Tensor] = None,
+                       sanitize: bool = False) -> Tuple[Tensor, Tensor]:
+    """(θ_M, θ_A) from strided-sample quantiles (no global sort): one read
+    pass over a sample of the gradient buffer (``packing.G_READS``).
+    ``sample_ids`` (int64 positions, ``PackedLayout.sample_ids``) samples
+    only those coordinates — the jitter hashes their buffer positions;
+    ``residual`` adds sample-wise (θ_M on |g + residual|); ``sanitize``
+    demotes non-finite samples to magnitude 0 and age −1."""
+    packing.G_READS += 1
+    if sample_ids is None:
+        stride = max(1, g.shape[0] // sample_cap)
+        ids = torch.arange(0, g.shape[0], stride, device=g.device)
+        g_s = g[::stride].to(torch.float32)
+        if residual is not None:
+            g_s = g_s + residual[::stride].to(torch.float32)
+        age_s = age[::stride].to(torch.float32)
+    else:
+        ids = sample_ids
+        g_s = g.take(ids).to(torch.float32)
+        if residual is not None:
+            g_s = g_s + residual.take(ids).to(torch.float32)
+        age_s = age.take(ids).to(torch.float32)
+    age_s = age_s + jitter_from_ids(ids)
+    if sanitize:
+        fin = torch.isfinite(g_s)
+        g_s = torch.where(fin, g_s, 0.0)
+        age_s = torch.where(fin, age_s, -1.0)
+    return thresholds_from_samples(g_s.abs(), age_s, rho=rho,
+                                   k_m_frac=k_m_frac)
+
+
+def _midpoint(vals: Tensor, i, edge) -> Tensor:
+    return (vals[i] + vals[edge]) / 2.0
+
+
+def exact_thresholds(g: Tensor, age: Tensor, *, k: int, k_m: int,
+                     sanitize: bool = False) -> Tuple[Tensor, Tensor]:
+    """Order-statistic (θ_M, θ_A) that reproduce exact FAIR-k on tie-free
+    inputs: θ_M midway between the k_M-th and (k_M+1)-th largest |g|, θ_A
+    between the k_A-th and (k_A+1)-th largest jittered age of the
+    magnitude stage's complement.  ``sanitize`` ranks non-finite scores
+    below every real coordinate in both stages.  O(d log d)."""
+    packing.G_READS += 1
+    d = g.shape[0]
+    k_a = k - k_m
+    g32 = g.to(torch.float32)
+    mag = g32.abs()
+    inf = torch.full((), float("inf"), device=g.device)
+    fin = None
+    if sanitize:
+        fin = torch.isfinite(g32)
+        mag = torch.where(fin, mag, -1.0)
+    if k_m == 0:
+        theta_m = inf
+        mask_m = torch.zeros(d, dtype=torch.bool, device=g.device)
+    else:
+        vals = torch.topk(mag, min(k_m + 1, d)).values
+        theta_m = _midpoint(vals, k_m - 1, -1 if k_m >= d else k_m)
+        mask_m = mag >= theta_m
+    if k_a == 0:
+        return theta_m, inf
+    age_eff = age.to(torch.float32) + index_jitter(d, device=g.device)
+    rest = torch.where(mask_m, -float("inf"), age_eff)
+    if fin is not None:
+        rest = torch.where(fin, rest, -float("inf"))
+    vals = torch.topk(rest, min(k_a + 1, d)).values
+    return theta_m, _midpoint(vals, k_a - 1, -1 if k_a >= d else k_a)
+
+
+def exact_thresholds_dynamic(g: Tensor, age: Tensor, *, k: int, k_m,
+                             sanitize: bool = False) -> Tuple[Tensor, Tensor]:
+    """``exact_thresholds`` with a traced magnitude budget ``k_m`` (an
+    integer 0-d tensor, clipped to [0, k]): the same midpoints, gathered at
+    a data-dependent rank from one top-(k+1) per stage."""
+    packing.G_READS += 1
+    d = g.shape[0]
+    kk = min(k + 1, d)
+    km = torch.clamp(torch.as_tensor(k_m, device=g.device).to(torch.int64),
+                     0, k)
+    g32 = g.to(torch.float32)
+    mag = g32.abs()
+    fin = None
+    if sanitize:
+        fin = torch.isfinite(g32)
+        mag = torch.where(fin, mag, -1.0)
+    vals = torch.topk(mag, kk).values
+    hi = vals.take(torch.clamp(km - 1, min=0))
+    edge = vals.take(torch.clamp(km, max=kk - 1))
+    theta_m = torch.where(km == 0, float("inf"), (hi + edge) / 2.0)
+    mask_m = mag >= theta_m
+    k_a = k - km
+    age_eff = age.to(torch.float32) + index_jitter(d, device=g.device)
+    rest = torch.where(mask_m, -float("inf"), age_eff)
+    if fin is not None:
+        rest = torch.where(fin, rest, -float("inf"))
+    avals = torch.topk(rest, kk).values
+    ahi = avals.take(torch.clamp(k_a - 1, min=0))
+    aedge = avals.take(torch.clamp(k_a, max=kk - 1))
+    theta_a = torch.where(k_a == 0, float("inf"), (ahi + aedge) / 2.0)
+    return theta_m.to(torch.float32), theta_a.to(torch.float32)
 
 
 def rank_desc(x: Tensor) -> Tensor:
@@ -176,10 +352,9 @@ def budgets_for(cfg: EngineConfig, d_budget: int) -> Tuple[int, int, int]:
 
 
 class SelectionEngine:
-    """``select_and_merge`` on the exact backend, and on the packed backend
-    with fused statistics and warm-start thresholds.  ``layout`` (packed
-    only) is a ``packing.PackedLayout``; the budgets count its ``d_valid``
-    real coordinates."""
+    """``select_and_merge`` on the exact, threshold and packed backends.
+    ``layout`` (packed only) is a ``packing.PackedLayout``; the budgets
+    count its ``d_valid`` real coordinates."""
 
     def __init__(self, cfg: EngineConfig, d: int,
                  layout: Optional[packing.PackedLayout] = None):
@@ -193,32 +368,36 @@ class SelectionEngine:
             raise ValueError(
                 f"policy {cfg.policy!r} needs index arithmetic — only "
                 f"{THRESHOLD_POLICIES} run on the {cfg.backend!r} backend")
-        if cfg.backend not in ("exact", "packed"):
-            item = {"threshold": 3}.get(cfg.backend, 11)
-            raise NotImplementedError(
-                f"backend {cfg.backend!r} is "
-                + _NOT_PORTED.format(item=item))
+        if cfg.backend == "sharded":
+            raise NotImplementedError("backend 'sharded' is "
+                                      + _NOT_PORTED.format(item=11))
         if cfg.reduce_axes:
             raise NotImplementedError(
                 "reduce_axes (the sharded launch path) is "
                 + _NOT_PORTED.format(item=11))
+        if cfg.backend == "packed":
+            if layout is None:
+                raise ValueError("packed backend needs a PackedLayout")
+            if d != layout.d_packed:
+                raise ValueError(f"d={d} != layout.d_packed="
+                                 f"{layout.d_packed}")
         self.cfg = cfg
         self.d = d
         self.layout = layout
-        self.d_budget = d
-        if cfg.backend == "exact":
-            return
-        if not (cfg.fused_stats and cfg.warm_start) or cfg.exact_theta:
-            raise NotImplementedError(
-                "the packed backend runs with fused_stats=True, "
-                "warm_start=True and exact_theta=False here; the "
-                "sampled-quantile and order-statistic thresholds are "
-                + _NOT_PORTED.format(item=3))
-        if layout is None:
-            raise ValueError("packed backend needs a PackedLayout")
-        if d != layout.d_packed:
-            raise ValueError(f"d={d} != layout.d_packed={layout.d_packed}")
-        self.d_budget = layout.d_valid
+        # budgets target the real coordinates (pads are dead weight)
+        self.d_budget = layout.d_valid if layout is not None else d
+        self._ids: Dict[torch.device, Tensor] = {}
+
+    def sample_ids(self, device) -> Optional[Tensor]:
+        """The layout's valid-coordinate quantile sample as an index tensor
+        on ``device``, built once per device (None without a layout)."""
+        if self.layout is None:
+            return None
+        device = torch.device(device)
+        if device not in self._ids:
+            self._ids[device] = self.layout.sample_ids(self.cfg.sample_cap,
+                                                       device)
+        return self._ids[device]
 
     # -- budgets ------------------------------------------------------------
 
@@ -253,6 +432,32 @@ class SelectionEngine:
         return selection.select_indices(self.cfg.policy, u, g, age, k=k,
                                         k_m=k_m, r=r)
 
+    def thresholds(self, g: Tensor, age: Tensor,
+                   residual: Optional[Tensor] = None, k_m_frac=None,
+                   sanitize: bool = False) -> Tuple[Tensor, Tensor]:
+        """(θ_M, θ_A) per config: order statistics with ``exact_theta``,
+        else the strided-sample quantiles of the whole buffer.
+        ``residual`` folds into the magnitude statistic, ``k_m_frac`` (a
+        0-d tensor) overrides the static split, ``sanitize`` keeps
+        non-finite scores out of both estimates."""
+        k, k_m, _ = self.budgets()
+        if k_m_frac is None:
+            if self.cfg.exact_theta:
+                return exact_thresholds(eff_score(g, residual), age, k=k,
+                                        k_m=k_m, sanitize=sanitize)
+            rho, km_frac = self._rho_parts()
+            return sampled_thresholds(g, age, rho=rho, k_m_frac=km_frac,
+                                      sample_cap=self.cfg.sample_cap,
+                                      residual=residual, sanitize=sanitize)
+        km = self._km_traced(k_m_frac)
+        if self.cfg.exact_theta:
+            return exact_thresholds_dynamic(eff_score(g, residual), age, k=k,
+                                            k_m=km, sanitize=sanitize)
+        rho, _ = self._rho_parts()
+        return sampled_thresholds(g, age, rho=rho, k_m_frac=km_frac_of(km, k),
+                                  sample_cap=self.cfg.sample_cap,
+                                  residual=residual, sanitize=sanitize)
+
     # -- server phase --------------------------------------------------------
 
     def select_and_merge(self, g: Tensor, g_prev: Tensor, age: Tensor, *,
@@ -267,8 +472,8 @@ class SelectionEngine:
                          ) -> Tuple[Tensor, Tensor, Dict[str, Any]]:
         """One server phase: select on ``g``, merge fresh values over stale
         ``g_prev`` (Eq. 8), advance the age (Eq. 10).  Returns f32
-        ``(g_t, age', stats)``; ``stats["tstate"]`` is the successor
-        threshold state.
+        ``(g_t, age', stats)``; on the packed backend ``stats["tstate"]``
+        is the successor threshold state.
 
         ``noise``: the standard-normal (d,) draw of the channel noise
         (JAX draws it from the round's key inside the engine); with
@@ -281,16 +486,22 @@ class SelectionEngine:
         (the one-bit majority-vote signs).  ``sanitize`` keeps non-finite
         scores out of both stages; ``erase`` (> 0) demotes coordinates to
         NaN first, and needs ``sanitize``.  ``tstate`` (packed only) is
-        the carried threshold state.  The exact backend's stats carry the
-        index vector ``idx`` (without ``sanitize``), and with
-        ``fused_stats`` the counts and histograms of the packed kernel."""
+        the carried threshold state (None: bootstrap from the sampled
+        quantiles).  ``age_lag`` (async rounds, an int >= 0): the selected
+        coordinates' post-update age is ``age_lag`` instead of 0 and the
+        age histogram shifts with it; counts and noise use the selection
+        before the shift, returned as ``stats["sel_mask"]``.  The exact
+        backend's stats carry the index vector ``idx`` (without
+        ``sanitize``), and with ``fused_stats`` the counts and histograms
+        of the kernel routes."""
+        if age_lag is not None:
+            if int(age_lag) < 0:
+                raise ValueError(f"age_lag must be >= 0, got {age_lag}")
+            age_lag = int(age_lag) or None        # 0 is synchronous
         if k_m_frac is not None and self.cfg.policy != "fairk":
             raise ValueError(
                 f"traced k_m_frac adapts the FAIR-k split only — policy "
                 f"{self.cfg.policy!r} pins or ignores it")
-        if age_lag:
-            raise NotImplementedError("age_lag (async rounds) is "
-                                      + _NOT_PORTED.format(item=7))
         if tuple(g.shape) != (self.d,):
             raise ValueError(f"expected shape ({self.d},), got "
                              f"{tuple(g.shape)}")
@@ -312,14 +523,12 @@ class SelectionEngine:
                             g.to(torch.float32))
         if self.cfg.backend == "exact":
             return self._exact_update(g, g_prev, age, noise, u, residual,
-                                      fresh, sanitize, k_m_frac)
-        if tstate is None:
-            raise NotImplementedError(
-                "the packed round without a carried tstate needs the "
-                "sampled-quantile bootstrap, which is "
-                + _NOT_PORTED.format(item=3))
+                                      fresh, sanitize, k_m_frac, age_lag)
+        if self.cfg.backend == "threshold":
+            return self._threshold_update(g, g_prev, age, noise, residual,
+                                          fresh, sanitize, k_m_frac, age_lag)
         return self._packed_update(g, g_prev, age, noise, tstate, residual,
-                                   fresh, sanitize, k_m_frac)
+                                   fresh, sanitize, k_m_frac, age_lag)
 
     def _noisy(self, fresh: Tensor, noise: Optional[Tensor]) -> Tensor:
         cfg = self.cfg
@@ -328,8 +537,19 @@ class SelectionEngine:
         return (fresh.to(torch.float32)
                 + (cfg.noise_std / cfg.n_clients) * noise)
 
+    def _add_noise(self, g_t: Tensor, age_next: Tensor,
+                   noise: Optional[Tensor]) -> Tensor:
+        """The channel noise on the coordinates the fused pass selected
+        (``age' == 0``) — one masked pass after the kernel."""
+        cfg = self.cfg
+        if cfg.noise_std <= 0.0:
+            return g_t
+        sel = (age_next == 0.0).to(torch.float32)
+        return g_t + sel * (cfg.noise_std / cfg.n_clients) * noise
+
     def _exact_update(self, g, g_prev, age, noise, u, residual=None,
-                      fresh=None, sanitize=False, k_m_frac=None):
+                      fresh=None, sanitize=False, k_m_frac=None,
+                      age_lag=None):
         """Index-form selection on the score (rank form for a traced
         split), then one ``aou_merge`` launch: the merge, age step and
         residual for the selected indices (or, under ``sanitize``, the
@@ -337,7 +557,7 @@ class SelectionEngine:
         cfg = self.cfg
         k, k_m, _ = self.budgets()
         score = eff_score(g, residual)
-        fin = mask_m_s = None
+        fin = mask_m_s = mask = None
         if k_m_frac is not None:
             k_m = self._km_traced(k_m_frac)
         if not sanitize:
@@ -377,6 +597,12 @@ class SelectionEngine:
                 # their old residual
                 res_next = torch.where(fin, score - mask * sent,
                                        residual.to(torch.float32))
+        if age_lag is not None:
+            # async: the selected coordinates carry their delivery lag;
+            # the histograms below bin the shifted ages
+            age_next = packing.shift_selected_age(age_next, age_lag)
+            stats["sel_mask"] = (mask if mask is not None else
+                                 selection.mask_from_indices(idx, self.d))
         if cfg.fused_stats:
             valid = age.to(torch.float32) >= 0.0
             if fin is not None:
@@ -394,6 +620,76 @@ class SelectionEngine:
         if k_m_frac is not None:
             stats["k_m"] = k_m
         if residual is not None:
+            stats["residual"] = res_next
+        return g_t, age_next, stats
+
+    def _threshold_update(self, g, g_prev, age, noise, residual=None,
+                          fresh=None, sanitize=False, k_m_frac=None,
+                          age_lag=None):
+        """Thresholds from the sampled quantiles (or order statistics) of
+        this round's buffer, then the fused server pass."""
+        theta_m, theta_a = self.thresholds(g, age, residual=residual,
+                                           k_m_frac=k_m_frac,
+                                           sanitize=sanitize)
+        return self._server_pass(g, g_prev, age, theta_m, theta_a, noise,
+                                 residual=residual, fresh=fresh,
+                                 sanitize=sanitize, age_lag=age_lag)
+
+    def _server_pass(self, g, g_prev, age, theta_m, theta_a, noise, *,
+                     residual, fresh, sanitize, age_lag, tstate=None,
+                     count_m=False):
+        """The server pass of the threshold and packed backends at given
+        (θ_M, θ_A): one ``fairk_update`` launch, the counts, the channel
+        noise on the selection and the async lag shift -> ``(g_t, age',
+        stats)``.  With ``fused_stats`` the counts and histograms are the
+        kernel's; without, ``n_selected`` counts the reset ages (pads keep
+        the negative sentinel) and ``count_m`` adds the magnitude-stage
+        count ``n_sel_m``, a second read of (g, residual).  Counts and
+        noise use the selection before the lag shift, returned as
+        ``stats["sel_mask"]``."""
+        cfg = self.cfg
+        if cfg.fused_stats:
+            g_t, age_next, res_next, kstats = ops.fairk_stats_update(
+                g, g_prev, age, theta_m, theta_a, residual=residual,
+                fresh=fresh, mode=cfg.kernel_mode, sanitize=sanitize)
+            n_sel = kstats["n_sel"]
+            counts = {key: kstats[key]
+                      for key in ("n_sel_m", "mag_hist", "age_hist")}
+            if sanitize and tstate is not None:
+                # a fully erased round emits empty histograms; substitute
+                # the truth (nothing refreshed: ages advance one bin,
+                # magnitudes unobserved) so the next round does not read
+                # them as the cold-start full-refresh signal
+                keep = ((counts["age_hist"].sum() <= 0.0)
+                        & (tstate["init"] > 0.0))
+                counts["mag_hist"] = torch.where(keep, tstate["mag_hist"],
+                                                 counts["mag_hist"])
+                counts["age_hist"] = torch.where(
+                    keep, packing.advance_age_hist(tstate["age_hist"]),
+                    counts["age_hist"])
+        else:
+            g_t, age_next, res_next = ops.fairk_ef_update(
+                g, g_prev, age, theta_m, theta_a, residual=residual,
+                fresh=fresh, mode=cfg.kernel_mode, sanitize=sanitize)
+            # selected coordinates are exactly the age-reset ones (Eq. 10)
+            sel = (age_next == 0.0).to(torch.float32)
+            n_sel = sel.sum()
+            counts = {}
+            if count_m:
+                packing.G_READS += 1
+                counts["n_sel_m"] = (
+                    sel * (eff_score(g, residual).abs() >= theta_m)).sum()
+        g_t = self._add_noise(g_t, age_next, noise)
+        stats = {"theta_m": theta_m, "theta_a": theta_a,
+                 "n_selected": n_sel, "k": self.budgets()[0], **counts}
+        if age_lag is not None:
+            # the carried buffer and histogram record the delivery lag
+            stats["sel_mask"] = (age_next == 0.0).to(torch.float32)
+            age_next = packing.shift_selected_age(age_next, age_lag)
+            if "age_hist" in stats:
+                stats["age_hist"] = packing.shift_age_hist(
+                    stats["age_hist"], age_lag)
+        if res_next is not None:
             stats["residual"] = res_next
         return g_t, age_next, stats
 
@@ -442,40 +738,115 @@ class SelectionEngine:
         return torch.where(on_track & pred_ok, tstate["streak"] + 1.0,
                            torch.zeros_like(tstate["streak"]))
 
-    def _packed_update(self, g, g_prev, age, noise, tstate, residual=None,
-                       fresh=None, sanitize=False, k_m_frac=None):
-        """One fused FAIR-k pass over the whole packed buffer: the round's
-        only read of (g, residual)."""
+    def _packed_thresholds(self, g, age, tstate, residual=None,
+                           k_m_frac=None, sanitize=False):
+        """(θ_M, θ_A, streak') for a packed buffer: order statistics with
+        ``exact_theta``; the carried statistics alone with ``fused_stats``
+        and ``warm_start`` (``_stats_thresholds``); else the pad-excluding
+        sampled quantiles, and — with ``warm_start`` and a carried state —
+        the warm-corrected thresholds instead once the trust gates hold.
+
+        The reference skips the quantile pass at run time on warm rounds
+        (``lax.cond``).  Here both are computed and one is chosen with
+        ``torch.where``: no host sync, and the pass is paid every round."""
         cfg = self.cfg
-        k, _, _ = self.budgets()
-        # the fused-stats warm branch of the reference's _packed_thresholds
-        theta_m, theta_a, streak = self._stats_thresholds(tstate, k_m_frac)
-        g_t, age_next, res_next, kstats = ops.fairk_stats_update(
-            g, g_prev, age, theta_m, theta_a, residual=residual,
-            fresh=fresh, mode=cfg.kernel_mode, sanitize=sanitize)
-        n_sel, n_sel_m = kstats["n_sel"], kstats["n_sel_m"]
-        mag_hist, age_hist = kstats["mag_hist"], kstats["age_hist"]
-        if sanitize:
-            # a fully erased round emits empty histograms; substitute the
-            # truth (nothing refreshed: ages advance one bin, magnitudes
-            # unobserved) so the next round does not read them as the
-            # cold-start full-refresh signal
-            keep = (age_hist.sum() <= 0.0) & (tstate["init"] > 0.0)
-            mag_hist = torch.where(keep, tstate["mag_hist"], mag_hist)
-            age_hist = torch.where(
-                keep, packing.advance_age_hist(tstate["age_hist"]), age_hist)
-        if cfg.noise_std > 0.0:
-            sel = (age_next == 0.0).to(torch.float32)
-            g_t = g_t + sel * (cfg.noise_std / cfg.n_clients) * noise
-        one = torch.ones((), dtype=torch.float32, device=g.device)
-        tstate_next = {"theta_m": theta_m, "theta_a": theta_a,
-                       "n_sel_m": n_sel_m, "n_sel": n_sel, "init": one,
-                       "streak": streak, "mag_hist": mag_hist,
-                       "age_hist": age_hist}
-        stats = {"theta_m": theta_m, "theta_a": theta_a,
-                 "n_selected": n_sel, "k": k, "tstate": tstate_next,
-                 "n_sel_m": n_sel_m, "mag_hist": mag_hist,
-                 "age_hist": age_hist}
-        if res_next is not None:
-            stats["residual"] = res_next
+        k, k_m, _ = self.budgets()
+        streak = torch.zeros((), dtype=torch.float32, device=g.device)
+        if cfg.exact_theta:
+            # pads (|g| = 0, age + jitter < 0) never enter either top-k
+            if k_m_frac is not None:
+                return (*exact_thresholds_dynamic(
+                    eff_score(g, residual), age, k=k,
+                    k_m=self._km_traced(k_m_frac), sanitize=sanitize),
+                        streak)
+            return (*exact_thresholds(eff_score(g, residual), age, k=k,
+                                      k_m=k_m, sanitize=sanitize), streak)
+        if cfg.fused_stats and cfg.warm_start and tstate is not None:
+            return self._stats_thresholds(tstate, k_m_frac)
+        rho, km_frac = self._rho_parts()
+        if k_m_frac is not None:
+            k_m = self._km_traced(k_m_frac)
+            km_frac = km_frac_of(k_m, k)
+        tm, ta = sampled_thresholds(
+            g, age, rho=rho, k_m_frac=km_frac, sample_cap=cfg.sample_cap,
+            sample_ids=self.sample_ids(g.device), residual=residual,
+            sanitize=sanitize)
+        if not (cfg.warm_start and tstate is not None):
+            return tm, ta, streak
+        pred_tm, pred_ta = packing.warm_corrected_thresholds(
+            tstate, k=k, k_m=k_m, alpha=cfg.warm_alpha, clip=cfg.warm_clip)
+        on_track = self._on_track(tstate, k)
+        use_warm = on_track & (tstate["streak"] >= cfg.warm_streak)
+        tm = torch.where(use_warm, pred_tm, tm)
+        ta = torch.where(use_warm, pred_ta, ta)
+        streak = self._streak_update(tstate, on_track, tm, ta, pred_tm,
+                                     pred_ta)
+        return tm, ta, streak
+
+    def _packed_update(self, g, g_prev, age, noise, tstate, residual=None,
+                       fresh=None, sanitize=False, k_m_frac=None,
+                       age_lag=None):
+        """One fused FAIR-k pass over the whole packed buffer, and the
+        successor threshold state in ``stats["tstate"]``.  With
+        ``fused_stats`` the pass is the round's only read of (g,
+        residual): the kernel emits the counts and histograms.  Without,
+        the legacy two-pass accounting, whose histograms are zeros."""
+        cfg = self.cfg
+        theta_m, theta_a, streak = self._packed_thresholds(
+            g, age, tstate, residual, k_m_frac, sanitize)
+        g_t, age_next, stats = self._server_pass(
+            g, g_prev, age, theta_m, theta_a, noise, residual=residual,
+            fresh=fresh, sanitize=sanitize, age_lag=age_lag, tstate=tstate,
+            count_m=True)
+
+        def carried(key, n):
+            if cfg.fused_stats:
+                return stats[key]
+            return torch.zeros(n, dtype=torch.float32, device=g.device)
+        stats["tstate"] = {
+            "theta_m": theta_m, "theta_a": theta_a,
+            "n_sel_m": (stats["n_sel_m"] if cfg.fused_stats
+                        else stats.pop("n_sel_m")),
+            "n_sel": stats["n_selected"],
+            "init": torch.ones((), dtype=torch.float32, device=g.device),
+            "streak": streak,
+            "mag_hist": carried("mag_hist", packing.STATS_MAG_BINS),
+            "age_hist": carried("age_hist", packing.STATS_AGE_BINS)}
         return g_t, age_next, stats
+
+    def select_and_merge_tree(self, g_tree, g_prev_tree, age_tree, *,
+                              noise: Optional[Tensor] = None,
+                              tstate: Optional[Dict[str, Tensor]] = None,
+                              residual: Optional[Tensor] = None,
+                              k_m_frac=None, sanitize: bool = False):
+        """Tree form of the packed backend: pack (g, g_prev, age), run the
+        fused pass, unpack ``(g_t, age')`` as float32 trees -> ``(g_t_tree,
+        age_tree', stats)``.  ``residual`` is a flat ``(d_packed,)``
+        buffer (carried flat across rounds); its successor stays flat in
+        ``stats["residual"]``."""
+        lay = self.layout
+        if lay is None:
+            raise ValueError("select_and_merge_tree needs the packed "
+                             "backend (construct with layout=...)")
+        g = lay.pack(g_tree)
+        gp = lay.pack(g_prev_tree)
+        ag = lay.pack_age(age_tree)
+        g_t, age_next, stats = self._packed_update(
+            g, gp, ag, noise, tstate, residual, k_m_frac=k_m_frac,
+            sanitize=sanitize)
+        return (lay.unpack(g_t, cast=False), lay.unpack(age_next, cast=False),
+                stats)
+
+
+def make_engine(policy: str = "fairk", backend: str = "exact", *,
+                d: Optional[int] = None,
+                layout: Optional[packing.PackedLayout] = None,
+                **cfg_kw) -> SelectionEngine:
+    """Engine from a policy and backend name; ``d`` may be omitted when
+    ``layout`` pins it (``layout.d_packed``)."""
+    if d is None:
+        if layout is None:
+            raise ValueError("make_engine needs d (or a layout)")
+        d = layout.d_packed
+    return SelectionEngine(EngineConfig(policy=policy, backend=backend,
+                                        **cfg_kw), d, layout=layout)

@@ -1,34 +1,52 @@
-"""Packed server state: constants, the statistics-histogram spec and the
-warm-start threshold state (the subset of ``repro.core.packing`` that the
-FL round on the packed backend needs).
+"""Packed server state: the whole parameter tree as one flat buffer, the
+statistics-histogram spec, the async age bookkeeping and the warm-start
+threshold state (``repro.core.packing``).
 
-The FL trainer lays its flat ``(d,)`` server vector out as a single-leaf
-packed layout with ``lane=1`` (``d_valid == d_packed == d``, no pads).
-The multi-leaf lane-aligned layout with interior pads belongs to the
-launch path and is not ported yet (ROADMAP Queue 1).  The threshold
-estimators take the adaptive controller's traced split as a 0-d tensor.
+``PackedLayout`` lays every leaf of a parameter tree (nested dicts of
+tensors, flattened in ``jax.tree_util`` order by ``repro_torch.tree``)
+into ONE contiguous buffer: each leaf starts at a multiple of ``lane``
+(256, the fused kernel's tile quantum) and is followed by ``pad`` dead
+coordinates up to the next multiple.  The block table is static Python
+data, so ``pack`` is one ``torch.cat`` over the leaves and the pad fills
+and ``unpack`` returns views.  The FL trainer's flat ``(d,)`` server
+vector is the one-leaf layout with ``lane=1`` (no pads).
 
-Padding protocol (kept by the kernels): pad coordinates carry
-``age = PAD_AGE`` (-1); real ages are >= 0, so ``age < 0`` marks a pad
-everywhere downstream — never selected, age passed through, weight zero
-in the histograms.
+Padding protocol (kept by the kernels): pad coordinates carry ``g = 0``
+and ``age = PAD_AGE`` (-1); real ages are >= 0, so ``age < 0`` marks a
+pad everywhere downstream — never selected, age, ``g_prev`` and residual
+passed through, weight zero in the histograms; the sampled-quantile
+thresholds sample only valid coordinates (``PackedLayout.sample_ids``).
+The threshold estimators take the adaptive controller's traced split as
+a 0-d tensor.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import dataclasses
+from math import prod
+from typing import Any, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch import tree as tree_util
+from repro_torch.core import oac
+from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 
 PAD_AGE = -1.0
-# staleness clip applied by every age update (int8 server state headroom)
+# staleness clip applied by every age update (int8 server state headroom,
+# with room for an async lag shift on top)
 AGE_CAP = 120.0
 LANE = 256
 
-# count of full read passes over the gradient buffer a run makes (the
-# fused kernel is the only one on the packed round)
+# counters of the structural claims (``benchmarks/torch_packed_bench.py
+# --smoke``): tree copies into and out of the packed buffer, and full read
+# passes over the gradient buffer (the fused kernel, the sampled-quantile
+# and order-statistic estimators and the legacy count pass each add one)
+PACK_CALLS = 0
+UNPACK_CALLS = 0
 G_READS = 0
 
 # --- in-kernel selection statistics: histogram spec --------------------
@@ -42,16 +60,132 @@ MAG_LO_OCT = -24.0
 STATS_SAMPLE_CAP = 1 << 15
 
 
-class PackedLayout:
-    """Static packed layout over leaves of the given sizes: each leaf
-    starts at a multiple of ``lane`` and pads to it, so ``d_packed`` counts
-    the buffer and ``d_valid`` the real coordinates the budgets draw on.
-    The FL trainer uses one leaf with ``lane=1``."""
+@dataclasses.dataclass(frozen=True)
+class BlockEntry:
+    """One leaf's slot in the packed buffer."""
+    index: int                  # position in the flattened leaf list
+    offset: int                 # start in the packed buffer (lane-aligned)
+    size: int                   # real coordinates
+    pad: int                    # dead coordinates after the leaf
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
-    def __init__(self, sizes: Sequence[int], lane: int = LANE):
+
+class PackedLayout:
+    """Static packed layout of a parameter tree: ``d_packed`` counts the
+    buffer, ``d_valid`` the real coordinates the budgets draw on,
+    ``n_leaves`` the block table's entries."""
+
+    def __init__(self, paths: Sequence[tree_util.Path],
+                 entries: Sequence[BlockEntry], lane: int = LANE):
+        self.paths = tuple(paths)
+        self.table: Tuple[BlockEntry, ...] = tuple(entries)
         self.lane = lane
-        self.d_valid = sum(int(n) for n in sizes)
-        self.d_packed = sum(-(-int(n) // lane) * lane for n in sizes)
+        last = self.table[-1] if self.table else None
+        self.d_packed = last.offset + last.size + last.pad if last else 0
+        self.d_valid = sum(e.size for e in self.table)
+        self.n_leaves = len(self.table)
+        self._fills: Dict[Any, Tensor] = {}
+
+    @classmethod
+    def from_tree(cls, tree: Any, lane: int = LANE) -> "PackedLayout":
+        """The layout of a tree whose leaves have ``shape`` and ``dtype``
+        (tensors, ``meta`` tensors included, or numpy arrays)."""
+        paths, entries, offset = [], [], 0
+        for i, (path, leaf) in enumerate(tree_util.leaves(tree)):
+            shape = tuple(int(n) for n in leaf.shape)
+            size = prod(shape)
+            padded = -(-size // lane) * lane
+            dtype = (leaf.dtype if isinstance(leaf.dtype, torch.dtype)
+                     else torch.from_numpy(np.zeros(0, leaf.dtype)).dtype)
+            entries.append(BlockEntry(i, offset, size, padded - size, shape,
+                                      dtype))
+            paths.append(path)
+            offset += padded
+        return cls(paths, entries, lane)
+
+    # -- pack / unpack ------------------------------------------------------
+
+    def _fill(self, fill: float, dtype: torch.dtype, device) -> Tensor:
+        """A cached run of ``fill`` as long as the longest pad: every pad
+        slot of ``pack`` is a view of it."""
+        key = (fill, dtype, torch.device(device))
+        buf = self._fills.get(key)
+        if buf is None:
+            n = max((e.pad for e in self.table), default=0)
+            buf = torch.full((n,), fill, dtype=dtype, device=device)
+            self._fills[key] = buf
+        return buf
+
+    def pack(self, tree: Any, dtype: torch.dtype = torch.float32,
+             fill: float = 0.0) -> Tensor:
+        """Tree -> ``(d_packed,)`` buffer of ``dtype``: one ``torch.cat``
+        over the flattened leaves, with ``fill`` in the pads."""
+        global PACK_CALLS
+        PACK_CALLS += 1
+        leaves = [leaf for _, leaf in tree_util.leaves(tree)]
+        if len(leaves) != self.n_leaves:
+            raise ValueError(f"tree has {len(leaves)} leaves, the layout "
+                             f"{self.n_leaves}")
+        device = leaves[0].device
+        pads = self._fill(fill, dtype, device)
+        parts = []
+        for e, leaf in zip(self.table, leaves):
+            parts.append(leaf.reshape(-1).to(dtype))
+            if e.pad:
+                parts.append(pads[:e.pad])
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def pack_age(self, tree: Any, dtype: torch.dtype = torch.float32
+                 ) -> Tensor:
+        """Age tree -> flat buffer with ``PAD_AGE`` in the pads."""
+        return self.pack(tree, dtype=dtype, fill=PAD_AGE)
+
+    def unpack(self, flat: Tensor, cast: bool = True) -> Any:
+        """``(d_packed,)`` buffer -> tree of the leaves' shapes (views of
+        ``flat``; with ``cast`` in the leaves' dtypes, a copy where the
+        dtype differs)."""
+        global UNPACK_CALLS
+        UNPACK_CALLS += 1
+        out = []
+        for e in self.table:
+            leaf = flat[e.offset:e.offset + e.size].view(e.shape)
+            out.append(leaf.to(e.dtype) if cast else leaf)
+        return tree_util.unflatten(self.paths, out)
+
+    # -- pad bookkeeping ----------------------------------------------------
+
+    def _valid_np(self) -> np.ndarray:
+        mask = np.zeros(self.d_packed, bool)
+        for e in self.table:
+            mask[e.offset:e.offset + e.size] = True
+        return mask
+
+    def valid_mask(self, device: DeviceLike = None) -> Tensor:
+        """``(d_packed,)`` bool: True on real coordinates (on the card
+        unless ``device`` says otherwise)."""
+        return torch.from_numpy(self._valid_np()).to(resolve_device(device))
+
+    def init_age(self, dtype: torch.dtype = torch.int8,
+                 device: DeviceLike = None) -> Tensor:
+        """Fresh age buffer: 0 on valid coordinates, ``PAD_AGE`` in pads."""
+        age = np.where(self._valid_np(), np.float32(0.0),
+                       np.float32(PAD_AGE))
+        return torch.from_numpy(age).to(device=resolve_device(device),
+                                        dtype=dtype)
+
+    def sample_ids(self, cap: int, device: DeviceLike = None) -> Tensor:
+        """int64 packed positions of an even strided sample over the VALID
+        coordinates only (every ``d_valid // cap``-th valid coordinate):
+        pad zeros in the sample would bias θ_M low.  Computed per sampled
+        coordinate, without listing the valid ones."""
+        stride = max(1, self.d_valid // max(1, cap))
+        v = np.arange(0, self.d_valid, stride, dtype=np.int64)
+        starts = np.cumsum([0] + [e.size for e in self.table])[:-1]
+        offsets = np.array([e.offset for e in self.table], np.int64)
+        leaf = np.searchsorted(starts, v, side="right") - 1
+        return torch.from_numpy(offsets[leaf] + (v - starts[leaf])).to(
+            resolve_device(device))
 
 
 def hist_stride(d: int) -> int:
@@ -73,6 +207,28 @@ def mag_bin(mag: Tensor) -> Tensor:
 def age_bin(age: Tensor) -> Tensor:
     """f32 age -> f32 unit bin index (exact for integer ages <= AGE_CAP)."""
     return torch.clamp(torch.floor(age), 0.0, STATS_AGE_BINS - 1)
+
+
+def shift_selected_age(age_next: Tensor, lag) -> Tensor:
+    """Async rounds: the just-selected coordinates (the ``age == 0`` ones
+    of a POST-merge age vector) carry their delivery lag ``lag`` instead of
+    0; other ages and pads pass through; clipped at ``AGE_CAP``.  ``lag =
+    0`` is the identity."""
+    a = age_next.to(torch.float32)
+    sel = (a == 0.0).to(torch.float32)
+    return torch.clamp(a + sel * float(lag), max=AGE_CAP)
+
+
+def shift_age_hist(age_hist: Tensor, lag: int) -> Tensor:
+    """The histogram of ``shift_selected_age``: bin 0's mass moves to bin
+    ``lag`` (clipped to the top bin).  ``lag <= 0`` returns the input."""
+    if lag <= 0:
+        return age_hist
+    b = min(int(lag), STATS_AGE_BINS - 1)
+    out = age_hist.to(torch.float32).clone()
+    out[b] += out[0]
+    out[0] = 0.0
+    return out
 
 
 def advance_age_hist(age_hist: Tensor) -> Tensor:
@@ -161,6 +317,17 @@ def init_threshold_state(device) -> Dict[str, Tensor]:
                                     device=device)}
 
 
+def _pow(x: Tensor, alpha: float) -> Tensor:
+    """``x ** alpha`` as the compiled reference computes it: XLA computes
+    an array's power 0.5 as the correctly rounded square root.  Taken in
+    float64 and rounded once: ``torch.pow`` at 0.5, and ``torch.sqrt`` of
+    a float32 on the CPU, differ from it in the last place on about 1% of
+    values."""
+    if alpha == 0.5:
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return x ** alpha
+
+
 def warm_corrected_thresholds(ts: Dict[str, Tensor], *, k: int, k_m,
                               alpha: float = 0.5, clip: float = 2.0,
                               max_age_step: float = 0.5
@@ -171,13 +338,15 @@ def warm_corrected_thresholds(ts: Dict[str, Tensor], *, k: int, k_m,
     error of the age stage.  Degenerate stages (k_m = 0 or k_a = 0) give
     θ = inf; an infinite carried θ passes through.  ``k_m`` is an int, or
     a 0-d tensor (the traced split): then the same corrections with the
-    degenerate stages as ``where``s on data."""
+    degenerate stages as ``where``s on data.  With a static ``k_m`` the
+    divisions by ``k_m`` and ``k_a`` are products with their float32
+    reciprocals, as the compiled reference computes them."""
     device = ts["theta_m"].device
     if isinstance(k_m, Tensor):
         k_m_f = k_m.to(torch.float32)
         k_a_f = k - k_m_f
-        f_m = torch.clamp((torch.clamp(ts["n_sel_m"], min=1.0)
-                           / torch.clamp(k_m_f, min=1.0)) ** alpha,
+        f_m = torch.clamp(_pow(torch.clamp(ts["n_sel_m"], min=1.0)
+                               / torch.clamp(k_m_f, min=1.0), alpha),
                           1.0 / clip, clip)
         theta_m = torch.where(
             k_m_f > 0.0,
@@ -194,15 +363,17 @@ def warm_corrected_thresholds(ts: Dict[str, Tensor], *, k: int, k_m,
     inf = torch.full((), float("inf"), device=device)
     k_a = k - k_m
     if k_m > 0:
-        f_m = torch.clamp((torch.clamp(ts["n_sel_m"], min=1.0) / k_m)
-                          ** alpha, 1.0 / clip, clip)
+        f_m = torch.clamp(_pow(torch.clamp(ts["n_sel_m"], min=1.0)
+                               * oac.reciprocal(k_m), alpha),
+                          1.0 / clip, clip)
         theta_m = torch.where(torch.isinf(ts["theta_m"]), ts["theta_m"],
                               ts["theta_m"] * f_m)
     else:
         theta_m = inf
     if k_a > 0:
         n_a = ts["n_sel"] - ts["n_sel_m"]
-        step = torch.clamp((n_a - k_a) / k_a, -1.0, 1.0) * max_age_step
+        step = torch.clamp((n_a - k_a) * oac.reciprocal(k_a), -1.0,
+                           1.0) * max_age_step
         theta_a = torch.where(torch.isinf(ts["theta_a"]), ts["theta_a"],
                               ts["theta_a"] + step)
     else:

@@ -14,15 +14,18 @@ round from their own staleness histogram; static lanes carry theirs
 through untouched.
 
 Each round's Eq. 8 merge and Eq. 10 age step over all lanes is ONE
-mask-form ``aou_merge`` launch on the flattened (lanes·d) block.
+mask-form ``aou_merge`` launch on the flattened (lanes·d) block; with
+``async_lag`` the selected ages then shift to the lag
+(``packing.shift_selected_age``) and the controller's age target moves
+with it.
 
 Randomness: the lanes' draws — the client optima ``w_stars`` (lanes, N, d)
 and, per round, the Rayleigh fading ``h`` (N,), the standard-normal noise
 ``z`` (d,) and the uniform ``u`` (d,) of the randk lanes — are given as
 tensors (``draws``), or come from one ``torch.Generator`` per seed (lanes
 with the same seed share their draws, as the reference's lanes share their
-key).  The fault, population and wireless scenario lanes and async lag are
-not ported yet.
+key).  The fault, population and wireless scenario lanes are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import controller as budget
-from repro_torch.core import oac
+from repro_torch.core import oac, packing
 from repro_torch.core.engine import (fair_k_mask_dynamic, km_frac_of,
                                      traced_km)
 from repro_torch.device import DeviceLike, resolve_device
@@ -95,8 +98,7 @@ def check_supported(cfg: SweepConfig) -> None:
     for bad, what, item in (
             (cfg.faults is not None, "fault injection", 8),
             (cfg.population is not None, "the client population", 8),
-            (cfg.wireless is not None, "the wireless channel", 8),
-            (cfg.async_lag != 0, "async_lag", 7)):
+            (cfg.wireless is not None, "the wireless channel", 8)):
         if bad:
             raise NotImplementedError(f"{what} in the sweep "
                                       + _NOT_PORTED.format(item=item))
@@ -216,6 +218,10 @@ def _one_round(cfg: SweepConfig, ctrl: budget.BudgetController, carry,
         (agg + noise).reshape(-1), g_prev.reshape(-1), age.reshape(-1),
         mask.reshape(-1), mode=kernel_mode)
     g_t, age_next = g_flat.view(lanes, d), age_flat.view(lanes, d)
+    if cfg.async_lag:
+        # async lanes: the selected contributions land async_lag rounds
+        # late
+        age_next = packing.shift_selected_age(age_next, cfg.async_lag)
     w_next = w - cfg.global_lr * g_t                             # Eq. (9)
     if adapt is not None:
         # the controller step on the adaptive lanes; static lanes carry
@@ -263,7 +269,8 @@ def run_grid(cfg: SweepConfig, seeds, policy_ids, k_ms, adaptives,
                         device=dev)
     cs = budget.init_controller_state(km_frac_of(k_m0, cfg.k), dev)
     carry = (zeros, zeros, zeros, zeros, cs, draws["w_stars"])
-    ctrl = budget.BudgetController(cfg.controller, rho=cfg.rho)
+    ctrl = budget.BudgetController(cfg.controller, rho=cfg.rho,
+                                   age_offset=float(cfg.async_lag))
     metrics = []
     for t in range(cfg.rounds):
         carry, m = _one_round(cfg, ctrl, carry, draws["h"][:, t],

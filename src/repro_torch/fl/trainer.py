@@ -1,5 +1,5 @@
-"""OAC-FL training loop (paper Algorithm 1) on the exact and packed
-backends.
+"""OAC-FL training loop (paper Algorithm 1) on the exact, threshold and
+packed backends.
 
 One round: every client runs ``H`` local SGD steps (Eq. 4) and returns
 its accumulated gradient (Eq. 5); the clients stream through the round in
@@ -18,12 +18,14 @@ accumulator, so the (N, d) matrix is never live.
   coherent receiver tail (noise and 1/N), the Eq. 8 scatter, the
   index-form Eq. 10, the participation count and client-side error
   feedback, and the model step (Eq. 9) ends the round.
-* ``packed``: the coherent uplink superposes the faded gradients over all
-  d coordinates; the one-bit uplink folds each chunk's votes with
-  ``ops.vote_fold`` and detects with one ``sign_from_energy`` launch
-  (noise, signs and the selection score); then one fused FAIR-k
+* ``threshold`` and ``packed``: the coherent uplink superposes the faded
+  gradients over all d coordinates; the one-bit uplink folds each chunk's
+  votes with ``ops.vote_fold`` and detects with one ``sign_from_energy``
+  launch (noise, signs and the selection score); then one fused FAIR-k
   pass (``fairk_update`` kernel) selects, merges and advances the age,
-  with server-side error feedback.
+  with server-side error feedback, and emits the counts and histograms.
+  ``threshold`` takes (θ_M, θ_A) from this round's sampled quantiles,
+  ``packed`` from the carried statistics (round 0 is a full refresh).
 
 Adaptive split (``adaptive_km=True``, or the ``fairk_auto`` alias): the
 FAIR-k split ``k_m_frac`` is the carried controller state's live value (a
@@ -35,13 +37,22 @@ controller reads the post-update age histogram (``ref.strided_hists_ref``).
 Packed: the traced split goes into the engine's statistics thresholds, and
 the controller reads the kernel's age and magnitude histograms.
 
+Async rounds (``async_lag`` > 0): the selected coordinates' contribution
+lands ``async_lag`` rounds late, so their post-update age is the lag
+instead of 0 (``packing.shift_selected_age``, after the exact route's
+``aou_merge`` launch, inside the engine on the others), and the
+controller's age target moves by the same constant.  ``scan_rounds`` > 1
+runs the rounds in chunks cut at eval rounds, each chunk's client batches
+staged in one pinned host buffer and sent in one copy; it walks the
+per-round loop's trajectory bit for bit.
+
 Randomness: PyTorch cannot reproduce JAX's threefry streams, so a round
 takes its draws as tensors (``draw_round``): the fading ``h`` (N,) on the
 coherent uplink, the standard-normal channel noise ``z`` — (d,) on the
-packed backend, (k,) on the exact one — and, for ``toprand`` / ``randk``,
-the uniform selection draw ``u`` (d,).  ``train`` draws them from a
-``torch.Generator`` seeded with ``fl.seed``; the tests hand both packages
-the same numbers.
+threshold and packed backends, (k,) on the exact one — and, for
+``toprand`` / ``randk``, the uniform selection draw ``u`` (d,).
+``train`` draws them from a ``torch.Generator`` seeded with ``fl.seed``;
+the tests hand both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -79,18 +90,21 @@ class FLConfig:
     global_lr: float = 0.01         # eta
     rounds: int = 200
     policy: str = "fairk"
-    backend: str = "exact"          # "exact" | "packed" are ported
+    backend: str = "exact"          # "exact" | "threshold" | "packed"
     compression_ratio: float = 0.1  # rho = k / d
     k_m_frac: float = 0.75          # k_M / k
     r_frac: float = 1.5
     channel: ChannelConfig = oac.PAPER_DEFAULT
     one_bit: bool = False           # FSK-MV prototype uplink (Sec. V-B)
     error_feedback: bool = False    # client-side on exact, server-side on
-                                    # packed (one-bit: client-side too)
+                                    # threshold/packed (one-bit:
+                                    # client-side too)
     adaptive_km: bool = False       # the adaptive split; "fairk_auto"
                                     # is an alias
-    async_lag: int = 0
-    scan_rounds: int = 0
+    async_lag: int = 0              # rounds a selected contribution
+                                    # lands late (0: synchronous)
+    scan_rounds: int = 0            # rounds per staged chunk (0/1: per
+                                    # round)
     controller: budget.ControllerConfig = budget.ControllerConfig()
     faults: Any = None
     watchdog: Any = None
@@ -126,11 +140,14 @@ class ServerState:
 
 
 def check_supported(fl: FLConfig) -> None:
-    """Raise ``NotImplementedError`` for any setting outside the slice."""
+    """Raise ``ValueError`` for an unknown backend or a negative lag, and
+    ``NotImplementedError`` for the scenario layers not ported yet."""
+    if fl.backend not in ("exact", "threshold", "packed"):
+        raise ValueError(f"FLConfig.backend must be exact|threshold|packed, "
+                         f"got {fl.backend!r}")
+    if fl.async_lag < 0:
+        raise ValueError(f"async_lag must be >= 0, got {fl.async_lag}")
     unsupported = [
-        (fl.backend not in ("exact", "packed"),
-         f"backend {fl.backend!r} " + _NOT_PORTED.format(
-             item={"threshold": 3}.get(fl.backend, 11))),
         (fl.faults is not None, "fault injection "
          + _NOT_PORTED.format(item=8)),
         (fl.watchdog is not None, "the watchdog "
@@ -139,8 +156,6 @@ def check_supported(fl: FLConfig) -> None:
          + _NOT_PORTED.format(item=8)),
         (fl.wireless is not None, "the wireless channel "
          + _NOT_PORTED.format(item=8)),
-        (fl.async_lag != 0, "async_lag " + _NOT_PORTED.format(item=7)),
-        (fl.scan_rounds > 1, "scan_rounds " + _NOT_PORTED.format(item=7)),
     ]
     for bad, what in unsupported:
         if bad:
@@ -182,25 +197,31 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                          f"[1, n_clients] and divide n_clients={n}")
     k, k_m, r = fl.budgets(d)
     exact = fl.backend == "exact"
+    packed = fl.backend == "packed"
+    age_lag = fl.async_lag or None
     policy_name = "fairk" if fl.policy == "fairk_auto" else fl.policy
     engine = SelectionEngine(
         EngineConfig(policy=policy_name, backend=fl.backend, k=k, k_m=k_m,
                      r=r,
                      # the exact round adds the channel noise to the (k,)
                      # aggregate, the one-bit uplink to the vote energy:
-                     # engine noise only on the packed coherent round
+                     # engine noise only on the threshold/packed coherent
+                     # round
                      noise_std=(0.0 if fl.one_bit or exact
                                 else fl.channel.noise_std),
                      n_clients=n, kernel_mode=kernel_mode,
-                     fused_stats=not exact, warm_start=not exact), d,
-        layout=None if exact else packing.PackedLayout([d], lane=1))
+                     fused_stats=not exact, warm_start=packed), d,
+        # the flat (d,) server vector: the one-leaf layout, no pads
+        layout=(packing.PackedLayout.from_tree(
+            torch.empty(d, device="meta"), lane=1) if packed else None))
     frac_static = k_m / k if k else 0.0
     bctrl = (budget.BudgetController(fl.controller,
-                                     rho=fl.compression_ratio)
+                                     rho=fl.compression_ratio,
+                                     age_offset=float(fl.async_lag))
              if adaptive else None)
     # client-side error feedback: the exact round (both uplinks) and the
-    # packed one-bit round; the packed coherent round folds the residual
-    # into the fused server pass instead
+    # threshold/packed one-bit round; their coherent round folds the
+    # residual into the fused server pass instead
     client_ef = fl.error_feedback and (exact or fl.one_bit)
 
     def flat_loss(w_flat: Tensor, x: Tensor, y: Tensor) -> Tensor:
@@ -294,6 +315,10 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                 mode=kernel_mode))
         if fl.error_feedback:
             residual = ef_res
+        if age_lag:
+            # async: the refreshed coordinates' contribution lands age_lag
+            # rounds late (one elementwise pass after the launch)
+            age_next = packing.shift_selected_age(age_next, age_lag)
         if adaptive:
             # no kernel emits statistics on the exact round: the age
             # histogram comes from the plain helper (no magnitude one)
@@ -308,8 +333,10 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                             residual, tstate, draws, idx=None, cstate=None):
         """One-bit detection, the fused FAIR-k pass (which selects: no
         ``idx``), the EF residual, the controller step and the model
-        step."""
+        step (the threshold and packed backends; only the packed one reads
+        and returns the carried ``tstate``)."""
         kmf = kmf_of(cstate)
+        ts = tstate if packed else None
         if fl.one_bit:
             # one sign_from_energy launch: the noise noise_std·z, the
             # signs and the score |energy| + index jitter (noiseless
@@ -319,18 +346,22 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                 agg, z=draws.get("z"), noise_std=fl.channel.noise_std,
                 score=True, mode=kernel_mode)
             g_t, age_next, stats = engine.select_and_merge(
-                score, g_prev, age, fresh=fresh_sign, tstate=tstate,
-                k_m_frac=kmf)
-            sel_mask = (age_next == 0.0).to(torch.float32)
+                score, g_prev, age, fresh=fresh_sign, tstate=ts,
+                k_m_frac=kmf, age_lag=age_lag)
+            # async rounds shift the refreshed ages, so the engine hands
+            # the selection back
+            sel_mask = (stats["sel_mask"] if age_lag
+                        else (age_next == 0.0).to(torch.float32))
             if fl.error_feedback:
                 # unsent mass of the mean effective gradient
                 residual = (ef_sum * oac.reciprocal(n)) * (1.0 - sel_mask)
         else:
             g_t, age_next, stats = engine.select_and_merge(
-                agg, g_prev, age, noise=draws.get("z"), tstate=tstate,
+                agg, g_prev, age, noise=draws.get("z"), tstate=ts,
                 residual=residual if fl.error_feedback else None,
-                k_m_frac=kmf)
-            sel_mask = (age_next == 0.0).to(torch.float32)
+                k_m_frac=kmf, age_lag=age_lag)
+            sel_mask = (stats["sel_mask"] if age_lag
+                        else (age_next == 0.0).to(torch.float32))
             if fl.error_feedback:
                 residual = stats["residual"]
         if adaptive:
@@ -338,8 +369,8 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
             cstate = bctrl.update(cstate, stats["age_hist"],
                                   stats["mag_hist"])
         return tail(w, g_t, age_next, sel_mask, sel_count + sel_mask,
-                    residual, stats["tstate"], stats["n_selected"], cstate,
-                    kmf)
+                    residual, stats.get("tstate", tstate),
+                    stats["n_selected"], cstate, kmf)
 
     server_phase = exact_server_phase if exact else packed_server_phase
 
@@ -386,8 +417,8 @@ def draw_round(gen: torch.Generator, fl: FLConfig, d: int,
                device: torch.device) -> Dict[str, Tensor]:
     """One round's random numbers from ``gen``: ``h`` (N,) fading on the
     coherent uplink; ``z`` standard-normal channel noise, (d,) on the
-    packed backend and (k,) on the exact one; on the exact backend, ``u``
-    (d,) uniform in [0, 1) for ``toprand`` / ``randk``."""
+    threshold/packed backends and (k,) on the exact one; on the exact
+    backend, ``u`` (d,) uniform in [0, 1) for ``toprand`` / ``randk``."""
     exact = fl.backend == "exact"
     draws = {}
     if not fl.one_bit:
@@ -436,26 +467,58 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
         else:
             marks.append(time.perf_counter())
 
-    for t in range(fl.rounds):
-        xs, ys = sample_round(t)
-        xs = torch.as_tensor(np.asarray(xs), device=dev)
-        ys = torch.as_tensor(np.asarray(ys), device=dev)
-        draws = draw_round(gen, fl, d, dev)
-        mark()
-        (w, g, age, sel_count, residual, _, tstate, cstate, rm) = fl_step(
-            w, g, age, sel_count, xs, ys, residual, tstate, draws, cstate)
-        mark()
-        for key in per_round:
-            per_round[key].append(rm[key])
-        if eval_fn is not None and ((t + 1) % eval_every == 0 or t == 0
-                                    or t == fl.rounds - 1):
-            metrics = eval_fn(unravel(w))
-            history["round"].append(t + 1)
-            history["acc"].append(float(metrics.get("acc", np.nan)))
-            history["loss"].append(float(metrics.get("loss", np.nan)))
-            if verbose:
-                print(f"  round {t+1:4d}  acc={history['acc'][-1]:.4f}  "
-                      f"meanAoU={float(rm['mean_aou']):.2f}", flush=True)
+    def is_eval(t: int) -> bool:
+        return eval_fn is not None and ((t + 1) % eval_every == 0 or t == 0
+                                        or t == fl.rounds - 1)
+
+    def stage(t0: int, n: int) -> Tuple[Tensor, Tensor]:
+        """Rounds t0 .. t0+n-1's client batches, in ``sample_round`` order,
+        in one (pinned, on the card) host buffer pair sent in one copy
+        each."""
+        bx, by = (np.asarray(a) for a in sample_round(t0))
+        xs_h = torch.empty((n,) + bx.shape, pin_memory=cuda,
+                           dtype=torch.from_numpy(bx).dtype)
+        ys_h = torch.empty((n,) + by.shape, pin_memory=cuda,
+                           dtype=torch.from_numpy(by).dtype)
+        xs_h[0], ys_h[0] = torch.from_numpy(bx), torch.from_numpy(by)
+        for i in range(1, n):
+            bx, by = sample_round(t0 + i)
+            xs_h[i] = torch.from_numpy(np.asarray(bx))
+            ys_h[i] = torch.from_numpy(np.asarray(by))
+        return (xs_h.to(dev, non_blocking=True),
+                ys_h.to(dev, non_blocking=True))
+
+    t = 0
+    while t < fl.rounds:
+        if fl.scan_rounds > 1:
+            # a chunk ends at the next eval round (eval reads w)
+            stop = next((u + 1 for u in range(t, fl.rounds) if is_eval(u)),
+                        fl.rounds)
+            n_chunk = min(fl.scan_rounds, stop - t)
+            batches = list(zip(*stage(t, n_chunk)))
+        else:
+            xs, ys = sample_round(t)
+            batches = [(torch.as_tensor(np.asarray(xs), device=dev),
+                        torch.as_tensor(np.asarray(ys), device=dev))]
+        for xs, ys in batches:
+            draws = draw_round(gen, fl, d, dev)
+            mark()
+            (w, g, age, sel_count, residual, _, tstate, cstate,
+             rm) = fl_step(w, g, age, sel_count, xs, ys, residual, tstate,
+                           draws, cstate)
+            mark()
+            for key in per_round:
+                per_round[key].append(rm[key])
+            if is_eval(t):
+                metrics = eval_fn(unravel(w))
+                history["round"].append(t + 1)
+                history["acc"].append(float(metrics.get("acc", np.nan)))
+                history["loss"].append(float(metrics.get("loss", np.nan)))
+                if verbose:
+                    print(f"  round {t+1:4d}  acc={history['acc'][-1]:.4f}"
+                          f"  meanAoU={float(rm['mean_aou']):.2f}",
+                          flush=True)
+            t += 1
     if cuda:
         torch.cuda.synchronize(dev)
         history["round_ms"] = [marks[i].elapsed_time(marks[i + 1])

@@ -202,6 +202,17 @@ def sign_from_energy(energy: Tensor, noise: Optional[Tensor] = None,
                                      noise_std=noise_std, score=score)
 
 
+def fairk_update(g: Tensor, g_prev: Tensor, age: Tensor, theta_m, theta_a,
+                 mode: Optional[str] = None, sanitize: bool = False
+                 ) -> Tuple[Tensor, Tensor]:
+    """Fused FAIR-k server pass without the residual stage or decoupled
+    ``fresh`` values -> ``(g_t, age')``: the same kernel launch as
+    ``fairk_ef_update``."""
+    g_t, age_out, _ = fairk_ef_update(g, g_prev, age, theta_m, theta_a,
+                                      mode=mode, sanitize=sanitize)
+    return g_t, age_out
+
+
 def fairk_ef_update(g: Tensor, g_prev: Tensor, age: Tensor, theta_m,
                     theta_a, residual: Optional[Tensor] = None,
                     fresh: Optional[Tensor] = None,

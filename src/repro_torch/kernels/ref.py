@@ -212,6 +212,16 @@ def _fairk_core(g, g_prev, age, theta_m, theta_a, residual, fresh,
     return g_t, age_next, res_next, score, ok, mask, mask_m
 
 
+def fairk_update_ref(g: Tensor, g_prev: Tensor, age: Tensor, theta_m,
+                     theta_a, sanitize: bool = False
+                     ) -> Tuple[Tensor, Tensor]:
+    """The fused FAIR-k server pass without the residual stage or ``fresh``
+    values -> ``(g_t, age')`` (see ``fairk_ef_update_ref``)."""
+    g_t, age_next, *_ = _fairk_core(g, g_prev, age, theta_m, theta_a, None,
+                                    None, sanitize)
+    return g_t, age_next
+
+
 def fairk_ef_update_ref(g: Tensor, g_prev: Tensor, age: Tensor,
                         theta_m, theta_a, residual: Optional[Tensor] = None,
                         fresh: Optional[Tensor] = None,

@@ -15,12 +15,14 @@ widths (24, 32, 48), fc 192) has d = 109,210 parameters.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch import tree as tree_util
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -104,19 +106,8 @@ def accuracy(logits: Tensor, labels: Tensor) -> Tensor:
     return (logits.argmax(-1) == labels).to(torch.float32).mean()
 
 
-def _leaves(tree: Any, path: Tuple[str, ...] = ()
-            ) -> List[Tuple[Tuple[str, ...], Any]]:
-    """(path, leaf) pairs in ``jax.tree_util`` order: dict keys sorted."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _leaves(tree[k], path + (k,))
-        return out
-    return [(path, tree)]
-
-
 def param_count(params: Params) -> int:
-    return sum(int(leaf.numel()) for _, leaf in _leaves(params))
+    return sum(int(leaf.numel()) for _, leaf in tree_util.leaves(params))
 
 
 def params_from_numpy(tree: Any, device="cpu") -> Params:
@@ -130,20 +121,16 @@ def params_from_numpy(tree: Any, device="cpu") -> Params:
 def ravel_params(params: Params) -> Tuple[Tensor, Callable[[Tensor], Params]]:
     """Flatten in ``ravel_pytree`` order -> ``(flat, unravel)``;
     ``unravel(flat)`` rebuilds the tree as views into ``flat``."""
-    leaves = _leaves(params)
+    leaves = tree_util.leaves(params)
     flat = torch.cat([leaf.reshape(-1) for _, leaf in leaves])
     spec = [(path, tuple(leaf.shape), leaf.numel()) for path, leaf in leaves]
 
     def unravel(vec: Tensor) -> Params:
-        out: Params = {}
-        offset = 0
-        for path, shape, size in spec:
-            node = out
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = vec[offset:offset + size].reshape(shape)
+        out, offset = [], 0
+        for _, shape, size in spec:
+            out.append(vec[offset:offset + size].reshape(shape))
             offset += size
-        return out
+        return tree_util.unflatten([path for path, _, _ in spec], out)
 
     return flat, unravel
 
@@ -154,19 +141,14 @@ class PrototypeCNN(nn.Module):
 
     def __init__(self, params: Params):
         super().__init__()
-        self._paths = [path for path, _ in _leaves(params)]
+        self._paths = [path for path, _ in tree_util.leaves(params)]
         self.weights = nn.ParameterDict({
             "_".join(path): nn.Parameter(leaf)
-            for path, leaf in _leaves(params)})
+            for path, leaf in tree_util.leaves(params)})
 
     def params(self) -> Params:
-        out: Params = {}
-        for path in self._paths:
-            node = out
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = self.weights["_".join(path)]
-        return out
+        return tree_util.unflatten(self._paths, [self.weights["_".join(path)]
+                                            for path in self._paths])
 
     def forward(self, x: Tensor) -> Tensor:
         return prototype_cnn(self.params(), x)

@@ -216,7 +216,8 @@ def test_packed_select_and_merge_with_a_traced_split(mode):
         layout=jax_packing.PackedLayout.from_tree(
             [jnp.zeros((d,), jnp.float32)], lane=1))
     teng = engine.SelectionEngine(engine.EngineConfig(**kw), d,
-                                  layout=packing.PackedLayout([d], lane=1))
+                                  layout=packing.PackedLayout.from_tree(
+                                      torch.zeros(d), lane=1))
 
     @jax.jit
     def jstep(g, gp, age, key, kmf, ts, res, fresh):

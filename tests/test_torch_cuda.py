@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.kernels import aou_merge, block_topk, fairk_update, ops
-from repro_torch.kernels import sign_mv
+from repro_torch.kernels import ref, sign_mv
 
 pytestmark = pytest.mark.gpu
 
@@ -737,3 +737,70 @@ def test_sweep_kernel_and_plain_grids_are_identical(cuda):
         np.testing.assert_array_equal(grids[None][key], grids["plain"][key])
     np.testing.assert_array_equal(grids[None]["frac_fresh"],
                                   cfg.k / cfg.d)
+
+
+@pytest.mark.parametrize("d", [255, 109_210, 1_000_003])
+def test_no_residual_fairk_update_matches_plain(cuda, d):
+    """``ops.fairk_update`` (no residual, no ``fresh``): the same kernel
+    launch as ``fairk_ef_update``, equal to its plain version and to
+    ``ref.fairk_update_ref``."""
+    x = _inputs(d, seed=d + 1, dev=cuda)
+    for tm, ta in ((0.0, 0.0), (x["tm"], x["ta"]), (float("inf"), x["ta"])):
+        before = fairk_update.LAUNCHES
+        k = ops.fairk_update(x["g"], x["g_prev"], x["age"], tm, ta,
+                             mode="kernel")
+        assert fairk_update.LAUNCHES == before + 1
+        p = ops.fairk_update(x["g"], x["g_prev"], x["age"], tm, ta,
+                             mode="plain")
+        r = ref.fairk_update_ref(x["g"], x["g_prev"], x["age"],
+                                 torch.tensor(tm, device=cuda),
+                                 torch.tensor(ta, device=cuda))
+        assert len(k) == 2
+        for a, b, c in zip(k, p, r):
+            _same(a, b)
+            _same(a, c)
+
+
+@pytest.mark.parametrize("route", ["stats", "ef", "plain"])
+def test_fairk_kernel_on_the_padded_tree_buffer(cuda, route):
+    """The fast transformer tree's packed buffer (99 leaves, 8,460,544
+    coordinates, pads after every leaf): pads are never selected, their
+    age, ``g_prev`` and residual pass through, they weigh nothing in the
+    histograms — kernel equal to plain, counts and histograms included."""
+    from benchmarks import torch_packed_bench as bench
+    from repro_torch.core import packing
+    tree = bench.make_transformer_tree(*bench.FAST_TREE, device=cuda)
+    g_prev, age = bench.server_state(tree)
+    lay = packing.PackedLayout.from_tree(tree)
+    assert (lay.n_leaves, lay.d_packed) == (99, 8_460_544)
+    g = lay.pack(tree)
+    gp = lay.pack(g_prev)
+    ag = lay.pack_age(age)
+    res = torch.randn(lay.d_packed, device=cuda) * 0.05
+    res = res * lay.valid_mask(cuda)
+    pads = ~lay.valid_mask(cuda)
+    for tm, ta in ((0.0, 0.0), (1.6, 30.5)):
+        if route == "stats":
+            k = ops.fairk_stats_update(g, gp, ag, tm, ta, residual=res,
+                                       mode="kernel")
+            p = ops.fairk_stats_update(g, gp, ag, tm, ta, residual=res,
+                                       mode="plain")
+            for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+                _same(k[3][key], p[3][key])
+            assert float(k[3]["n_sel"]) <= lay.d_valid
+        elif route == "ef":
+            k = ops.fairk_ef_update(g, gp, ag, tm, ta, residual=res,
+                                    mode="kernel")
+            p = ops.fairk_ef_update(g, gp, ag, tm, ta, residual=res,
+                                    mode="plain")
+        else:
+            k = ops.fairk_update(g, gp, ag, tm, ta, mode="kernel")
+            p = ops.fairk_update(g, gp, ag, tm, ta, mode="plain")
+        for a, b in zip(k[:3], p[:3]):
+            if a is not None:
+                _same(a, b)
+        assert torch.equal(k[1][pads], ag[pads])              # age -1 kept
+        assert torch.equal(k[0][pads], gp[pads])              # g_prev kept
+        assert not bool((k[1][pads] == 0.0).any())            # never chosen
+        if route != "plain":
+            assert torch.equal(k[2][pads], res[pads])

@@ -102,7 +102,8 @@ def _engines(d, noise_std, policy="fairk"):
         layout=jax_packing.PackedLayout.from_tree(
             [jnp.zeros((d,), jnp.float32)], lane=1))
     teng = engine.SelectionEngine(engine.EngineConfig(**kw), d,
-                                  layout=packing.PackedLayout([d], lane=1))
+                                  layout=packing.PackedLayout.from_tree(
+                                      torch.zeros(d), lane=1))
     return jeng, teng
 
 
@@ -264,30 +265,40 @@ def test_exact_fairk_staleness_follows_lemma1():
 
 
 def test_engine_rejects_what_is_not_ported():
-    lay = packing.PackedLayout([16], lane=1)
+    lay = packing.PackedLayout.from_tree(torch.zeros(16), lane=1)
     z = torch.zeros(16)
     exact = engine.SelectionEngine(engine.EngineConfig(backend="exact"), 16)
     g_t, age, stats = exact.select_and_merge(z, z, z)
     assert float(stats["n_selected"]) == exact.budgets()[0]
-    for backend, item in (("threshold", 3), ("sharded", 11)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            engine.SelectionEngine(engine.EngineConfig(backend=backend), 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.SelectionEngine(engine.EngineConfig(backend="packed"), 16,
-                               layout=lay)
+    # the sharded launch path is not ported (ROADMAP Queue 1 item 11)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 11"):
+        engine.SelectionEngine(engine.EngineConfig(backend="sharded"), 16)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 11"):
+        engine.SelectionEngine(engine.EngineConfig(
+            backend="packed", reduce_axes=("data",)), 16, layout=lay)
+    with pytest.raises(ValueError, match="PackedLayout"):
+        engine.SelectionEngine(engine.EngineConfig(backend="packed"), 16)
     with pytest.raises(ValueError, match="index arithmetic"):
         engine.SelectionEngine(engine.EngineConfig(
             backend="packed", policy="randk", fused_stats=True,
             warm_start=True), 16, layout=lay)
+    # the threshold backend, the legacy packed route, the bootstrap without
+    # a carried state (item 3) and async lag (item 7) are ported
     eng = engine.SelectionEngine(engine.EngineConfig(
         backend="packed", fused_stats=True, warm_start=True), 16, layout=lay)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.select_and_merge(z, z, z)
-    for e in (eng, exact):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            e.select_and_merge(z, z, z, tstate=packing.init_threshold_state(
-                "cpu"), age_lag=2)
+    thr = engine.SelectionEngine(engine.EngineConfig(backend="threshold"), 16)
+    legacy = engine.SelectionEngine(engine.EngineConfig(backend="packed"),
+                                    16, layout=lay)
+    for e in (eng, legacy, thr, exact):
+        e.select_and_merge(z, z, z)
+        with pytest.raises(ValueError, match="age_lag"):
+            e.select_and_merge(z, z, z, age_lag=-1)
+        _, age2, stats = e.select_and_merge(
+            z, z, z, tstate=packing.init_threshold_state("cpu"), age_lag=2)
+        assert torch.equal(age2[stats["sel_mask"] > 0],
+                           torch.full_like(age2[stats["sel_mask"] > 0], 2.0))
         # the traced split is ported (ROADMAP Queue 1 item 5)
         e.select_and_merge(z, z, z, tstate=packing.init_threshold_state(
             "cpu"), k_m_frac=torch.tensor(0.5))

@@ -199,9 +199,7 @@ def test_train_runs_and_reports(task):
 
 def test_unsupported_settings_raise():
     _, tfl = _pair("coherent")
-    for change, item in ((dict(backend="threshold"), 3),
-                         (dict(async_lag=1), 7),
-                         (dict(scan_rounds=4), 7), (dict(faults=object()), 8),
+    for change, item in ((dict(faults=object()), 8),
                          (dict(watchdog=object()), 8),
                          (dict(population=object()), 8),
                          (dict(wireless=object()), 8)):
@@ -222,6 +220,19 @@ def test_unsupported_settings_raise():
     with pytest.raises(ValueError, match="client_chunk"):
         trainer.make_fl_step(dataclasses.replace(tfl, client_chunk=3),
                              lambda w: w, torch_loss, 8, device="cpu")
+    with pytest.raises(ValueError, match="async_lag"):
+        trainer.make_fl_step(dataclasses.replace(tfl, async_lag=-1),
+                             lambda w: w, torch_loss, 8, device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        trainer.make_fl_step(dataclasses.replace(tfl, backend="sharded"),
+                             lambda w: w, torch_loss, 8, device="cpu")
+    # the threshold backend (ROADMAP Queue 1 item 3), async lag and
+    # scan_rounds (item 7) are ported: they build on every backend
+    for backend in ("threshold", "packed", "exact"):
+        for change in (dict(), dict(async_lag=1), dict(scan_rounds=4)):
+            trainer.make_fl_step(
+                dataclasses.replace(tfl, backend=backend, **change),
+                lambda w: w, torch_loss, 8, device="cpu")
     # the adaptive split is ported: it builds on both backends, for FAIR-k
     for backend in ("packed", "exact"):
         for change in (dict(adaptive_km=True), dict(policy="fairk_auto")):

@@ -31,10 +31,14 @@ def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for name in ("repro_torch.fl.trainer", "repro_torch.fl.sweep",
                  "repro_torch.core.controller", "repro_torch.core.markov",
-                 "repro_torch.core.lipschitz"):
+                 "repro_torch.core.lipschitz", "repro_torch.tree",
+                 "repro_torch.core.packing", "repro_torch.core.engine"):
         assert name in mods
-    assert len(mods) >= 19
-    assert len(BENCHMARKS) == 9
+    assert len(mods) >= 20
+    assert len(BENCHMARKS) == 11
+    for name in ("benchmarks.torch_engine_bench",
+                 "benchmarks.torch_packed_bench"):
+        assert name in BENCHMARKS
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -113,7 +117,23 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         if name == "fig3":           # numpy only: nothing runs on a device
             continue
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            mod.run(rounds=1)
+            # the server-phase benchmarks are cut by repeats, the figures
+            # by rounds
+            mod.run(**({"repeats": 1} if name in ("engine", "packed")
+                       else {"rounds": 1}))
+    from benchmarks import torch_packed_bench
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_packed_bench.bench_tree(2, 32, 256, repeats=1)
+    from repro_torch.core import engine
+    lay = packing.PackedLayout.from_tree({"a": torch.zeros(300)})
+    for build in (lay.valid_mask, lay.init_age, lambda: lay.sample_ids(8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert lay.valid_mask("cpu").device.type == "cpu"
+    assert lay.init_age(device="cpu").device.type == "cpu"
+    assert lay.sample_ids(8, "cpu").device.type == "cpu"
+    eng = engine.make_engine("fairk", "packed", layout=lay)
+    assert eng.sample_ids("cpu").device.type == "cpu"
     assert device_mod.resolve_device("cpu").type == "cpu"
     state, _ = trainer.init_server(params, fl, device="cpu")
     assert state.w.device.type == "cpu"

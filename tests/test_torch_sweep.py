@@ -113,14 +113,15 @@ def test_run_sweep_draws_per_seed():
 def test_unknown_policy_and_scenarios_raise():
     with pytest.raises(ValueError, match="sweep supports"):
         sweep.sweep_grid(("agetopk",), (0.5,), 1, sweep.SweepConfig())
-    for field, item in (("faults", 8), ("population", 8), ("wireless", 8),
-                        ("async_lag", 7)):
-        cfg = sweep.SweepConfig(d=32, rounds=2,
-                                **{field: 1 if field == "async_lag"
-                                   else object()})
+    for field, item in (("faults", 8), ("population", 8), ("wireless", 8)):
+        cfg = sweep.SweepConfig(d=32, rounds=2, **{field: object()})
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 item {item}"):
             sweep.run_sweep(cfg, device="cpu")
+    # async lanes are ported (ROADMAP Queue 1 item 7)
+    out = sweep.run_sweep(sweep.SweepConfig(d=32, rounds=2, async_lag=1),
+                          device="cpu")
+    assert np.isfinite(out["loss"]).all()
     with pytest.raises(ValueError, match="client_chunk"):
         sweep.SweepConfig(n_clients=16, client_chunk=3)
 
