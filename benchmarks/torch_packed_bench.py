@@ -23,8 +23,16 @@ against ONE fused FAIR-k pass over a transformer-shaped parameter tree
   fresh grads defers into ``shadow``, last round's share merges with
   ``age_lag`` extra age, the optimizer reads last round's ``pending``.
 * ``sanitize``     — non-finite masking armed in the fused launch.
-* ``chaos`` / ``channel`` need the scenario layers (ROADMAP Queue 1 item
-  8): listed as skipped, not timed.
+* ``chaos``        — the fault channels on: NaN/Inf corruption of the
+  packed aggregate and deep-fade block erasures, degraded through the same
+  sanitized launch.
+* ``channel``      — the launch path's wireless round: the carried
+  per-block AR(1) fading chain advances, outage blocks erase, the CSI
+  factor multiplies the buffer, one sanitized launch.
+
+The ``chaos`` and ``channel`` rounds draw on a ``torch.Generator`` on the
+tree's device, given per call (two generators of one seed replay the same
+round).
 
 The dispatchers launch the CUDA kernels on the card; ``kernel_mode=
 "plain"`` runs every builder on the plain PyTorch versions.  Times are
@@ -53,7 +61,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import tree as tree_util  # noqa: E402
-from repro_torch.core import controller, packing  # noqa: E402
+from repro_torch.core import channel, controller, faults  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
 from repro_torch.core.engine import (EngineConfig,  # noqa: E402
                                      SelectionEngine, index_jitter)
 from repro_torch.device import DeviceLike, resolve_device  # noqa: E402
@@ -61,8 +70,7 @@ from repro_torch.kernels import ops  # noqa: E402
 
 FAST_TREE = (12, 192, 8192)      # 99 leaves, 8,460,544 packed coordinates
 FULL_TREE = (24, 320, 32000)     # 195 leaves, 49,996,288 packed
-SKIPPED = {"chaos": "faults (ROADMAP Queue 1 item 8)",
-           "channel": "the wireless channel (ROADMAP Queue 1 item 8)"}
+SKIPPED: Dict[str, str] = {}      # rows listed but not run: none
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -256,13 +264,68 @@ def build_sanitize_fn(tree, *, rho=0.1, kernel_mode=None):
     return sanitize_round, layout
 
 
-def build_chaos_fn(tree, **kw):
-    raise NotImplementedError("the chaos round needs " + SKIPPED["chaos"])
+def build_chaos_fn(tree, *, rho=0.1, fade=0.05, nan_rate=1e-4,
+                   kernel_mode=None):
+    """The fused round with the fault channels on: ``faults.corrupt`` on
+    the packed aggregate and ``faults.fade_mask`` erasures, degraded
+    through the sanitized launch — elementwise work, no extra read of g,
+    no extra tree copy."""
+    layout = packing.PackedLayout.from_tree(tree)
+    eng = _mk_engine("packed", layout, warm=True, rho=rho, fused_stats=True,
+                     kernel_mode=kernel_mode)
+    fcfg = faults.FaultConfig(fade=fade, nan_rate=nan_rate)
+    d = layout.d_packed
+    nb = -(-d // fcfg.fade_block)
+
+    def chaos_round(g_tree, gp_flat, age_flat, tstate, gen):
+        g_flat = layout.pack(g_tree)           # the only pack per round
+        dev = g_flat.device
+        u_c = torch.rand(d, generator=gen, device=dev)
+        u_f = torch.rand(nb, generator=gen, device=dev)
+        g_flat = faults.corrupt(g_flat, u_c, fcfg)
+        erase = faults.fade_mask(u_f, d, fcfg)
+        g_t, age_next, stats = eng.select_and_merge(
+            g_flat, gp_flat, age_flat, tstate=tstate, erase=erase,
+            sanitize=True)
+        g_t_tree = layout.unpack(g_t, cast=False)
+        return (g_t_tree, g_t.to(torch.bfloat16), age_next.to(torch.int8),
+                stats["tstate"])
+
+    return chaos_round, layout
 
 
-def build_channel_fn(tree, **kw):
-    raise NotImplementedError("the channel round needs "
-                              + SKIPPED["channel"])
+def build_channel_fn(tree, *, rho=0.1, pmax=10.0, gmin=0.3, csi_err=0.05,
+                     kernel_mode=None):
+    """The fused round with the wireless layer on: the carried (2 nb,)
+    per-block fading chain advances (``channel.block_outage``), outage
+    blocks erase through the sanitized launch and the CSI factor
+    (``channel.csi_block_factor``) multiplies the packed buffer.  Returns
+    ``(channel_round, fad0, layout)``, ``fad0`` the cold start
+    ``channel.init_block_fading``."""
+    layout = packing.PackedLayout.from_tree(tree)
+    eng = _mk_engine("packed", layout, warm=True, rho=rho, fused_stats=True,
+                     kernel_mode=kernel_mode)
+    ccfg = channel.ChannelConfig(n_clients=16, pmax=pmax, gmin=gmin,
+                                 csi_err=csi_err, rho_f=0.5)
+    d = layout.d_packed
+    nb = channel.n_blocks(d, ccfg)
+
+    def channel_round(g_tree, gp_flat, age_flat, tstate, fad, gen):
+        g_flat = layout.pack(g_tree)           # the only pack per round
+        dev = g_flat.device
+        w = torch.randn(nb, 2, generator=gen, device=dev)
+        e = torch.randn(nb, generator=gen, device=dev)
+        new_fad, erase = channel.block_outage(fad, w, d, ccfg)
+        g_flat = g_flat * channel.csi_block_factor(e, d, ccfg)
+        g_t, age_next, stats = eng.select_and_merge(
+            g_flat, gp_flat, age_flat, tstate=tstate, erase=erase,
+            sanitize=True)
+        g_t_tree = layout.unpack(g_t, cast=False)
+        return (g_t_tree, g_t.to(torch.bfloat16), age_next.to(torch.int8),
+                stats["tstate"], new_fad)
+
+    device = tree_util.leaves(tree)[0][1].device
+    return channel_round, channel.init_block_fading(nb, device), layout
 
 
 def counted(fn: Callable, *args):
@@ -367,18 +430,27 @@ def bench_tree(n_layers, d_model, vocab, repeats=5, device: DeviceLike = None):
                                   / res["async_us"])
     san_fn, _ = build_sanitize_fn(tree)
     row("sanitize", san_fn, tree, gp_flat, age_flat, ts_fused)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    chaos_fn, _ = build_chaos_fn(tree)
+    row("chaos", chaos_fn, tree, gp_flat, age_flat, ts_fused, gen)
+    channel_fn, fad0, _ = build_channel_fn(tree)
+    row("channel", channel_fn, tree, gp_flat, age_flat, ts_fused, fad0, gen)
     for a, b, name in (("per_leaf", "packed", "speedup_packed"),
                        ("persisted", "fused_stats", "speedup_fused_stats"),
                        ("packed", "persisted", "persisted_vs_repack"),
                        ("fused_stats", "adaptive", "adaptive_vs_fused"),
                        ("fused_stats", "sanitize", "sanitize_vs_fused"),
+                       ("sanitize", "chaos", "chaos_vs_sanitize"),
+                       ("sanitize", "channel", "channel_vs_sanitize"),
                        ("fused_stats", "async", "async_vs_fused")):
         res[name] = res[f"{a}_us"] / res[f"{b}_us"]
     return res
 
 
 ROWS = ("per_leaf", "packed", "packed_warm", "persisted", "persisted_warm",
-        "persisted_ef", "fused_stats", "adaptive", "async", "sanitize")
+        "persisted_ef", "fused_stats", "adaptive", "async", "sanitize",
+        "chaos", "channel")
 
 
 def run(fast: bool = True, device: DeviceLike = None, repeats: int = 5):
@@ -414,16 +486,17 @@ SMOKE_COUNTS = {
     "persisted": (1, 1, 1, 3), "persisted_warm": (1, 1, 1, 3),
     "persisted_ef": (1, 1, 1, 3), "fused_stats": (1, 1, 1, 1),
     "adaptive": (1, 1, 1, 1), "async": (1, 1, 1, 1),
-    "sanitize": (1, 1, 1, 1)}
+    "sanitize": (1, 1, 1, 1), "chaos": (1, 1, 1, 1),
+    "channel": (1, 1, 1, 1)}
 
 
 def smoke(device: DeviceLike = "cpu") -> dict:
     """The structural claims on a tiny tree (2, 32, 256): the packed round
     launches ONE fused update against one per leaf; a persisted round
     makes 1 pack and 1 unpack (the re-pack round 3 and 2); the fused-stats
-    round reads g once against 3 on the legacy round; the adaptive, async
-    and sanitize rounds keep all of these; the async critical path is a
-    strict part of the round."""
+    round reads g once against 3 on the legacy round; the adaptive, async,
+    sanitize, chaos and channel rounds keep all of these; the async
+    critical path is a strict part of the round."""
     res = bench_tree(2, 32, 256, repeats=1, device=device)
     c = res["counts_per_leaf"]
     assert c["fused_calls"] == res["n_leaves"] == c["g_reads"] // 2, res
@@ -435,8 +508,8 @@ def smoke(device: DeviceLike = "cpu") -> dict:
     print(json.dumps(res, indent=1))
     print(f"[torch_packed_bench --smoke] OK: 1 fused call vs "
           f"{res['n_leaves']} per leaf; persisted round 1 pack + 1 unpack; "
-          f"fused-stats round 1 read of g vs 3; adaptive, async and "
-          f"sanitize rounds likewise; overlap_ratio "
+          f"fused-stats round 1 read of g vs 3; adaptive, async, "
+          f"sanitize, chaos and channel rounds likewise; overlap_ratio "
           f"{res['overlap_ratio']:.3f}")
     return res
 

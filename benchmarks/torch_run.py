@@ -1,5 +1,5 @@
-"""Run the paper's figures, Table I and the engine and packed server-phase
-benchmarks through the PyTorch port.
+"""Run the paper's figures, Table I, the engine and packed server-phase
+benchmarks and the population benchmark through the PyTorch port.
 
 Prints ``name,us_per_call,derived`` CSV rows (stdout), in the format of
 ``benchmarks/run.py``, and writes the full detail payload to
@@ -24,14 +24,15 @@ from benchmarks import (torch_engine_bench,  # noqa: E402
                         torch_fig3_aou, torch_fig4_convergence,
                         torch_fig5_staleness, torch_fig6_km_ratio,
                         torch_fig7_local_epochs, torch_fig9_prototype,
-                        torch_packed_bench, torch_table1_lipschitz)
+                        torch_packed_bench, torch_population_bench,
+                        torch_table1_lipschitz)
 
 MODULES = {
     "fig3": torch_fig3_aou, "fig4": torch_fig4_convergence,
     "fig5": torch_fig5_staleness, "fig6": torch_fig6_km_ratio,
     "fig7": torch_fig7_local_epochs, "table1": torch_table1_lipschitz,
     "fig9": torch_fig9_prototype, "engine": torch_engine_bench,
-    "packed": torch_packed_bench,
+    "packed": torch_packed_bench, "population": torch_population_bench,
 }
 
 

@@ -20,7 +20,8 @@ failure):
    112,346 at 22,469 and its detection at 22,469; 2^24 for
    ``fairk_update``, ``aou_merge`` and ``block_topk``, ties included, and
    ``block_topk`` on NaN, ±inf, blocks of one value and m = block_size;
-   the one-bit chunk fold ``ops.vote_fold`` dense and gathered, the
+   the one-bit chunk fold ``ops.vote_fold`` dense, gathered and weighted
+   per client (the wireless route: zero, negative and NaN weights), the
    detection fed the draw ``z`` with and without the packed path's
    score, and the exact path's state updates, ``aou_merge``'s index form
    for the trainer and the engine at k = 10,921 and 21,842): merged
@@ -28,7 +29,7 @@ failure):
    energies, folded accumulators, scores and top-k indices exactly; timed
    with CUDA events beside the launch floor (one graph-replayed
    one-element ``add_``) and, for the top-k, ``torch.topk``; a warm
-   ``fairk_update`` call, a warm fold (dense and gathered), the exact
+   ``fairk_update`` call, a warm fold (dense, gathered, weighted), the exact
    path's detection, the packed path's detection with its score and
    each index-form state update must each make exactly one device
    operation (the plain composition's count is recorded): one kernel
@@ -36,8 +37,9 @@ failure):
    graph captured around the call, and one kernel of the right name in
    ``torch.profiler``, whose sessions now and then record nothing; the
    no-residual ``ops.fairk_update`` at 109,210, and ``fairk_update``
-   [stats], [res] and no-residual on the ``--full`` transformer tree's
-   padded buffer (49,996,288 coordinates, pads after each of 195 leaves);
+   [stats], [res], no-residual and [stats+sanitize] on the ``--full``
+   transformer tree's padded buffer (49,996,288 coordinates, pads after
+   each of 195 leaves);
    ``engine.quantile`` on the card equal to the CPU's on the same
    samples;
 4. the packed path at full width: the FL round on the 109,210-parameter
@@ -80,25 +82,38 @@ failure):
    selected coordinate at age 2 after its round, the synchronous launch
    counts, kernel and plain identical; then ``scan_rounds = 3`` on packed
    (a), 6 rounds, equal to the per-round loop bit for bit;
-13. the multi-leaf server phase on the ``--full`` tree through
+13. the scenario layers at full width (faults and the watchdog, a
+   population of 10^6 virtual clients, the wireless channel): chaos on
+   (a) packed, (c) threshold and exact FAIR-k; ``fairk_auto`` with chaos
+   and the watchdog; Gilbert–Elliott (packed) and diurnal (exact)
+   populations; the channel on (a), (b) and exact one-bit (the weighted
+   fold); all three composed — the stated launches, no erased or
+   non-finite coordinate selected, finite weights and losses, steady round
+   ms, kernel and plain trajectories identical (fault state included), 0
+   host syncs per warm round; total-outage rounds (``gmin = 1e9``) that
+   merge nothing on every backend; the sweep's 80 lanes with fault,
+   population and wireless lanes, kernel and plain grids identical; the
+   population scan at 10^6 clients × 64 rounds in client-rounds per s;
+14. the multi-leaf server phase on the ``--full`` tree through
    ``benchmarks.torch_packed_bench``'s builders (packed, persisted,
    persisted_ef, fused_stats after 5 carried rounds, adaptive, async,
-   sanitize): one launch per round, 1 pack and 1 unpack per persisted
-   round, 1 read of g on the fused rounds and 3 on the legacy ones, pads
-   never selected, every output equal to its plain rerun, each row timed;
+   sanitize, chaos, channel): one launch per round, 1 pack and 1 unpack
+   per persisted round, 1 read of g on the fused rounds and 3 on the
+   legacy ones, pads never selected, every output equal to its plain
+   rerun, each row timed;
    the threshold engine at d = 10^8 equal to plain, and ``exact_theta``
    selecting exact FAIR-k's set at 109,210;
-14. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+15. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-15. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+16. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-16. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+17. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-13) runs with every launch count set to 0 just before it
+Each path (4-14) runs with every launch count set to 0 just before it
 and read just after; a kernel that none of them launched fails the run.
 
 Imports neither JAX nor the JAX package.  Writes the full kernel timings to
@@ -428,7 +443,19 @@ def kernel_phase(dev):
     fairk_case(tree_case, [(0.0, 0.0), (1.6, 30.5), (float("inf"), 30.5)],
                f"fairk_update[no residual][tree {TREE_D_PACKED}]", False,
                False, None, "g", False, 3, 2, fn=ops.fairk_update)
-    del tree_case
+    # the SANITIZE variant the tree's chaos and channel rows run: NaN and
+    # +-inf in the aggregate (the erased and corrupted coordinates)
+    bad = tree_case["g"].clone()
+    pos = torch.randperm(bad.numel(), generator=torch.Generator(
+        device=dev).manual_seed(17), device=dev)[:30_000]
+    bad[pos[:10_000]] = float("nan")
+    bad[pos[10_000:20_000]] = float("inf")
+    bad[pos[20_000:]] = -float("inf")
+    tree_case["bad"] = bad
+    fairk_case(tree_case, [(0.0, 0.0), (1.6, 30.5), (float("inf"), 30.5)],
+               f"fairk_update[stats+sanitize][tree {TREE_D_PACKED}]", True,
+               False, None, "bad", True, 3, 2)
+    del tree_case, bad
     extras["quantile"] = quantile_check(dev)
 
     noise = vec(rng.normal(size=D) * 2.0)
@@ -561,6 +588,31 @@ def one_bit_call_sites(dev, rng, records):
         records[name] = _record(err, ms, n_bytes,
                                 *_bound_ms(n_bytes, 2 * rows * k))
         records[name]["device_ops"] = n_ops
+    # the wireless one-bit fold: each client's votes weighted by its
+    # sent * csi before the re-sign (0.0 and -0.0 weights vote +1, a
+    # negative one flips, NaN votes -1)
+    name = f"sign_mv[fold {CHUNK}x{D} weighted]"
+    xw = chunk(CHUNK, D)
+    row = torch.as_tensor(np.array([1.0, 0.0, -0.0, -0.7, np.nan, 1.03,
+                                    0.0, 0.97, -1.0, 1.1],
+                                   np.float32)[:CHUNK], device=dev)
+    acc = torch.as_tensor((rng.normal(size=D) * 7.0).astype(np.float32),
+                          device=dev)
+    outs = {m: ops.vote_fold(acc.clone(), xw, None, mode=m, row=row)
+            for m in ("kernel", "plain")}
+    err = _same(outs["kernel"], outs["plain"], name)
+    check(not bool(torch.equal(outs["kernel"], ops.vote_fold(
+        acc.clone(), xw, None, mode="plain"))),
+          f"{name}: the weights changed no vote")
+    n_ops = _one_op(lambda: ops.vote_fold(outs["kernel"], xw, None, row=row),
+                    "sign_mv_kernel", name)
+    ms = {m: _time_ms(lambda m=m: ops.vote_fold(outs[m], xw, None, mode=m,
+                                                row=row))
+          for m in ("kernel", "plain")}
+    n_bytes = 4 * CHUNK * D + 8 * D + 4 * CHUNK
+    records[name] = _record(err, ms, n_bytes,
+                            *_bound_ms(n_bytes, 4 * CHUNK * D))
+    records[name]["device_ops"] = n_ops
     energy = torch.as_tensor(2.0 * rng.integers(-25, 26, size=D),
                              dtype=torch.float32, device=dev)
     z = torch.as_tensor(rng.normal(size=D).astype(np.float32), device=dev)
@@ -1015,12 +1067,13 @@ def host_syncs(dev, task, fl, rounds: int = 3):
     import warnings
     import torch
     from repro_torch.fl import init_server, make_fl_step
-    from repro_torch.fl.trainer import draw_round
+    from repro_torch.fl.trainer import draw_round, init_fault_state
 
     params0, loss_fn, _, sample_round = task
     state, unravel = init_server(params0, fl, dev)
     d = state.w.shape[0]
     step = make_fl_step(fl, unravel, loss_fn, d, dev)
+    fstate = init_fault_state(fl, state) if fl.stateful else None
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     inputs = []
@@ -1033,10 +1086,12 @@ def host_syncs(dev, task, fl, rounds: int = 3):
              state.theta, state.ctrl)
 
     def one(xs, ys, draws):
-        nonlocal carry
+        nonlocal carry, fstate
         w, g, age, sc, res, ts, cs = carry
-        out = step(w, g, age, sc, xs, ys, res, ts, draws, cs)
+        out = step(w, g, age, sc, xs, ys, res, ts, draws, cs, fstate)
         carry = out[:5] + (out[6], out[7])
+        if fl.stateful:
+            fstate = out[9]
 
     one(*inputs[0])
     torch.cuda.synchronize()
@@ -1738,11 +1793,323 @@ def _profile_round(fn, top: int = 8):
             "top": [(ms, key[:90], n) for ms, key, n in rows[:top]]}
 
 
+# --------------------------------------------------------------------------
+# the scenario layers: faults and the watchdog, the population, the channel
+# --------------------------------------------------------------------------
+
+SCEN_FAULTS = dict(dropout=0.2, burst=4.0, fade=0.05, nan_rate=1e-4)
+SCEN_CHANNEL = dict(rho_f=0.9, csi_err=0.05, shadow_db=4.0, gmin=0.3)
+SCEN_POPULATION = 1_000_000         # virtual clients behind the 50
+SCEN_SWEEP_POPULATION = 16_384      # virtual clients per sweep lane
+SCAN_ROUNDS = 64                    # the population scan's rounds
+
+
+def scenario_configs():
+    """The scenario runs at full width: chaos on (a) packed, (c) threshold
+    with EF and exact FAIR-k; ``fairk_auto`` on packed with chaos and the
+    watchdog; a population of 10^6 (Gilbert–Elliott on packed (a),
+    diurnal on exact FAIR-k); the wireless channel on packed (a), packed
+    (b) and exact one-bit; and faults (fades, NaN) with the population and
+    the channel on packed (a)."""
+    import dataclasses
+    from repro_torch.core import channel, faults, population
+    packed, exact = run_configs()
+    a, b = packed["a_coherent"], packed["b_one_bit"]
+    fc = faults.FaultConfig(**SCEN_FAULTS)
+    wl = channel.ChannelConfig(n_clients=N_CLIENTS, **SCEN_CHANNEL)
+    pop_ge = population.PopulationConfig(n_clients=SCEN_POPULATION,
+                                         participants=N_CLIENTS, mode="ge")
+    pop_di = population.PopulationConfig(n_clients=SCEN_POPULATION,
+                                         participants=N_CLIENTS,
+                                         mode="diurnal")
+    r = dataclasses.replace
+    return {
+        "chaos_a": r(a, faults=fc, rounds=5),
+        "chaos_c_threshold": r(packed["c_coherent_ef"], backend="threshold",
+                               faults=fc, rounds=3),
+        "chaos_exact": r(exact["exact_fairk"], faults=fc, rounds=3),
+        "watchdog_auto": r(a, policy="fairk_auto", faults=fc,
+                           watchdog=faults.WatchdogConfig(),
+                           rounds=ADAPTIVE_ROUNDS),
+        "population_ge": r(a, population=pop_ge, rounds=5),
+        "population_diurnal_exact": r(exact["exact_fairk"],
+                                      population=pop_di, rounds=3),
+        "wireless_a": r(a, wireless=wl, rounds=5),
+        "wireless_one_bit": r(b, wireless=wl, rounds=3),
+        "wireless_one_bit_exact": r(b, backend="exact", wireless=wl,
+                                    rounds=3),
+        "composed": r(a, faults=faults.FaultConfig(fade=0.05,
+                                                    nan_rate=1e-4),
+                      population=pop_ge, wireless=wl, rounds=3),
+    }
+
+
+def _scenario_launches(fl):
+    """A scenario round's launches: one ``fairk_update`` (threshold,
+    packed) or one mask-form ``aou_merge`` (exact), and on the one-bit
+    uplink one weighted fold per chunk and one detection."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["aou_merge" if fl.backend == "exact" else "fairk_update"] = (
+        fl.rounds)
+    if fl.one_bit:
+        want["sign_mv"] = fl.rounds * (N_CLIENTS // CHUNK)
+        want["sign_from_energy"] = fl.rounds
+    return want
+
+
+class _SelectionGuard:
+    """Wraps ``SelectionEngine.select_and_merge`` for a run: counts, on the
+    device (no sync), the coordinates a server phase selected although
+    they were erased or non-finite, and the non-finite values it merged;
+    ``calls`` is the number of server phases."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.engine import SelectionEngine
+        self.orig = SelectionEngine.select_and_merge
+        self.bad = torch.zeros((), device=self.dev)
+        self.calls = 0
+        guard = self
+
+        def wrapped(eng, g, g_prev, age, **kw):
+            out = guard.orig(eng, g, g_prev, age, **kw)
+            g_t, age_next, stats = out
+            sel = (stats["sel_mask"] > 0 if "sel_mask" in stats
+                   else age_next == 0.0)
+            unsent = ~torch.isfinite(g)
+            if kw.get("erase") is not None:
+                unsent = unsent | (kw["erase"] > 0.0)
+            guard.bad = (guard.bad + (sel & unsent).sum()
+                         + (~torch.isfinite(g_t)).sum())
+            guard.calls += 1
+            return out
+
+        SelectionEngine.select_and_merge = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.engine import SelectionEngine
+        SelectionEngine.select_and_merge = self.orig
+
+
+def _outage_rounds(dev, task, fl, rounds: int = 2):
+    """``rounds`` rounds of ``fl`` (an unreachable truncation threshold)
+    through ``make_fl_step`` from seeded ``g_prev`` and ages: each must
+    merge nothing — ``g_t`` equal to ``g_prev`` bit for bit, every age one
+    older, no coordinate selected, the counts unchanged."""
+    import torch
+    from repro_torch.fl import init_server, make_fl_step
+    from repro_torch.fl.trainer import draw_round, init_fault_state
+
+    params0, loss_fn, _, sample_round = task
+    state, unravel = init_server(params0, fl, dev)
+    d = state.w.shape[0]
+    step = make_fl_step(fl, unravel, loss_fn, d, dev)
+    fstate = init_fault_state(fl, state)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.randn(d, generator=gen, device=dev)
+    age = torch.randint(0, 50, (d,), generator=gen, device=dev).to(
+        torch.float32)
+    w, sc = state.w, state.sel_count
+    for t in range(rounds):
+        xs, ys = sample_round(t)
+        out = step(w, g, age, sc, torch.as_tensor(xs, device=dev),
+                   torch.as_tensor(ys, device=dev), state.residual,
+                   state.theta, draw_round(gen, fl, d, dev), state.ctrl,
+                   fstate)
+        _same(out[1], g, f"outage {fl.backend} round {t} g_t")
+        _same(out[2], age + 1.0, f"outage {fl.backend} round {t} age'")
+        check(float(out[5].sum()) == 0.0 and bool(torch.equal(out[3], sc)),
+              f"outage {fl.backend} round {t}: a coordinate was selected")
+        check(float(out[8]["n_selected"]) == 0.0,
+              f"outage {fl.backend} round {t}: n_selected "
+              f"{float(out[8]['n_selected'])}")
+        w, g, age, fstate = out[0], out[1], out[2], out[9]
+    return rounds
+
+
+def scenario_phase(dev, task):
+    """The scenario layers at full width (``scenario_configs``): each run
+    through ``train`` with the counts set to 0 before it — the launches of
+    ``_scenario_launches``, no erased or non-finite coordinate selected,
+    finite weights and losses, steady round ms (these rounds include the
+    selection guard's checks); then again with cuDNN
+    deterministic, with the kernels and with the plain versions: identical
+    states, fault states and ``km_frac``; 0 host syncs in a warm round of
+    every run; total-outage rounds (``gmin = 1e9``) merge nothing on
+    packed, threshold, exact and one-bit; and the sweep (80 lanes × 2,048,
+    N = 16, 20 rounds) with fault, population (16,384 virtual clients per
+    lane) and wireless lanes: one mask-form ``aou_merge`` per round,
+    kernel and plain grids identical."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.core import channel, faults, population
+    from repro_torch.fl import sweep, train
+
+    params0, loss_fn, eval_fn, sample_round = task
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    configs = scenario_configs()
+    for name, fl in configs.items():
+        reset_counters()
+        with _SelectionGuard(dev) as guard:
+            hist = train(fl, params0, loss_fn, sample_round,
+                         eval_fn=eval_fn, eval_every=fl.rounds, device=dev)
+            torch.cuda.synchronize()
+        got, want = read_counters(), _scenario_launches(fl)
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        for key in launches:
+            launches[key] += got[key]
+        check(guard.calls == fl.rounds,
+              f"{name}: {guard.calls} server phases in {fl.rounds} rounds")
+        check(float(guard.bad) == 0.0,
+              f"{name}: {float(guard.bad)} erased or non-finite coordinates "
+              f"selected or merged")
+        check(bool(torch.isfinite(hist["state"].w).all())
+              and all(math.isfinite(x) for x in hist["loss"]),
+              f"{name}: non-finite weights or loss {hist['loss']}")
+        steady = statistics.median(hist["round_ms"][1:])
+        summary[name] = {"round_ms": hist["round_ms"],
+                         "steady_round_ms": steady, "launches": got,
+                         "n_selected": hist["n_selected"],
+                         "loss": hist["loss"], "acc": hist["acc"],
+                         "wd_trips": hist.get("wd_trips")}
+        print(f"scenario {name}: {fl.backend}, {fl.rounds} rounds, launches "
+              f"{got}, selected {hist['n_selected']}, no erased or "
+              f"non-finite coordinate selected, round ms "
+              f"{[round(x, 3) for x in hist['round_ms']]} (steady "
+              f"{steady:.3f}), test loss {hist['loss'][-1]:.4f}"
+              + (f", watchdog trips {hist['wd_trips']:g}"
+                 if fl.watchdog is not None else ""), flush=True)
+    flags = _deterministic()
+    try:
+        for name, fl in configs.items():
+            runs = {mode: train(fl, params0, loss_fn, sample_round,
+                                device=dev, kernel_mode=mode)
+                    for mode in (None, "plain")}
+            k, p = runs[None], runs["plain"]
+            _identical_states(k["state"], p["state"], name)
+            _same_out(k["fstate"], p["fstate"], f"{name} fstate")
+            check(k["km_frac"] == p["km_frac"], f"{name}: km_frac differs")
+            # the same rounds without the selection guard's device work
+            # (with cuDNN deterministic)
+            bare = statistics.median(k["round_ms"][1:])
+            summary[name]["unguarded_steady_round_ms"] = bare
+            print(f"scenario {name}: kernel and plain trajectories "
+                  f"identical over {fl.rounds} rounds (w, g, ages, counts, "
+                  f"residual, thresholds, controller and fault state); "
+                  f"unguarded steady round {bare:.3f} ms", flush=True)
+    finally:
+        _restore(flags)
+    syncs = {}
+    for name, fl in configs.items():
+        per_round, where = host_syncs(dev, task, fl)
+        syncs[name] = {"per_round": per_round, "where": where}
+        print(f"host syncs scenario {name}: {per_round:g} per warm round "
+              f"{where}", flush=True)
+        check(per_round == 0,
+              f"host syncs {name}: {per_round:g} per warm round at {where}")
+    summary["host_syncs"] = syncs
+    packed, exact = run_configs()
+    dead = channel.ChannelConfig(n_clients=N_CLIENTS, near=1.0, pl_exp=0.0,
+                                 gmin=1e9, pmax=1e12)
+    outage = {"packed": packed["a_coherent"],
+              "threshold": dataclasses.replace(packed["a_coherent"],
+                                               backend="threshold"),
+              "exact": exact["exact_fairk"],
+              "packed_one_bit": packed["b_one_bit"]}
+    for name, fl in outage.items():
+        _outage_rounds(dev, task, dataclasses.replace(fl, wireless=dead))
+    print(f"scenario total outage (gmin = 1e9): 2 rounds each on "
+          f"{list(outage)}: g_t equal to g_prev, every age one older, "
+          f"nothing selected", flush=True)
+    summary["total_outage"] = list(outage)
+    grids = {
+        "faults": dict(faults=faults.FaultConfig(**SCEN_FAULTS)),
+        "population": dict(population=population.PopulationConfig(
+            n_clients=SCEN_SWEEP_POPULATION, participants=SWEEP_N,
+            mode="ge")),
+        "wireless": dict(wireless=channel.ChannelConfig(
+            n_clients=SWEEP_N, **SCEN_CHANNEL)),
+    }
+    for name, kw in grids.items():
+        cfg = sweep.SweepConfig(d=SWEEP_D, n_clients=SWEEP_N, rho=0.2,
+                                rounds=SWEEP_ROUNDS, **kw)
+        seeds, pids, kms, adaptives, labels = sweep.sweep_grid(
+            ("fairk", "fairk_auto"), SWEEP_RATIOS, SWEEP_SEEDS, cfg)
+        draws = sweep.draw_lanes(cfg, seeds, dev)
+        out = {}
+        for mode in (None, "plain"):
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[mode] = sweep.run_grid(cfg, seeds, pids, kms, adaptives,
+                                       draws=draws, device=dev,
+                                       kernel_mode=mode)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SWEEP_ROUNDS
+            got = read_counters()
+            if mode is None:
+                k_ms, k_got = ms, got
+        want = dict.fromkeys(KERNELS, 0)
+        want["aou_merge"] = SWEEP_ROUNDS
+        check(k_got == want, f"sweep {name}: launches {k_got}, expected "
+                             f"{want}")
+        for key in launches:
+            launches[key] += k_got[key]
+        for key in out[None]:
+            _same(out[None][key], out["plain"][key], f"sweep {name} {key}")
+        fresh = out[None]["frac_fresh"]
+        check(bool((fresh <= cfg.k / cfg.d).all())
+              and bool(torch.isfinite(out[None]["loss"]).all()),
+              f"sweep {name}: a lane refreshed more than k, or a non-finite "
+              f"loss")
+        summary[f"sweep_{name}"] = {"ms_per_round": k_ms,
+                                    "plain_ms_per_round": ms,
+                                    "mean_frac_fresh": float(fresh.mean())}
+        print(f"scenario sweep {name}: {len(labels)} lanes x d = {SWEEP_D}, "
+              f"{SWEEP_ROUNDS} rounds, launches {k_got}, kernel and plain "
+              f"grids identical, mean refreshed share "
+              f"{float(fresh.mean()):.4f} (k/d {cfg.k / cfg.d:.4f}); "
+              f"{k_ms:.3f} ms per grid round "
+              f"(plain {ms:.3f}, first run each)", flush=True)
+    from benchmarks import torch_population_bench
+    scan = torch_population_bench.bench_scan(SCEN_POPULATION,
+                                             rounds=SCAN_ROUNDS, device=dev)
+    check(math.isfinite(scan["client_rounds_per_s"])
+          and abs(scan["mean_n_avail"] / SCEN_POPULATION - 0.9) < 0.01,
+          f"population scan: {scan}")
+    summary["population_scan"] = scan
+    print(f"scenario population scan: {SCEN_POPULATION} Gilbert–Elliott "
+          f"clients x {SCAN_ROUNDS} rounds in {scan['scan_s']:.4f} s "
+          f"(median of 3): {scan['client_rounds_per_s']:.6g} client-rounds "
+          f"per s; mean availability "
+          f"{scan['mean_n_avail'] / SCEN_POPULATION:.4f}", flush=True)
+    return launches, summary
+
+
+def _seeded(fn, dev):
+    """``fn`` whose trailing generator argument is made from a seed, so
+    that two calls with one seed draw the same numbers."""
+    import torch
+
+    def call(*args):
+        *head, seed = args
+        return fn(*head, torch.Generator(device=dev).manual_seed(seed))
+    return call
+
+
 def tree_phase(dev):
     """The multi-leaf server phase on the ``--full`` tree through
     ``torch_packed_bench``'s builders: packed (cold, sampled bootstrap),
     persisted (the legacy two-pass round), persisted_ef, fused_stats
-    (checked on its sixth carried round), adaptive, async and sanitize.
+    (checked on its sixth carried round), adaptive, async, sanitize, and
+    the scenario rows chaos (corruption and fade erasures) and channel
+    (the per-block fading chain, outage erasures and the CSI factor).
     Each round makes one ``fairk_update`` launch; a persisted round 1 pack
     and 1 unpack (the re-packing one 3 and 2); ``G_READS`` 1 on the fused
     rounds, 3 on the legacy ones; pads are never selected and keep age −1;
@@ -1776,10 +2143,13 @@ def tree_phase(dev):
         adaptive, _ = bench.build_adaptive_fn(tree, kernel_mode=mode)
         async_fn, _, _ = bench.build_async_fn(tree, kernel_mode=mode)
         sanitize, _ = bench.build_sanitize_fn(tree, kernel_mode=mode)
+        chaos, _ = bench.build_chaos_fn(tree, kernel_mode=mode)
+        chan_fn, _, _ = bench.build_channel_fn(tree, kernel_mode=mode)
         return {"packed": packed_fn, "persisted": pers,
                 "persisted_ef": pers_ef, "fused_stats": fused,
                 "adaptive": adaptive, "async": async_fn,
-                "sanitize": sanitize}
+                "sanitize": sanitize, "chaos": _seeded(chaos, dev),
+                "channel": _seeded(chan_fn, dev)}
 
     kern, plain = builders(None), builders("plain")
     # five carried fused rounds: the sixth is the one checked and timed
@@ -1790,14 +2160,18 @@ def tree_phase(dev):
                                                       None, ts_f)
     cvec = controller.controller_state_to_vec(
         controller.init_controller_state(0.75, dev))
+    _, fad0, _ = bench.build_channel_fn(tree)
     args = {"packed": (tree, g_prev, age, None),
             "persisted": (tree, gp_flat, age_flat, None, None),
             "persisted_ef": (tree, gp_flat, age_flat, res_flat, None),
             "fused_stats": (tree, gp_w, age_w, None, ts_f),
             "adaptive": (tree, gp_w, age_w, ts_f, cvec),
             "async": (tree, gp_w, age_w, ts_f, gp_w, gp_w),
-            "sanitize": (tree, gp_w, age_w, ts_f)}
-    fused_rows = ("fused_stats", "adaptive", "async", "sanitize")
+            "sanitize": (tree, gp_w, age_w, ts_f),
+            "chaos": (tree, gp_w, age_w, ts_f, 7),
+            "channel": (tree, gp_w, age_w, ts_f, fad0, 9)}
+    fused_rows = ("fused_stats", "adaptive", "async", "sanitize", "chaos",
+                  "channel")
     launches = dict.fromkeys(KERNELS, 0)
     summary = {"streak_after_5": float(ts_f["streak"]), "k": k}
     for name, fn in kern.items():
@@ -1819,7 +2193,11 @@ def tree_phase(dev):
             check(bool((out[2][pads] == packing.PAD_AGE).all()),
                   f"tree {name}: a pad was selected or lost its age -1")
         ts_out = out[{"packed": 2, "adaptive": 3, "async": 3,
-                      "sanitize": 3}.get(name, 4)]
+                      "sanitize": 3, "chaos": 3, "channel": 3}.get(name, 4)]
+        if name in ("chaos", "channel"):
+            # erased and corrupted coordinates are never merged
+            check(bool(torch.isfinite(out[1]).all()),
+                  f"tree {name}: a non-finite value was merged")
         n_sel = float(ts_out["n_sel"])
         check(0 < n_sel <= lay.d_valid, f"tree {name}: selected {n_sel}")
         if name == "async":
@@ -1975,6 +2353,7 @@ def main(argv) -> None:
     by_path["threshold"], threshold_summary = threshold_phase(dev, task)
     by_path["async"], async_summary = async_phase(dev, task)
     by_path["scan_rounds"], scan_summary = scan_phase(dev, task)
+    by_path["scenario"], scenario_summary = scenario_phase(dev, task)
     by_path["tree"], tree_summary = tree_phase(dev)
     by_path["engine_1e8"], engine_big_summary = engine_big_phase(dev)
     launches = {key: sum(p[key] for p in by_path.values())
@@ -2023,6 +2402,8 @@ def main(argv) -> None:
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"],
                         "variant": variant,
+                        "checked_variants": [v for v in records
+                                             if v.startswith(name + "[")],
                         "launches_by_path": {p: c[name]
                                              for p, c in by_path.items()}})
     out_dir = ROOT / "chiprun_out"
@@ -2034,7 +2415,8 @@ def main(argv) -> None:
          "engine": engine_summary, "adaptive": adaptive_summary,
          "figures": figures_summary, "sweep": sweep_summary,
          "threshold": threshold_summary, "async": async_summary,
-         "scan_rounds": scan_summary, "tree": tree_summary,
+         "scan_rounds": scan_summary, "scenario": scenario_summary,
+         "tree": tree_summary,
          "engine_1e8": engine_big_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},

@@ -24,8 +24,19 @@ and, per round, the Rayleigh fading ``h`` (N,), the standard-normal noise
 ``z`` (d,) and the uniform ``u`` (d,) of the randk lanes — are given as
 tensors (``draws``), or come from one ``torch.Generator`` per seed (lanes
 with the same seed share their draws, as the reference's lanes share their
-key).  The fault, population and wireless scenario lanes are not ported
-yet.
+key).
+
+Scenario lanes (``faults``, ``population``, ``wireless``, shared by every
+lane): iid dropout (a fresh Gilbert–Elliott draw each round, no carried
+chain), a virtual population per lane carried through the rounds, or a
+per-lane AR(1) fading chain with truncated inversion.  The gates thin the
+superposition, which rescales by the realised participation; corruption,
+churn and fade blocks and a round with no participant knock their
+coordinates out of the rank-form mask before the round's one
+``aou_merge`` launch (stale value kept, age climbing).  Population lanes
+replace the iid dropout draw.  Their draws are given per lane and round
+as well: ``av``, ``fd``, ``nz``, ``pop`` and ``participants``, ``er``,
+``fad``, ``csi``, and the initial ``pop0`` and ``fad0``.
 """
 
 from __future__ import annotations
@@ -37,8 +48,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import channel as chan
 from repro_torch.core import controller as budget
+from repro_torch.core import faults as fault_mod
 from repro_torch.core import oac, packing
+from repro_torch.core import population as pop_mod
 from repro_torch.core.engine import (fair_k_mask_dynamic, km_frac_of,
                                      traced_km)
 from repro_torch.device import DeviceLike, resolve_device
@@ -52,14 +66,10 @@ SWEEP_POLICIES = {"fairk": POLICY_FAIRK, "topk": POLICY_FAIRK,
                   "roundrobin": POLICY_FAIRK, "randk": POLICY_RANDK,
                   "fairk_auto": POLICY_FAIRK}
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {item})"
-
-
 @dataclasses.dataclass(frozen=True)
 class SweepConfig:
-    """One synthetic OAC-FL scenario shared by every lane (field names and
-    defaults of ``repro.fl.sweep.SweepConfig``; the scenario fields
-    ``faults``, ``population`` and ``wireless`` default to None, off)."""
+    """One synthetic OAC-FL scenario shared by every lane (field names,
+    defaults and checks of ``repro.fl.sweep.SweepConfig``)."""
     d: int = 1024
     n_clients: int = 16
     rho: float = 0.2
@@ -74,9 +84,9 @@ class SweepConfig:
     error_feedback: bool = False
     async_lag: int = 0
     controller: budget.ControllerConfig = budget.ControllerConfig()
-    faults: Any = None
-    population: Any = None
-    wireless: Any = None
+    faults: fault_mod.FaultConfig = fault_mod.FaultConfig()
+    population: Optional[pop_mod.PopulationConfig] = None
+    wireless: Optional[chan.ChannelConfig] = None
     client_chunk: Optional[int] = None
 
     def __post_init__(self):
@@ -87,21 +97,34 @@ class SweepConfig:
                     f"client_chunk={self.client_chunk} must be in "
                     f"[1, n_clients] and divide "
                     f"n_clients={self.n_clients}")
+        if self.wireless is not None:
+            if self.wireless.n_clients != self.n_clients:
+                raise ValueError(
+                    "the wireless deployment covers the sweep's compute "
+                    f"clients: wireless.n_clients="
+                    f"{self.wireless.n_clients} must equal "
+                    f"n_clients={self.n_clients}")
+        if self.population is not None:
+            if self.population.participants != self.n_clients:
+                raise ValueError(
+                    "the sweep's compute clients ARE the sampled cohort: "
+                    f"population.participants="
+                    f"{self.population.participants} must equal "
+                    f"n_clients={self.n_clients}")
+            if self.faults.dropout > 0.0:
+                raise ValueError(
+                    "population availability and FaultConfig.dropout are "
+                    "two availability processes gating the same "
+                    "superposition — run one at a time")
 
     @property
     def k(self) -> int:
         return max(1, int(round(self.rho * self.d)))
 
-
-def check_supported(cfg: SweepConfig) -> None:
-    """Raise ``NotImplementedError`` for the scenario lanes."""
-    for bad, what, item in (
-            (cfg.faults is not None, "fault injection", 8),
-            (cfg.population is not None, "the client population", 8),
-            (cfg.wireless is not None, "the wireless channel", 8)):
-        if bad:
-            raise NotImplementedError(f"{what} in the sweep "
-                                      + _NOT_PORTED.format(item=item))
+    @property
+    def scenario(self) -> bool:
+        return (self.faults.enabled or self.population is not None
+                or self.wireless is not None)
 
 
 def sweep_grid(policies: Sequence[str], k_m_fracs: Sequence[float],
@@ -139,16 +162,27 @@ def sweep_grid(policies: Sequence[str], k_m_fracs: Sequence[float],
             labels)
 
 
+ROUND_KEYS = ("h", "z", "u", "av", "fd", "nz", "pop", "participants", "er",
+              "fad", "csi")
+
+
 def draw_lanes(cfg: SweepConfig, seeds: np.ndarray, device
                ) -> Dict[str, Tensor]:
     """Every lane's draws from one ``torch.Generator`` per distinct seed:
     ``w_stars`` (lanes, N, d) = shared·N(0, 1)^d + hetero·N(0, 1)^{N×d};
     per round ``h`` (lanes, rounds, N) Rayleigh with mean ``fading_mean``,
     ``z`` (lanes, rounds, d) standard normal and ``u`` (lanes, rounds, d)
-    uniform in [0, 1)."""
+    uniform in [0, 1); then the scenario's: ``av`` (.., N) dropout
+    uniforms (no population), ``fd`` (.., ⌈d/fade_block⌉) and ``nz``
+    (.., d) fault uniforms, ``pop`` (.., n_virtual) uniforms and
+    ``participants`` (.., N) int64 ids with the initial ``pop0`` (lanes,
+    n_virtual), ``er`` (.., ⌈d/erase_block⌉) churn uniforms, ``fad`` (..,
+    N, 2) and ``csi`` (.., N) normals with the initial ``fad0`` (lanes, N,
+    2)."""
     uniq = sorted(set(int(s) for s in seeds))
     per_seed = {}
     r, n, d = cfg.rounds, cfg.n_clients, cfg.d
+    fc, pc, wc = cfg.faults, cfg.population, cfg.wireless
     scale = cfg.fading_mean / math.sqrt(math.pi / 2.0)
     for s in uniq:
         gen = torch.Generator(device=device)
@@ -164,11 +198,28 @@ def draw_lanes(cfg: SweepConfig, seeds: np.ndarray, device
 
         w_stars = cfg.shared * normal(d)[None, :] + cfg.hetero * normal(n, d)
         h = scale * torch.sqrt(-2.0 * torch.log1p(-uniform(r, n)))
-        per_seed[s] = {"w_stars": w_stars, "h": h, "z": normal(r, d),
-                       "u": uniform(r, d)}
+        lane = {"w_stars": w_stars, "h": h, "z": normal(r, d),
+                "u": uniform(r, d)}
+        if fc.enabled and pc is None:
+            lane["av"] = uniform(r, n)
+        if fc.fade > 0.0:
+            lane["fd"] = uniform(r, -(-d // fc.fade_block))
+        if fc.nan_rate > 0.0:
+            lane["nz"] = uniform(r, d)
+        if pc is not None:
+            lane["pop0"] = uniform(pc.n_clients)
+            lane["pop"], lane["participants"] = pop_mod.draw_round(
+                gen, pc, device, (r,))
+            lane["er"] = uniform(r, -(-d // pc.erase_block))
+        if wc is not None:
+            lane["fad0"] = normal(n, 2)
+            lane["fad"] = normal(r, n, 2)
+            if wc.csi_err > 0.0:
+                lane["csi"] = normal(r, n)
+        per_seed[s] = lane
     lane_of = [per_seed[int(s)] for s in seeds]
     return {key: torch.stack([lane[key] for lane in lane_of])
-            for key in ("w_stars", "h", "z", "u")}
+            for key in lane_of[0]}
 
 
 def _hist_lanes(g_t: Tensor, age_next: Tensor) -> Tensor:
@@ -179,40 +230,90 @@ def _hist_lanes(g_t: Tensor, age_next: Tensor) -> Tensor:
 
 
 def _one_round(cfg: SweepConfig, ctrl: budget.BudgetController, carry,
-               h: Tensor, z: Tensor, u: Optional[Tensor], randk: Tensor,
-               k_m0: Tensor, adapt: Optional[Tensor],
-               kernel_mode: Optional[str] = None):
+               dr: Dict[str, Tensor], randk: Tensor, k_m0: Tensor,
+               adapt: Optional[Tensor], kernel_mode: Optional[str] = None):
     """One OAC-FL round of every lane -> ``(carry', metrics)``.
 
-    ``carry = (w, g_prev, age, res, cs, w_stars)``: (lanes, d) buffers,
-    the (lanes,) controller state and the (lanes, N, d) client optima.
-    ``h`` (lanes, N), ``z`` (lanes, d) and ``u`` (lanes, d; None when no
-    lane is randk) are this round's draws; ``adapt`` marks the
+    ``carry = (w, g_prev, age, res, cs, w_stars, pstate, chstate)``:
+    (lanes, d) buffers, the (lanes,) controller state, the (lanes, N, d)
+    client optima and the lanes' population and fading states (None
+    without that scenario).  ``dr`` holds this round's draws, (lanes, ...)
+    each: ``h`` (N), ``z`` (d), ``u`` (d; absent when no lane is randk)
+    and the scenario's (see ``draw_lanes``); ``adapt`` marks the
     ``fairk_auto`` lanes (None: none is), whose k_M comes from their
     controller, the others keeping ``k_m0``."""
-    w, g_prev, age, res, cs, w_stars = carry
+    w, g_prev, age, res, cs, w_stars, pstate, chstate = carry
     lanes, n, d, k = w.shape[0], cfg.n_clients, cfg.d, cfg.k
+    fc, has_pop, has_wl = cfg.faults, cfg.population is not None, (
+        cfg.wireless is not None)
     k_m = (torch.where(adapt, traced_km(k, cs["k_m_frac"]), k_m0)
            if adapt is not None else k_m0)
     # selection (Eq. 11) scored on the last reconstructed gradient
+    u = dr.get("u")
     score = g_prev.abs() if u is None else torch.where(randk, u,
                                                        g_prev.abs())
     mask = fair_k_mask_dynamic(score, age, k, k_m.to(torch.int64)[:, None])
     # H closed-form local SGD steps on f_n(w) = ½‖w − w*_n‖² give the
     # accumulated gradient shrink·(w − w*_n) (Eq. 5), superposed through
-    # the fading chunk by chunk (Eq. 7)
+    # the per-client weights chunk by chunk (Eq. 7)
     shrink = (1.0 - (1.0 - cfg.local_lr) ** cfg.local_steps) / cfg.local_lr
     chunk = cfg.client_chunk if cfg.client_chunk is not None else n
-    agg = torch.zeros(lanes, d, dtype=torch.float32, device=w.device)
-    for c0 in range(0, n, chunk):
-        grads = shrink * (w[:, None, :] - w_stars[:, c0:c0 + chunk])
-        agg = agg + torch.einsum("ln,lnd->ld", h[:, c0:c0 + chunk], grads)
-    agg = agg * oac.reciprocal(n)
+
+    def superpose(wv):
+        acc = torch.zeros(lanes, d, dtype=torch.float32, device=w.device)
+        for c0 in range(0, n, chunk):
+            grads = shrink * (w[:, None, :] - w_stars[:, c0:c0 + chunk])
+            acc = acc + torch.einsum("ln,lnd->ld", wv[:, c0:c0 + chunk],
+                                     grads)
+        return acc
+
+    extra = {}
+    n_t = None
+    if has_wl:
+        # truncated inversion: the survivor gate (times the CSI error)
+        # replaces the iid fading; availability composes before it
+        chstate, cps = chan.channel_round(chstate, dr["fad"], cfg.wireless)
+        gate = cps["sent"]
+        wv_scale = (chan.csi_weights(dr["csi"], cfg.wireless)
+                    if "csi" in dr else torch.ones_like(gate))
+        extra["n_sent"] = cps["n_sent"]
+    else:
+        gate, wv_scale = None, dr["h"]
+    if has_pop:
+        pstate, ps = pop_mod.population_round(
+            pstate, dr["pop"], dr["participants"], cfg.population)
+        part = ps["part"]
+        extra["n_t"], extra["churn"] = ps["n_t"], ps["churn"]
+    elif fc.enabled:
+        part = fault_mod.init_avail_state(dr["av"], fc)
+    else:
+        part = None
+    if part is not None:
+        gate = part if gate is None else part * gate
+    if gate is not None:
+        n_t = gate.sum(-1)[:, None]
+        agg = fault_mod.participation_scale(superpose(wv_scale * gate), n_t)
+    else:
+        agg = superpose(wv_scale) * oac.reciprocal(n)
+    if cfg.scenario:
+        # corruption, churn and fade blocks and a total outage knock their
+        # coordinates out of the mask: unsent, stale value kept
+        agg = fault_mod.corrupt(agg, dr.get("nz"), fc)
+        erase = torch.zeros_like(agg)
+        if has_pop:
+            erase = torch.maximum(erase, pop_mod.churn_erase_mask(
+                dr["er"], d, ps["churn"][:, None], cfg.population))
+        if fc.fade > 0.0:
+            erase = torch.maximum(erase, fault_mod.fade_mask(dr["fd"], d, fc))
+        erase = fault_mod.erase_with_outage(erase, n_t)
+        bad = (erase > 0.0) | ~torch.isfinite(agg)
+        agg = torch.where(bad, 0.0, agg)
+        mask = mask * (1.0 - bad.to(torch.float32))
     if cfg.error_feedback:
         # server-side EF: the unsent aggregate mass folds back pre-merge
         agg = agg + res
         res = (1.0 - mask) * agg
-    noise = (cfg.noise_std / n) * z
+    noise = (cfg.noise_std / n) * dr["z"]
     # Eqs. 8 and 10 over every lane: one aou_merge launch
     g_flat, age_flat = ops.aou_merge(
         (agg + noise).reshape(-1), g_prev.reshape(-1), age.reshape(-1),
@@ -235,8 +336,8 @@ def _one_round(cfg: SweepConfig, ctrl: budget.BudgetController, carry,
                "mean_age": age_next.mean(-1),
                "max_age": age_next.max(-1).values,
                "frac_fresh": mask.mean(-1), "res_norm": res.abs().mean(-1),
-               "km_frac": km_frac_of(k_m, k)}
-    return (w_next, g_t, age_next, res, cs, w_stars), metrics
+               "km_frac": km_frac_of(k_m, k), **extra}
+    return (w_next, g_t, age_next, res, cs, w_stars, pstate, chstate), metrics
 
 
 def run_grid(cfg: SweepConfig, seeds, policy_ids, k_ms, adaptives,
@@ -245,9 +346,10 @@ def run_grid(cfg: SweepConfig, seeds, policy_ids, k_ms, adaptives,
              ) -> Dict[str, Tensor]:
     """Advance every lane ``cfg.rounds`` rounds -> per-lane, per-round
     metric tensors (lanes, rounds) on the device: ``loss``, ``mean_age``,
-    ``max_age``, ``frac_fresh``, ``res_norm``, ``km_frac``.  ``draws``:
-    ``draw_lanes``' dict (any array type), or None to draw it here."""
-    check_supported(cfg)
+    ``max_age``, ``frac_fresh``, ``res_norm``, ``km_frac`` (and ``n_t``,
+    ``churn`` with a population, ``n_sent`` with the wireless channel).
+    ``draws``: ``draw_lanes``' dict (any array type), or None to draw it
+    here."""
     dev = resolve_device(device)
 
     def lane(a, dtype):
@@ -259,24 +361,37 @@ def run_grid(cfg: SweepConfig, seeds, policy_ids, k_ms, adaptives,
              if np.asarray(adaptives).any() else None)
     if draws is None:
         draws = draw_lanes(cfg, np.asarray(seeds), dev)
-    draws = {key: torch.as_tensor(v if isinstance(v, Tensor)
-                                  else np.asarray(v), dtype=torch.float32,
-                                  device=dev)
-             for key, v in draws.items()}
+    draws = {key: torch.as_tensor(
+        v if isinstance(v, Tensor) else np.asarray(v),
+        dtype=torch.int64 if key == "participants" else torch.float32,
+        device=dev) for key, v in draws.items()}
     # a randk lane's magnitude score is its uniform draw
-    u = draws["u"] if bool(randk.any()) else None
+    if not bool(randk.any()):
+        draws.pop("u", None)
     zeros = torch.zeros(k_m0.shape[0], cfg.d, dtype=torch.float32,
                         device=dev)
     cs = budget.init_controller_state(km_frac_of(k_m0, cfg.k), dev)
-    carry = (zeros, zeros, zeros, zeros, cs, draws["w_stars"])
+    pstate = (pop_mod.init_population_state(draws["pop0"], cfg.population)
+              if cfg.population is not None else None)
+    chstate = (chan.init_channel_state(draws["fad0"], cfg.wireless)
+               if cfg.wireless is not None else None)
+    carry = (zeros, zeros, zeros, zeros, cs, draws["w_stars"], pstate,
+             chstate)
+    # faults, churn and truncation outage block refreshes independently:
+    # the controller's thinning is their sum
+    thin = min(0.99, (cfg.faults.thin if cfg.faults.enabled else 0.0)
+               + (cfg.population.thin if cfg.population is not None
+                  else 0.0)
+               + (cfg.wireless.thin if cfg.wireless is not None else 0.0))
     ctrl = budget.BudgetController(cfg.controller, rho=cfg.rho,
-                                   age_offset=float(cfg.async_lag))
+                                   age_offset=float(cfg.async_lag),
+                                   thin=thin)
+    per_round = [key for key in ROUND_KEYS if key in draws]
     metrics = []
     for t in range(cfg.rounds):
-        carry, m = _one_round(cfg, ctrl, carry, draws["h"][:, t],
-                              draws["z"][:, t],
-                              None if u is None else u[:, t], randk, k_m0,
-                              adapt, kernel_mode)
+        carry, m = _one_round(cfg, ctrl, carry,
+                              {key: draws[key][:, t] for key in per_round},
+                              randk, k_m0, adapt, kernel_mode)
         metrics.append(m)
     return {key: torch.stack([m[key] for m in metrics], dim=1)
             for key in metrics[0]}
@@ -291,7 +406,6 @@ def run_sweep(cfg: SweepConfig, policies: Sequence[str] = ("fairk",),
     shape (lanes, rounds) plus the lane ``labels`` ``(policy, frac,
     seed)``.  ``draws`` as in ``draw_lanes`` (lane order of
     ``sweep_grid``), or None for the per-seed generators."""
-    check_supported(cfg)
     seeds, pids, kms, adaptives, labels = sweep_grid(policies, k_m_fracs,
                                                      n_seeds, cfg)
     metrics = run_grid(cfg, seeds, pids, kms, adaptives, draws=draws,

@@ -46,13 +46,31 @@ runs the rounds in chunks cut at eval rounds, each chunk's client batches
 staged in one pinned host buffer and sent in one copy; it walks the
 per-round loop's trajectory bit for bit.
 
+Scenario rounds (``faults``, ``population``, ``wireless``; DESIGN.md
+§14–16): every backend takes the dense route — the exact one too, with
+the engine's noise and statistics on.  The per-client gates (fading,
+Gilbert–Elliott availability or the population's participation, the
+channel's survivors times their CSI error) compose into one (N,) weight
+row, the superposition rescales by the realised participation
+(``faults.participation_scale``), corruption hits the aggregate, churn and
+fade blocks erase, a round with no participant erases everything, and
+``select_and_merge`` runs sanitized.  The one-bit wireless round weights
+each client's votes by ``sent · csi`` inside the fold (``ops.vote_fold``'s
+``row``: one ``sign_mv`` launch per chunk).  The watchdog
+(``faults.watchdog_step``) observes the loss on the first client's first
+batch and ``‖g_t‖`` after the round, rolls every carried buffer back to
+its shadow snapshot on a trip and tightens the split during its cooldown;
+all of it with ``torch.where``, no host sync.  The carried state is
+``init_fault_state``'s ``fstate``.
+
 Randomness: PyTorch cannot reproduce JAX's threefry streams, so a round
 takes its draws as tensors (``draw_round``): the fading ``h`` (N,) on the
 coherent uplink, the standard-normal channel noise ``z`` — (d,) on the
-threshold and packed backends, (k,) on the exact one — and, for
-``toprand`` / ``randk``, the uniform selection draw ``u`` (d,).
-``train`` draws them from a ``torch.Generator`` seeded with ``fl.seed``;
-the tests hand both packages the same numbers.
+dense route, (k,) on the exact one — and, for ``toprand`` / ``randk``,
+the uniform selection draw ``u`` (d,); a scenario round adds its named
+draws (``av``, ``fd``, ``nz``, ``pop`` and ``participants``, ``er``,
+``fad``, ``csi``).  ``train`` draws them from a ``torch.Generator``
+seeded with ``fl.seed``; the tests hand both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -64,8 +82,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import channel as chan
 from repro_torch.core import controller as budget
-from repro_torch.core import oac, packing, quantize, selection
+from repro_torch.core import faults, oac, packing, population, quantize
+from repro_torch.core import selection
 from repro_torch.core.engine import (EngineConfig, SelectionEngine,
                                      budgets_for)
 from repro_torch.core.oac import ChannelConfig
@@ -75,14 +95,10 @@ from repro_torch.models.cnn import ravel_params
 
 Tensor = torch.Tensor
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {item})"
-
 
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
-    """Field names and defaults of ``repro.fl.trainer.FLConfig``.  The
-    field whose JAX default is an object of a module not ported yet
-    (``faults``) defaults to None here, meaning off."""
+    """Field names and defaults of ``repro.fl.trainer.FLConfig``."""
     n_clients: int = 50
     local_steps: int = 5            # H
     batch_size: int = 50            # B
@@ -96,9 +112,9 @@ class FLConfig:
     r_frac: float = 1.5
     channel: ChannelConfig = oac.PAPER_DEFAULT
     one_bit: bool = False           # FSK-MV prototype uplink (Sec. V-B)
-    error_feedback: bool = False    # client-side on exact, server-side on
-                                    # threshold/packed (one-bit:
-                                    # client-side too)
+    error_feedback: bool = False    # client-side on the exact round and on
+                                    # one-bit, server-side (in the fused
+                                    # pass or the engine) otherwise
     adaptive_km: bool = False       # the adaptive split; "fairk_auto"
                                     # is an alias
     async_lag: int = 0              # rounds a selected contribution
@@ -106,16 +122,44 @@ class FLConfig:
     scan_rounds: int = 0            # rounds per staged chunk (0/1: per
                                     # round)
     controller: budget.ControllerConfig = budget.ControllerConfig()
-    faults: Any = None
-    watchdog: Any = None
-    population: Any = None
-    wireless: Any = None
+    faults: faults.FaultConfig = faults.FaultConfig()
+                                    # Gilbert–Elliott dropout, deep-fade
+                                    # erasures, NaN/Inf corruption (all
+                                    # zero: off)
+    watchdog: Optional[faults.WatchdogConfig] = None
+                                    # divergence watchdog: rollback to a
+                                    # shadow snapshot, tightened k_M
+    population: Optional[population.PopulationConfig] = None
+                                    # the N clients are each round's
+                                    # cohort of a virtual population
+                                    # (participants == n_clients)
+    wireless: Optional[chan.ChannelConfig] = None
+                                    # geometric channel: per-client AR(1)
+                                    # fading, truncated inversion, CSI
+                                    # error (replaces ``channel``'s fading;
+                                    # its noise_std stays)
     client_chunk: Optional[int] = None
     seed: int = 0
 
     @property
     def adaptive(self) -> bool:
         return self.adaptive_km or self.policy == "fairk_auto"
+
+    @property
+    def chaos(self) -> bool:
+        return self.faults.enabled
+
+    @property
+    def scenario(self) -> bool:
+        """Faults, a population or the wireless channel: the round takes
+        the dense sanitized route on every backend."""
+        return self.chaos or self.population is not None or (
+            self.wireless is not None)
+
+    @property
+    def stateful(self) -> bool:
+        """The round carries ``fstate`` (``init_fault_state``)."""
+        return self.scenario or self.watchdog is not None
 
     def budgets(self, d: int) -> Tuple[int, int, int]:
         """(k, k_M, r) — the engine's rounding and Remark-1 pinning."""
@@ -139,27 +183,58 @@ class ServerState:
     round: int = 0
 
 
-def check_supported(fl: FLConfig) -> None:
-    """Raise ``ValueError`` for an unknown backend or a negative lag, and
-    ``NotImplementedError`` for the scenario layers not ported yet."""
+def validate(fl: FLConfig) -> None:
+    """The reference's ``make_fl_step`` checks: ``ValueError`` for an
+    unknown backend, a negative lag, an adaptive or watchdog run off
+    FAIR-k, a scenario with an index-form policy, chaos or a population on
+    the one-bit uplink, a wireless deployment of another size, a
+    population whose cohort is not the N clients or that runs beside
+    ``faults.dropout``, and a chunk that does not divide N."""
     if fl.backend not in ("exact", "threshold", "packed"):
         raise ValueError(f"FLConfig.backend must be exact|threshold|packed, "
                          f"got {fl.backend!r}")
+    if fl.adaptive and fl.policy not in ("fairk", "fairk_auto"):
+        raise ValueError("adaptive_km moves the FAIR-k split — policy "
+                         f"{fl.policy!r} pins or ignores it")
     if fl.async_lag < 0:
         raise ValueError(f"async_lag must be >= 0, got {fl.async_lag}")
-    unsupported = [
-        (fl.faults is not None, "fault injection "
-         + _NOT_PORTED.format(item=8)),
-        (fl.watchdog is not None, "the watchdog "
-         + _NOT_PORTED.format(item=8)),
-        (fl.population is not None, "the client population "
-         + _NOT_PORTED.format(item=8)),
-        (fl.wireless is not None, "the wireless channel "
-         + _NOT_PORTED.format(item=8)),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(what)
+    pop, wl = fl.population is not None, fl.wireless is not None
+    if fl.chaos and fl.one_bit:
+        raise ValueError("fault injection on the one-bit FSK-MV uplink is "
+                         "not modelled — run chaos with one_bit=False")
+    if fl.scenario and fl.policy not in ("fairk", "topk", "roundrobin",
+                                         "fairk_auto"):
+        raise ValueError("chaos/population/wireless rounds run selection "
+                         f"in sanitized threshold/rank form — policy "
+                         f"{fl.policy!r} needs index arithmetic")
+    if wl and fl.wireless.n_clients != fl.n_clients:
+        raise ValueError(
+            "the wireless deployment covers the compute clients: "
+            f"wireless.n_clients={fl.wireless.n_clients} must equal "
+            f"n_clients={fl.n_clients}")
+    if pop:
+        if fl.population.participants != fl.n_clients:
+            raise ValueError(
+                "the FL sim's compute clients ARE the sampled cohort: "
+                f"population.participants={fl.population.participants} "
+                f"must equal n_clients={fl.n_clients}")
+        if fl.faults.dropout > 0.0:
+            raise ValueError(
+                "population availability and FaultConfig.dropout are two "
+                "availability processes gating the same superposition — "
+                "run one at a time (fade/nan_rate compose fine)")
+        if fl.one_bit:
+            raise ValueError("population churn on the one-bit FSK-MV "
+                             "uplink is not modelled — run population "
+                             "with one_bit=False")
+    if fl.watchdog is not None and fl.policy not in ("fairk", "fairk_auto"):
+        raise ValueError("the watchdog tightens the FAIR-k split — policy "
+                         f"{fl.policy!r} pins or ignores it")
+    chunk = fl.client_chunk if fl.client_chunk is not None else fl.n_clients
+    if not 1 <= chunk <= fl.n_clients or fl.n_clients % chunk:
+        raise ValueError(f"client_chunk={fl.client_chunk} must be in "
+                         f"[1, n_clients] and divide n_clients="
+                         f"{fl.n_clients}")
 
 
 def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
@@ -168,61 +243,76 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
     """Build the one-round function
 
         fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate, draws,
-                 cstate=None)
+                 cstate=None, fstate=None)
           -> (w', g_t, age', sel_count', residual', sel_mask, tstate',
-              cstate', metrics)
+              cstate', metrics[, fstate'])
 
     ``loss_fn(params, x, y) -> scalar`` is the per-client loss on a
     parameter tree; ``xs``/``ys`` are (N, H, B, ...) tensors; ``draws``
     is one round of ``draw_round``; ``cstate`` is the controller state
     (``controller.init_controller_state``), needed with ``fl.adaptive``
-    and passed through otherwise.  ``kernel_mode`` goes to every kernel
-    dispatcher (``kernels.ops``).  ``fl_round.server_phase(w, agg, ef_sum,
-    g_prev, age, sel_count, residual, tstate, draws, idx=None,
-    cstate=None)`` is the round after the superposition, for feeding it an
-    aggregate computed elsewhere: on the exact backend ``agg`` is the (k,)
-    row at the selection ``idx`` (selected anew from ``(g_prev, age)`` and
-    the controller's split when None)."""
-    check_supported(fl)
+    and passed through otherwise.  With ``fl.stateful`` (faults, a
+    population, the wireless channel or the watchdog) the round takes the
+    carried ``fstate`` (``init_fault_state``) and returns it as a 10th
+    output.  ``kernel_mode`` goes to every kernel dispatcher
+    (``kernels.ops``).
+
+    ``fl_round.server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+    residual, tstate, draws, idx=None, cstate=None, k_scale=None)`` is
+    the round after the superposition, for feeding it an aggregate
+    computed elsewhere: on the exact route ``agg`` is the (k,) row at the
+    selection ``idx`` (selected anew from ``(g_prev, age)`` and the split
+    when None), on the dense route the (d,) aggregate (or the one-bit
+    vote energy), and the dense route's also takes ``erase=`` and
+    ``sanitize=`` for the engine; ``k_scale`` multiplies the split (the
+    watchdog's cooldown)."""
+    validate(fl)
     adaptive = fl.adaptive
-    if adaptive and fl.policy not in ("fairk", "fairk_auto"):
-        raise ValueError("adaptive_km moves the FAIR-k split — policy "
-                         f"{fl.policy!r} pins or ignores it")
     dev = resolve_device(device)
     set_numerics(dev)
     n, big_h, lr = fl.n_clients, fl.local_steps, fl.local_lr
     chunk = fl.client_chunk if fl.client_chunk is not None else n
-    if not 1 <= chunk <= n or n % chunk:
-        raise ValueError(f"client_chunk={fl.client_chunk} must be in "
-                         f"[1, n_clients] and divide n_clients={n}")
     k, k_m, r = fl.budgets(d)
     exact = fl.backend == "exact"
     packed = fl.backend == "packed"
     age_lag = fl.async_lag or None
+    chaos, scen, wdcfg = fl.chaos, fl.scenario, fl.watchdog
+    pop, wl = fl.population is not None, fl.wireless is not None
+    # the dense route: every client superposed over all d coordinates, one
+    # select_and_merge on the aggregate (threshold, packed, and the exact
+    # backend under a scenario); the exact route gathers at S_t first
+    dense = not exact or scen
     policy_name = "fairk" if fl.policy == "fairk_auto" else fl.policy
     engine = SelectionEngine(
         EngineConfig(policy=policy_name, backend=fl.backend, k=k, k_m=k_m,
                      r=r,
-                     # the exact round adds the channel noise to the (k,)
+                     # the exact route adds the channel noise to the (k,)
                      # aggregate, the one-bit uplink to the vote energy:
-                     # engine noise only on the threshold/packed coherent
-                     # round
-                     noise_std=(0.0 if fl.one_bit or exact
-                                else fl.channel.noise_std),
+                     # engine noise on the dense coherent route only
+                     noise_std=(fl.channel.noise_std
+                                if dense and not fl.one_bit else 0.0),
                      n_clients=n, kernel_mode=kernel_mode,
-                     fused_stats=not exact, warm_start=packed), d,
+                     # counts and histograms on every dense route (the
+                     # exact engine's come from the plain helper)
+                     fused_stats=dense, warm_start=packed), d,
         # the flat (d,) server vector: the one-leaf layout, no pads
         layout=(packing.PackedLayout.from_tree(
             torch.empty(d, device="meta"), lane=1) if packed else None))
     frac_static = k_m / k if k else 0.0
+    # fault channels, churn and truncation outage block refreshes
+    # independently per round: their thinning rates add
+    thin_total = min(0.99, (fl.faults.thin if chaos else 0.0)
+                     + (fl.population.thin if pop else 0.0)
+                     + (fl.wireless.thin if wl else 0.0))
     bctrl = (budget.BudgetController(fl.controller,
                                      rho=fl.compression_ratio,
-                                     age_offset=float(fl.async_lag))
+                                     age_offset=float(fl.async_lag),
+                                     thin=thin_total)
              if adaptive else None)
-    # client-side error feedback: the exact round (both uplinks) and the
-    # threshold/packed one-bit round; their coherent round folds the
-    # residual into the fused server pass instead
-    client_ef = fl.error_feedback and (exact or fl.one_bit)
+    # client-side error feedback: the exact route (both uplinks) and every
+    # one-bit round; the dense coherent round folds the residual into the
+    # server pass instead
+    client_ef = fl.error_feedback and (not dense or fl.one_bit)
 
     def flat_loss(w_flat: Tensor, x: Tensor, y: Tensor) -> Tensor:
         return loss_fn(unravel(w_flat), x, y)
@@ -237,13 +327,15 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
             w_c = w_c - lr * batched_grad(w_c, xs[:, s], ys[:, s])
         return (w.unsqueeze(0) - w_c) / lr
 
-    def clients_fold(w, xs, ys, residual, h, idx=None):
-        """Stream the clients chunk by chunk -> ``(agg, ef_sum)``.  Each
+    def clients_fold(w, xs, ys, residual, row, idx=None):
+        """Stream the clients chunk by chunk -> ``(acc, ef_sum)``.  Each
         chunk's gradients (EF-shifted by the residual under client-side
-        EF) are gathered at ``idx`` (exact) before they are reduced: the
-        faded sum ``Σ_n h_n ǧ_n`` (divided by N on the packed backend) or
-        the one-bit vote energy ``Σ_n sign(ǧ_n)``.  ``ef_sum`` is
-        ``Σ_n (ǧ_n + residual)`` under client-side EF, else None."""
+        EF) are gathered at ``idx`` (exact route) before they are reduced:
+        the weighted sum ``Σ_n row_n ǧ_n`` on the coherent uplink (``row``
+        the fading, or the scenario's gate row), the vote energy on the
+        one-bit uplink (``ops.vote_fold``, ``row`` the optional per-client
+        vote weight).  ``ef_sum`` is ``Σ_n (ǧ_n + residual)`` under
+        client-side EF, else None."""
         acc = torch.zeros(d if idx is None else idx.shape[0],
                           dtype=torch.float32, device=dev)
         ef_sum = (torch.zeros(d, dtype=torch.float32, device=dev)
@@ -251,27 +343,31 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
         for c0 in range(0, n, chunk):
             g = clients(w, xs[c0:c0 + chunk], ys[c0:c0 + chunk])
             eff = g + residual.unsqueeze(0) if client_ef else g
+            rc = None if row is None else row[c0:c0 + chunk]
             if fl.one_bit:
-                # quantize, gather at idx and add the ±1 vote counts into
-                # acc: one sign_mv kernel launch
-                ops.vote_fold(acc, eff, idx, mode=kernel_mode)
+                # quantize, weight, gather at idx and add the ±1 vote
+                # counts into acc: one sign_mv kernel launch
+                ops.vote_fold(acc, eff, idx, mode=kernel_mode, row=rc)
             else:
                 sent = eff if idx is None else eff[:, idx]
-                acc = acc + h[c0:c0 + chunk] @ sent
+                acc = acc + rc @ sent
             if client_ef:
                 ef_sum = ef_sum + eff.sum(dim=0)
-        if fl.one_bit or exact:
-            return acc, ef_sum
-        return acc * oac.reciprocal(n), ef_sum
+        return acc, ef_sum
 
-    def kmf_of(cstate):
-        """The round's split: the controller's live value, or None."""
-        if not adaptive:
-            return None
-        if cstate is None:
-            raise ValueError("an adaptive round needs the controller "
-                             "state cstate")
-        return cstate["k_m_frac"]
+    def round_kmf(cstate, k_scale):
+        """The round's split: the controller's live value (adaptive), the
+        static split under the watchdog's cooldown scale, or None."""
+        kmf = None
+        if adaptive:
+            if cstate is None:
+                raise ValueError("an adaptive round needs the controller "
+                                 "state cstate")
+            kmf = cstate["k_m_frac"]
+        if k_scale is not None:
+            kmf = (kmf if kmf is not None else torch.full(
+                (), frac_static, dtype=torch.float32, device=dev)) * k_scale
+        return kmf
 
     def tail(w, g_t, age_next, sel_mask, sel_count, residual, tstate,
              n_selected, cstate, kmf):
@@ -287,18 +383,19 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
 
     def exact_select(g_prev, age, draws, kmf):
         """S_t (Eq. 11) on ``(g_prev, age)``: the index form, or the rank
-        form at the controller's split."""
+        form at a traced split."""
         if kmf is not None:
             return engine.select_traced(g_prev, age, kmf)
         return engine.select(g_prev, age, draws.get("u"))
 
     def exact_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-                           residual, tstate, draws, idx=None, cstate=None):
+                           residual, tstate, draws, idx=None, cstate=None,
+                           k_scale=None):
         """The receiver tail on the (k,) row, the Eq. 8 scatter, the EF
         residual, the index-form Eq. 10 and the participation count (one
         ``aou_merge`` launch, which on the coherent uplink also applies
         Eq. 7's tail), the controller step, then the model step."""
-        kmf = kmf_of(cstate)
+        kmf = round_kmf(cstate, k_scale)
         if idx is None:
             idx = exact_select(g_prev, age, draws, kmf)
         if fl.one_bit:
@@ -329,13 +426,16 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                     tstate, torch.full((), float(k), device=dev), cstate,
                     kmf)
 
-    def packed_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-                            residual, tstate, draws, idx=None, cstate=None):
-        """One-bit detection, the fused FAIR-k pass (which selects: no
-        ``idx``), the EF residual, the controller step and the model
-        step (the threshold and packed backends; only the packed one reads
-        and returns the carried ``tstate``)."""
-        kmf = kmf_of(cstate)
+    def dense_server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+                           residual, tstate, draws, idx=None, cstate=None,
+                           k_scale=None, erase=None, sanitize=False):
+        """One-bit detection, then one ``select_and_merge`` on the whole
+        aggregate (the fused FAIR-k pass on threshold and packed, which
+        selects: no ``idx``; the sanitized rank form and the mask-form
+        ``aou_merge`` on exact), the EF residual, the controller step and
+        the model step (only the packed backend reads and returns the
+        carried ``tstate``)."""
+        kmf = round_kmf(cstate, k_scale)
         ts = tstate if packed else None
         if fl.one_bit:
             # one sign_from_energy launch: the noise noise_std·z, the
@@ -347,7 +447,8 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
                 score=True, mode=kernel_mode)
             g_t, age_next, stats = engine.select_and_merge(
                 score, g_prev, age, fresh=fresh_sign, tstate=ts,
-                k_m_frac=kmf, age_lag=age_lag)
+                k_m_frac=kmf, age_lag=age_lag, erase=erase,
+                sanitize=sanitize)
             # async rounds shift the refreshed ages, so the engine hands
             # the selection back
             sel_mask = (stats["sel_mask"] if age_lag
@@ -359,29 +460,152 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
             g_t, age_next, stats = engine.select_and_merge(
                 agg, g_prev, age, noise=draws.get("z"), tstate=ts,
                 residual=residual if fl.error_feedback else None,
-                k_m_frac=kmf, age_lag=age_lag)
+                k_m_frac=kmf, age_lag=age_lag, erase=erase,
+                sanitize=sanitize)
             sel_mask = (stats["sel_mask"] if age_lag
                         else (age_next == 0.0).to(torch.float32))
             if fl.error_feedback:
                 residual = stats["residual"]
         if adaptive:
-            # the controller reads the histograms the fused pass emitted
+            # the controller reads the histograms the server pass emitted
             cstate = bctrl.update(cstate, stats["age_hist"],
                                   stats["mag_hist"])
         return tail(w, g_t, age_next, sel_mask, sel_count + sel_mask,
                     residual, stats.get("tstate", tstate),
                     stats["n_selected"], cstate, kmf)
 
-    server_phase = exact_server_phase if exact else packed_server_phase
+    server_phase = dense_server_phase if dense else exact_server_phase
+
+    def dense_round(w, g_prev, age, sel_count, xs, ys, residual, tstate,
+                    draws, cstate, fstate, k_scale):
+        """The dense route.  Under a scenario every per-client gate
+        composes into one (N,) weight row before any gradient exists —
+        wireless: ``csi · sent · (participation | availability)``
+        (truncated inversion replaces the iid fading), population:
+        ``h · participation``, faults: ``h · availability`` — the
+        superposition rescales by the realised participation (guarded
+        1/n_t), corruption hits the aggregate, churn and fade blocks erase
+        (``max``), a round with no participant erases everything, and the
+        engine runs sanitized.  The one-bit wireless round weights each
+        client's votes by ``sent · csi`` inside the fold and erases the
+        round on a total outage."""
+        if scen:
+            fstate = dict(fstate)
+        if wl:
+            cnext, cps = chan.channel_round(fstate["chan"], draws["fad"],
+                                            fl.wireless)
+            fstate["chan"] = cnext
+            w_csi = (chan.csi_weights(draws["csi"], fl.wireless)
+                     if "csi" in draws else torch.ones(n, device=dev))
+        if fl.one_bit:
+            agg, ef_sum = clients_fold(w, xs, ys, residual,
+                                       cps["sent"] * w_csi if wl else None)
+            erase = (faults.erase_with_outage(
+                torch.zeros(d, dtype=torch.float32, device=dev),
+                cps["n_sent"]) if wl else None)
+            out = server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+                               residual, tstate, draws, cstate=cstate,
+                               erase=erase, sanitize=wl, k_scale=k_scale)
+            return out, fstate
+        n_t = None
+        if pop:
+            pnext, ps = population.population_round(
+                fstate["pop"], draws["pop"], draws["participants"],
+                fl.population)
+            fstate["pop"] = pnext
+        elif chaos:
+            avail = faults.avail_step(fstate["avail"], draws["av"],
+                                      fl.faults)
+            fstate["avail"] = avail
+        if wl:
+            gate = cps["sent"]
+            if pop:
+                gate = ps["part"] * gate
+            elif chaos:
+                gate = avail * gate
+            n_t = gate.sum()
+            wv = w_csi * gate
+        elif pop:
+            n_t = ps["n_t"]
+            wv = draws["h"] * ps["part"]
+        elif chaos:
+            n_t = avail.sum()
+            wv = draws["h"] * avail
+        else:
+            wv = draws["h"]
+        total, ef_sum = clients_fold(w, xs, ys, residual, wv)
+        # the realised-participation rescale (guarded 1/n_t) on the gated
+        # rounds, the plain 1/N average otherwise
+        fresh = (faults.participation_scale(total, n_t) if n_t is not None
+                 else total * oac.reciprocal(n))
+        erase = None
+        if scen:
+            if fl.faults.nan_rate > 0.0:
+                fresh = faults.corrupt(fresh, draws["nz"], fl.faults)
+            erase = torch.zeros(d, dtype=torch.float32, device=dev)
+            if pop:
+                erase = torch.maximum(erase, population.churn_erase_mask(
+                    draws["er"], d, ps["churn"], fl.population))
+            if fl.faults.fade > 0.0:
+                erase = torch.maximum(erase, faults.fade_mask(
+                    draws["fd"], d, fl.faults))
+            erase = faults.erase_with_outage(erase, n_t)
+        out = server_phase(w, fresh, ef_sum, g_prev, age, sel_count,
+                           residual, tstate, draws, cstate=cstate,
+                           erase=erase, sanitize=scen, k_scale=k_scale)
+        return out, fstate
+
+    def guard(out, fstate, xs, ys):
+        """The divergence watchdog: observe this round's loss on the first
+        client's first batch and ``‖g_t‖``; a trip (non-finite, or a spike
+        over the EMA) rolls every carried buffer back to the shadow
+        snapshot (``torch.where``: no host sync); healthy rounds out of
+        cooldown refresh the snapshot.  The AoU metrics are read from the
+        rolled-back ages, as the reference's are."""
+        (w_next, g_t, age_next, sel_count, residual, sel_mask, tstate,
+         cstate, metrics) = out
+        loss = loss_fn(unravel(w_next), xs[0, 0], ys[0, 0])
+        unorm = torch.linalg.vector_norm(g_t)
+        wd, trip, _ = faults.watchdog_step(wdcfg, fstate["wd"], loss, unorm)
+        live = (w_next, g_t, age_next, sel_count, residual, tstate, cstate)
+        rolled = faults.tree_select(trip, fstate["snap"], live)
+        healthy = ~trip & (wd["cooldown"] <= 0.0)
+        snap = faults.tree_select(healthy, rolled, fstate["snap"])
+        w_next, g_t, age_next, sel_count, residual, tstate, cstate = rolled
+        metrics = {**metrics, "mean_aou": age_next.mean(),
+                   "max_aou": age_next.max()}
+        return ((w_next, g_t, age_next, sel_count, residual, sel_mask,
+                 tstate, cstate, metrics),
+                {**fstate, "wd": wd, "snap": snap})
 
     def fl_round(w, g_prev, age, sel_count, xs, ys, residual, tstate,
-                 draws: Dict[str, Tensor], cstate=None):
-        # exact: S_t (Eq. 11) scores (g_prev, age), before the clients
-        idx = (exact_select(g_prev, age, draws, kmf_of(cstate)) if exact
-               else None)
-        agg, ef_sum = clients_fold(w, xs, ys, residual, draws.get("h"), idx)
-        return server_phase(w, agg, ef_sum, g_prev, age, sel_count,
-                            residual, tstate, draws, idx, cstate)
+                 draws: Dict[str, Tensor], cstate=None, fstate=None):
+        if fl.stateful and fstate is None:
+            raise ValueError("a faults / population / wireless / watchdog "
+                             "round needs the carried fstate "
+                             "(init_fault_state)")
+        k_scale = None
+        if wdcfg is not None:
+            # cooldown: the split shrinks by ``tighten`` (data, no sync)
+            k_scale = torch.where(fstate["wd"]["cooldown"] > 0.0,
+                                  float(np.float32(wdcfg.tighten)),
+                                  1.0).to(torch.float32)
+        if dense:
+            out, fstate = dense_round(w, g_prev, age, sel_count, xs, ys,
+                                      residual, tstate, draws, cstate,
+                                      fstate, k_scale)
+        else:
+            # exact: S_t (Eq. 11) scores (g_prev, age), before the clients
+            idx = exact_select(g_prev, age, draws,
+                               round_kmf(cstate, k_scale))
+            agg, ef_sum = clients_fold(w, xs, ys, residual, draws.get("h"),
+                                       idx)
+            out = server_phase(w, agg, ef_sum, g_prev, age, sel_count,
+                               residual, tstate, draws, idx, cstate,
+                               k_scale=k_scale)
+        if wdcfg is not None:
+            out, fstate = guard(out, fstate, xs, ys)
+        return out + (fstate,) if fl.stateful else out
 
     fl_round.server_phase = server_phase
     return fl_round
@@ -415,20 +639,88 @@ def _to(tree: Any, dev: torch.device) -> Any:
 
 def draw_round(gen: torch.Generator, fl: FLConfig, d: int,
                device: torch.device) -> Dict[str, Tensor]:
-    """One round's random numbers from ``gen``: ``h`` (N,) fading on the
-    coherent uplink; ``z`` standard-normal channel noise, (d,) on the
-    threshold/packed backends and (k,) on the exact one; on the exact
-    backend, ``u`` (d,) uniform in [0, 1) for ``toprand`` / ``randk``."""
-    exact = fl.backend == "exact"
+    """One round's random numbers from ``gen``, in the order of the
+    reference's named keys (``sel``, ``ch``, ``av``, ``fd``, ``nz``,
+    ``pop``, ``er``, ``fad``, ``csi``): ``h`` (N,) fading on the coherent
+    uplink (not on a wireless round); ``z`` standard-normal channel noise,
+    (d,) on the dense route and (k,) on the exact one; on the exact route
+    ``u`` (d,) uniform for ``toprand`` / ``randk``.  Faults: ``av`` (N,)
+    uniforms of the availability chain, ``fd`` (⌈d/fade_block⌉,) fade
+    uniforms, ``nz`` (d,) corruption uniforms; population: ``pop``
+    (n_virtual,) uniforms and ``participants`` (N,) int64 cohort ids, ``er``
+    (⌈d/erase_block⌉,) churn uniforms; wireless: ``fad`` (N, 2) standard
+    normals of the fading step, ``csi`` (N,) of the CSI error.  Only the
+    draws the configuration uses are made."""
+    n = fl.n_clients
+    dense = fl.backend != "exact" or fl.scenario
+    pop, wl, fc = fl.population, fl.wireless, fl.faults
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, dtype=torch.float32,
+                          device=device)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device)
+
     draws = {}
-    if not fl.one_bit:
-        draws["h"] = oac.sample_fading(gen, fl.n_clients, fl.channel, device)
-    draws["z"] = torch.randn(fl.budgets(d)[0] if exact else d, generator=gen,
-                             dtype=torch.float32, device=device)
-    if exact and fl.policy in selection.RANDOM_POLICIES:
-        draws["u"] = torch.rand(d, generator=gen, dtype=torch.float32,
-                                device=device)
+    if not fl.one_bit and wl is None:
+        draws["h"] = oac.sample_fading(gen, n, fl.channel, device)
+    draws["z"] = normal(d if dense else fl.budgets(d)[0])
+    if not dense and fl.policy in selection.RANDOM_POLICIES:
+        draws["u"] = uniform(d)
+    if fl.chaos and pop is None:
+        draws["av"] = uniform(n)
+    if fc.fade > 0.0:
+        draws["fd"] = uniform(-(-d // fc.fade_block))
+    if fc.nan_rate > 0.0:
+        draws["nz"] = uniform(d)
+    if pop is not None:
+        draws["pop"], draws["participants"] = population.draw_round(
+            gen, pop, device)
+        draws["er"] = uniform(-(-d // pop.erase_block))
+    if wl is not None:
+        draws["fad"] = normal(n, 2)
+        if wl.csi_err > 0.0:
+            draws["csi"] = normal(n)
     return draws
+
+
+def init_fault_state(fl: FLConfig, state: ServerState) -> Dict[str, Any]:
+    """The carried scenario state of a ``fl.stateful`` round: ``avail``
+    the Gilbert–Elliott availability (N,), ``pop`` the virtual
+    population, ``chan`` the per-client fading chain (a stationary draw),
+    ``wd`` the watchdog's EMAs and ``snap`` its shadow snapshot (copies of
+    w, g, age, sel_count, residual, theta, ctrl).  The initial draws come
+    from a generator on the state's device seeded ``fl.seed + 0x5EED``."""
+    dev = state.w.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(fl.seed + 0x5EED)
+
+    def get(fn, *shape):
+        return fn(shape, generator=gen, dtype=torch.float32, device=dev)
+
+    fstate: Dict[str, Any] = {}
+    if fl.chaos:
+        fstate["avail"] = (faults.init_avail_state(
+            get(torch.rand, fl.n_clients), fl.faults)
+            if fl.faults.dropout > 0.0 else
+            torch.ones(fl.n_clients, dtype=torch.float32, device=dev))
+    if fl.population is not None:
+        fstate["pop"] = population.init_population_state(
+            get(torch.rand, fl.population.n_clients), fl.population)
+    if fl.wireless is not None:
+        fstate["chan"] = chan.init_channel_state(
+            get(torch.randn, fl.n_clients, 2), fl.wireless)
+    if fl.watchdog is not None:
+        fstate["wd"] = faults.init_watchdog_state(dev)
+        fstate["snap"] = tuple(
+            None if x is None else
+            ({key: v.clone() for key, v in x.items()} if isinstance(x, dict)
+             else x.clone())
+            for x in (state.w, state.g, state.age, state.sel_count,
+                      state.residual, state.theta, state.ctrl))
+    return fstate
 
 
 def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
@@ -443,13 +735,15 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
     metrics (e.g. ``acc``, ``loss``).  Returns a history dict: the eval
     curve, per-round mean/max AoU, ``km_frac``, ``n_selected`` and
     ``round_ms`` (CUDA events on the card, the host clock on the CPU),
-    the final parameters and the final ``ServerState``."""
+    the final parameters, the final ``ServerState`` and ``fstate`` (None
+    unless ``fl.stateful``), and with the watchdog ``wd_trips``."""
     dev = resolve_device(device)
     state, unravel = init_server(init_params, fl, dev)
     d = state.w.shape[0]
     fl_step = make_fl_step(fl, unravel, loss_fn, d, dev, kernel_mode)
     gen = torch.Generator(device=dev)
     gen.manual_seed(fl.seed)
+    fstate = init_fault_state(fl, state) if fl.stateful else None
     history: Dict[str, Any] = {"round": [], "acc": [], "loss": [],
                                "k": fl.budgets(d)[0], "d": d}
     w, g, age, sel_count = state.w, state.g, state.age, state.sel_count
@@ -503,10 +797,13 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
         for xs, ys in batches:
             draws = draw_round(gen, fl, d, dev)
             mark()
-            (w, g, age, sel_count, residual, _, tstate, cstate,
-             rm) = fl_step(w, g, age, sel_count, xs, ys, residual, tstate,
-                           draws, cstate)
+            out = fl_step(w, g, age, sel_count, xs, ys, residual, tstate,
+                          draws, cstate, fstate)
             mark()
+            (w, g, age, sel_count, residual, _, tstate, cstate,
+             rm) = out[:9]
+            if fl.stateful:
+                fstate = out[9]
             for key in per_round:
                 per_round[key].append(rm[key])
             if is_eval(t):
@@ -535,4 +832,7 @@ def train(fl: FLConfig, init_params: Any, loss_fn: Callable,
     history["state"] = ServerState(w=w, g=g, age=age, sel_count=sel_count,
                                    residual=residual, theta=tstate,
                                    ctrl=cstate, round=fl.rounds)
+    history["fstate"] = fstate
+    if fl.watchdog is not None:
+        history["wd_trips"] = float(fstate["wd"]["trips"])
     return history

@@ -45,8 +45,8 @@ _SIGNATURES = {
                                        ctypes.c_int, ctypes.c_int, _P],
     # votes, noise, signs, energy, n, k, stream
     "repro_sign_mv": [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P],
-    # x, ld, idx, acc, n, k, stream
-    "repro_vote_fold": [_P, ctypes.c_longlong, _P, _P, ctypes.c_int,
+    # x, ld, idx, row, acc, n, k, stream
+    "repro_vote_fold": [_P, ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
                         ctypes.c_longlong, _P],
     # energy_in, noise, scaled, noise_std, signs, energy_out, score, k,
     # stream

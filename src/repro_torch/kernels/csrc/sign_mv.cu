@@ -14,6 +14,11 @@
 //   the chunk's (C, d) effective gradients with rows ``ld`` floats apart
 //   and a null idx means idx[j] = j.  It takes in the quantizer, the
 //   gather and the add that the call site ran as operations of their own.
+//   With a (C,) float row (the wireless route's per-client weight
+//   sent_r * csi_r), a vote is ((x >= 0 ? 1 : -1) * row[r] >= 0) ? +1 : -1:
+//   the reference multiplies the one-bit votes by the row and re-signs, so
+//   a zero weight (either sign) votes +1, a negative one flips the vote and
+//   a NaN weight votes -1.  One launch either way.
 // * repro_sign_from_energy: the detection.  s = e, or e + noise, or
 //   e + (noise_std * z) with the product rounded before the add (as
 //   ``noise_std * z`` then ``e + noise`` round in PyTorch); writes
@@ -74,13 +79,14 @@ __device__ __forceinline__ float knuth_jitter(long long i) {
 // W: columns a thread loads at once (2 = float2, dense only).  G: row
 // groups (blockDim.y).  GATHER: column j reads x[:, idx[j]].  FOLD:
 // out[j] += count (no signs row); otherwise out is the energy row and
-// signs[j] = sign(count (+ noise)).
-template <int W, int G, bool GATHER, bool FOLD, bool NOISE>
+// signs[j] = sign(count (+ noise)).  WEIGHT: row r's votes are weighted by
+// row[r] before the re-sign (fold only).
+template <int W, int G, bool GATHER, bool FOLD, bool NOISE, bool WEIGHT>
 __global__ void __launch_bounds__(kThreads)
 sign_mv_kernel(const float* __restrict__ x, long long ld,
                const long long* __restrict__ idx, int n, long long k,
                const float* __restrict__ noise, float* __restrict__ out,
-               float* __restrict__ signs) {
+               float* __restrict__ signs, const float* __restrict__ row) {
   constexpr int kCols = kThreads / G;
   __shared__ int part[G][kCols * W];
   const int tx = threadIdx.x;
@@ -95,11 +101,14 @@ sign_mv_kernel(const float* __restrict__ x, long long ld,
     const bool pair = (W == 2) && (c0 + 1 < k);
     for (int r0 = ty; r0 < n; r0 += G * kUnroll) {
       float v[kUnroll][W];
+      float wt[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int r = r0 + u * G;
 #pragma unroll
         for (int w = 0; w < W; ++w) v[u][w] = 0.0f;
+        wt[u] = 1.0f;
+        if (WEIGHT && r < n) wt[u] = __ldg(row + r);
         if (r < n) {
           const float* p = x + static_cast<long long>(r) * ld + col;
           if (W == 2 && pair) {
@@ -115,7 +124,14 @@ sign_mv_kernel(const float* __restrict__ x, long long ld,
       for (int u = 0; u < kUnroll; ++u) {
         if (r0 + u * G < n) {
 #pragma unroll
-          for (int w = 0; w < W; ++w) cnt[w] += (v[u][w] >= 0.0f) ? 1 : -1;
+          for (int w = 0; w < W; ++w) {
+            if (WEIGHT) {
+              const float s = (v[u][w] >= 0.0f) ? 1.0f : -1.0f;
+              cnt[w] += (__fmul_rn(s, wt[u]) >= 0.0f) ? 1 : -1;
+            } else {
+              cnt[w] += (v[u][w] >= 0.0f) ? 1 : -1;
+            }
+          }
         }
       }
     }
@@ -164,10 +180,10 @@ sign_from_energy_kernel(const float* __restrict__ energy_in,
   }
 }
 
-template <int G, bool FOLD, bool NOISE>
+template <int G, bool FOLD, bool NOISE, bool WEIGHT>
 void launch_groups(const float* x, long long ld, const long long* idx, int n,
                    long long k, const float* noise, float* out, float* signs,
-                   cudaStream_t s) {
+                   const float* row, cudaStream_t s) {
   constexpr int kCols = kThreads / G;
   const dim3 block(kCols, G);
   const bool paired = idx == nullptr &&
@@ -175,28 +191,30 @@ void launch_groups(const float* x, long long ld, const long long* idx, int n,
   if (paired) {
     const unsigned grid =
         static_cast<unsigned>((k + 2 * kCols - 1) / (2 * kCols));
-    sign_mv_kernel<2, G, false, FOLD, NOISE><<<grid, block, 0, s>>>(
-        x, ld, idx, n, k, noise, out, signs);
+    sign_mv_kernel<2, G, false, FOLD, NOISE, WEIGHT><<<grid, block, 0, s>>>(
+        x, ld, idx, n, k, noise, out, signs, row);
   } else {
     const unsigned grid = static_cast<unsigned>((k + kCols - 1) / kCols);
     if (idx != nullptr) {
-      sign_mv_kernel<1, G, true, FOLD, NOISE><<<grid, block, 0, s>>>(
-          x, ld, idx, n, k, noise, out, signs);
+      sign_mv_kernel<1, G, true, FOLD, NOISE, WEIGHT><<<grid, block, 0, s>>>(
+          x, ld, idx, n, k, noise, out, signs, row);
     } else {
-      sign_mv_kernel<1, G, false, FOLD, NOISE><<<grid, block, 0, s>>>(
-          x, ld, idx, n, k, noise, out, signs);
+      sign_mv_kernel<1, G, false, FOLD, NOISE, WEIGHT><<<grid, block, 0, s>>>(
+          x, ld, idx, n, k, noise, out, signs, row);
     }
   }
 }
 
-template <bool FOLD, bool NOISE>
+template <bool FOLD, bool NOISE, bool WEIGHT>
 int launch_votes(const float* x, long long ld, const long long* idx, int n,
                  long long k, const float* noise, float* out, float* signs,
-                 cudaStream_t s) {
+                 const float* row, cudaStream_t s) {
   if (n <= kFewRows) {
-    launch_groups<2, FOLD, NOISE>(x, ld, idx, n, k, noise, out, signs, s);
+    launch_groups<2, FOLD, NOISE, WEIGHT>(x, ld, idx, n, k, noise, out,
+                                          signs, row, s);
   } else {
-    launch_groups<4, FOLD, NOISE>(x, ld, idx, n, k, noise, out, signs, s);
+    launch_groups<4, FOLD, NOISE, WEIGHT>(x, ld, idx, n, k, noise, out,
+                                          signs, row, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -229,21 +247,27 @@ extern "C" int repro_sign_mv(const float* votes, const float* noise,
   if (k <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (noise != nullptr) {
-    return launch_votes<false, true>(votes, k, nullptr, n, k, noise, energy,
-                                     signs, s);
+    return launch_votes<false, true, false>(votes, k, nullptr, n, k, noise,
+                                            energy, signs, nullptr, s);
   }
-  return launch_votes<false, false>(votes, k, nullptr, n, k, nullptr, energy,
-                                    signs, s);
+  return launch_votes<false, false, false>(votes, k, nullptr, n, k, nullptr,
+                                           energy, signs, nullptr, s);
 }
 
 // acc (k,) += the vote counts of the n rows of x (row stride ld floats) at
-// the k columns idx (int64, each in [0, d); null: columns 0..k-1).
+// the k columns idx (int64, each in [0, d); null: columns 0..k-1), each
+// row's votes weighted by row[r] before the re-sign where row is not null.
 extern "C" int repro_vote_fold(const float* x, long long ld,
-                               const long long* idx, float* acc, int n,
-                               long long k, void* stream) {
+                               const long long* idx, const float* row,
+                               float* acc, int n, long long k, void* stream) {
   if (k <= 0) return static_cast<int>(cudaGetLastError());
-  return launch_votes<true, false>(x, ld, idx, n, k, nullptr, acc, nullptr,
-                                   static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row != nullptr) {
+    return launch_votes<true, false, true>(x, ld, idx, n, k, nullptr, acc,
+                                           nullptr, row, s);
+  }
+  return launch_votes<true, false, false>(x, ld, idx, n, k, nullptr, acc,
+                                          nullptr, nullptr, s);
 }
 
 // (k,) energy -> signs, energy' and, where score is not null, the score.

@@ -163,21 +163,28 @@ def sign_mv(votes: Tensor, noise: Optional[Tensor] = None,
 
 
 def vote_fold(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None,
-              mode: Optional[str] = None) -> Tensor:
+              mode: Optional[str] = None, row: Optional[Tensor] = None
+              ) -> Tensor:
     """The one-bit chunk fold: ``acc[j] += Σ_r (x[r, idx[j]] >= 0 ? +1 :
     −1)`` in place on the (k,) float32 ``acc`` (k = d without ``idx``),
     for the chunk's (C, d) effective gradients ``x`` and the exact path's
     int64 selection ``idx``.  Returns ``acc``.  The counts are the energy
     row of ``sign_mv`` (``x`` needs no ``one_bit`` first: ``v >= 0`` votes
-    +1, NaN −1).  On the card one call is one device operation for float32
-    ``x`` with contiguous rows and int64 ``idx``."""
+    +1, NaN −1).  ``row`` (C,) weights each client's votes before the
+    re-sign, ``((x >= 0 ? 1 : −1)·row[r] >= 0) ? +1 : −1`` — the wireless
+    route's ``one_bit(x)·row`` into ``sign_mv``: a zero weight votes +1, a
+    negative one flips the vote, NaN votes −1.  On the card one call is
+    one device operation for float32 ``x`` with contiguous rows, int64
+    ``idx`` and a float32 ``row``."""
     if resolve_mode(mode, x) == "plain":
-        return ref.vote_fold_ref(acc, x, idx)
+        return ref.vote_fold_ref(acc, x, idx, row)
     if x.dtype != torch.float32 or x.stride(-1) != 1:
         x = x.to(torch.float32).contiguous()
     if idx is not None:
         idx = idx.to(torch.int64).contiguous()
-    return smv.vote_fold_cuda(acc, x, idx)
+    if row is not None:
+        row = row.to(torch.float32).contiguous()
+    return smv.vote_fold_cuda(acc, x, idx, row)
 
 
 def sign_from_energy(energy: Tensor, noise: Optional[Tensor] = None,

@@ -82,11 +82,16 @@ def sign_mv_ref(votes: Tensor, noise: Optional[Tensor] = None
     return sign_from_energy_ref(s, noise)
 
 
-def vote_fold_ref(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None
-                  ) -> Tensor:
+def vote_fold_ref(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None,
+                  row: Optional[Tensor] = None) -> Tensor:
     """The one-bit chunk fold, in place: ``acc += `` the vote energy of the
-    (C, d) chunk ``x``, gathered at ``idx`` when given -> ``acc``."""
-    return acc.add_(sign_mv_ref(x if idx is None else x[:, idx])[1])
+    (C, d) chunk ``x``, gathered at ``idx`` when given; with a (C,) ``row``
+    the votes are ``one_bit(x) · row[:, None]`` before ``sign_mv``'s
+    re-sign (the reference trainer's wireless fold) -> ``acc``."""
+    x = x if idx is None else x[:, idx]
+    if row is not None:
+        x = torch.where(x >= 0, 1.0, -1.0).to(torch.float32) * row[:, None]
+    return acc.add_(sign_mv_ref(x)[1])
 
 
 def aou_merge_ref(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor

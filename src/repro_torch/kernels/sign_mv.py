@@ -12,7 +12,8 @@ memory, so the counts are exact integers.
 
 * ``sign_mv_cuda``: the TPU function, (N, k) votes -> (signs, energy).
 * ``vote_fold_cuda``: the one-bit chunk fold, ``acc += `` the vote counts
-  of a (C, d) chunk, optionally gathered at ``idx``; no signs row.
+  of a (C, d) chunk, optionally gathered at ``idx`` and with each client's
+  votes weighted by a (C,) ``row`` before the re-sign; no signs row.
 * ``sign_from_energy_cuda``: the detection (noise as it is, or
   ``noise_std * z``), optionally with the packed path's selection score
   ``|s| + knuth_jitter(j)``.
@@ -70,12 +71,13 @@ def sign_mv_cuda(votes: Tensor, noise: Optional[Tensor] = None
     return signs, energy
 
 
-def vote_fold_cuda(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None
-                   ) -> Tensor:
+def vote_fold_cuda(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None,
+                   row: Optional[Tensor] = None) -> Tensor:
     """``acc[j] += Σ_r (x[r, idx[j]] >= 0 ? +1 : −1)`` in place, for a
     (C, d) float32 ``x`` whose rows are contiguous (any row stride) and an
-    int64 ``idx`` of values in [0, d) (None: ``idx[j] = j``).  Returns
-    ``acc``."""
+    int64 ``idx`` of values in [0, d) (None: ``idx[j] = j``).  With a (C,)
+    float32 ``row`` each vote is ``((x >= 0 ? 1 : −1)·row[r] >= 0) ? +1 :
+    −1`` (the same launch).  Returns ``acc``."""
     global SIGN_MV_LAUNCHES
     _check_matrix("x", x)
     n, d = x.shape
@@ -89,10 +91,13 @@ def vote_fold_cuda(acc: Tensor, x: Tensor, idx: Optional[Tensor] = None
             raise ValueError("idx must be a contiguous (k,) row")
     k = d if idx is None else idx.shape[0]
     check_vec("acc", acc, k, x.device)
+    if row is not None:
+        check_vec("row", row, n, x.device)
     lib = build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     p = build.ptr
-    rc = lib.repro_vote_fold(p(x), x.stride(0), p(idx), p(acc), n, k, stream)
+    rc = lib.repro_vote_fold(p(x), x.stride(0), p(idx), p(row), p(acc), n, k,
+                             stream)
     build.check(rc, "vote_fold")
     SIGN_MV_LAUNCHES += 1
     return acc

@@ -804,3 +804,112 @@ def test_fairk_kernel_on_the_padded_tree_buffer(cuda, route):
         assert not bool((k[1][pads] == 0.0).any())            # never chosen
         if route != "plain":
             assert torch.equal(k[2][pads], res[pads])
+
+
+# --- the scenario layers -----------------------------------------------------
+
+def _rows(c, dev, seed):
+    """A (c,) vote-weight row with 0.0, −0.0, negative and NaN weights."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    row = torch.rand(c, generator=gen, device=dev) * 2.0 - 0.5
+    special = torch.tensor([0.0, -0.0, -0.7, float("nan")], device=dev)
+    row[:min(c, 4)] = special[:min(c, 4)]
+    return row
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("c", [1, 10, 50])
+@pytest.mark.parametrize("d", [7, 109_210])
+def test_weighted_vote_fold_matches_plain(cuda, d, c, gathered):
+    """The wireless fold: each row's votes weighted before the re-sign,
+    kernel against ``vote_fold_ref`` bit for bit, and equal to the
+    reference trainer's ``sign_mv(one_bit(x) · row)`` on the card."""
+    from repro_torch.core import quantize
+    x = _chunk(c, d, cuda, seed=d + c)
+    row = _rows(c, cuda, seed=c)
+    idx = (torch.randperm(d, generator=torch.Generator(
+        device=cuda).manual_seed(d), device=cuda)[:max(1, d // 5)]
+        if gathered else None)
+    acc = _acc(d if idx is None else idx.shape[0], cuda, seed=c)
+    k_acc, p_acc = acc.clone(), acc.clone()
+    assert ops.vote_fold(k_acc, x, idx, mode="kernel", row=row) is k_acc
+    ops.vote_fold(p_acc, x, idx, mode="plain", row=row)
+    _same(k_acc, p_acc)
+    sent = x if idx is None else x[:, idx]
+    want = acc + ops.sign_mv((quantize.one_bit(sent) * row[:, None])
+                             .contiguous(), mode="plain")[1]
+    _same(k_acc, want)
+
+
+def test_weighted_vote_fold_is_one_device_operation(cuda):
+    x = _chunk(10, 109_210, cuda, seed=5)
+    row = _rows(10, cuda, seed=5)
+    acc = _acc(109_210, cuda, seed=5)
+    before = sign_mv.SIGN_MV_LAUNCHES
+    ops.vote_fold(acc, x, row=row)
+    assert sign_mv.SIGN_MV_LAUNCHES - before == 1
+    on_card = _device_ops(lambda: ops.vote_fold(acc, x, row=row))
+    assert not on_card or (sum(on_card.values()) == 1
+                           and "sign_mv_kernel" in next(iter(on_card)))
+    with pytest.raises(ValueError):
+        sign_mv.vote_fold_cuda(acc, x, row=row[:9])
+
+
+def test_sanitized_chaos_round_matches_its_plain_rerun(cuda):
+    """A chaos server phase at d = 109,210 (corrupted aggregate, fade
+    erasures, the SANITIZE fused pass with statistics and warm start) on
+    the kernels and on the plain versions: the same outputs."""
+    from repro_torch.core import faults, packing
+    d = 109_210
+    fc = faults.FaultConfig(fade=0.05, nan_rate=1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    g = torch.randn(d, generator=gen, device=cuda)
+    g = faults.corrupt(g, torch.rand(d, generator=gen, device=cuda), fc)
+    erase = faults.fade_mask(torch.rand(-(-d // 128), generator=gen,
+                                        device=cuda), d, fc)
+    g_prev = torch.randn(d, generator=gen, device=cuda)
+    age = torch.randint(0, 40, (d,), generator=gen, device=cuda).float()
+    lay = packing.PackedLayout.from_tree(torch.empty(d, device="meta"),
+                                         lane=1)
+    outs = {}
+    for mode in (None, "plain"):
+        eng = engine.make_engine("fairk", "packed", layout=lay,
+                                 fused_stats=True, warm_start=True,
+                                 kernel_mode=mode)
+        ts = packing.init_threshold_state(cuda)
+        for _ in range(3):
+            g_t, age_next, stats = eng.select_and_merge(
+                g, g_prev, age, tstate=ts, erase=erase, sanitize=True)
+            ts = stats["tstate"]
+        outs[mode] = (g_t, age_next, ts)
+    k, p = outs[None], outs["plain"]
+    _same(k[0], p[0])
+    _same(k[1], p[1])
+    for key in k[2]:
+        _same(k[2][key], p[2][key])
+    assert torch.isfinite(k[0]).all()
+    assert not ((k[1] == 0.0) & ((erase > 0) | ~torch.isfinite(g))).any()
+
+
+def test_population_step_at_a_million_matches_the_cpu(cuda):
+    """10^6 virtual clients, the same uniforms and cohort on the card and
+    on the CPU: grids, counters and every statistic equal, in the
+    Gilbert–Elliott and the diurnal modes."""
+    from repro_torch.core import population
+    for mode in ("ge", "diurnal"):
+        cfg = population.PopulationConfig(n_clients=1_000_000,
+                                          participants=50, mode=mode)
+        gen = torch.Generator().manual_seed(2)
+        u0 = torch.rand(cfg.n_clients, generator=gen)
+        st = {"cpu": population.init_population_state(u0, cfg),
+              "cuda": population.init_population_state(u0.to(cuda), cfg)}
+        for _ in range(4):
+            u, ids = population.draw_round(gen, cfg, "cpu")
+            st["cpu"], ps_c = population.population_round(st["cpu"], u, ids,
+                                                          cfg)
+            st["cuda"], ps_g = population.population_round(
+                st["cuda"], u.to(cuda), ids.to(cuda), cfg)
+            assert torch.equal(st["cpu"]["avail"], st["cuda"]["avail"].cpu())
+            assert int(st["cpu"]["t"]) == int(st["cuda"]["t"])
+            for key in ps_c:
+                _same(ps_g[key].cpu(), ps_c[key])

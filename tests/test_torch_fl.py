@@ -198,17 +198,42 @@ def test_train_runs_and_reports(task):
 
 
 def test_unsupported_settings_raise():
+    """The scenario layers are ported (ROADMAP Queue 1 item 8): they build
+    on every backend, and the reference's validation errors are raised
+    for the combinations it rejects, with its messages."""
+    from repro_torch.core import channel, faults, population
     _, tfl = _pair("coherent")
-    for change, item in ((dict(faults=object()), 8),
-                         (dict(watchdog=object()), 8),
-                         (dict(population=object()), 8),
-                         (dict(wireless=object()), 8)):
-        for backend in ("packed", "exact"):
-            fl = dataclasses.replace(tfl, **{"backend": backend, **change})
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP Queue 1 item {item}"):
-                trainer.make_fl_step(fl, lambda w: w, torch_loss, 8,
-                                     device="cpu")
+    fc = faults.FaultConfig(dropout=0.2, fade=0.05)
+    pc = population.PopulationConfig(n_clients=64, cohort_size=16,
+                                      participants=4)
+    wc = channel.ChannelConfig(n_clients=4)
+    wd = faults.WatchdogConfig()
+    for backend in ("packed", "threshold", "exact"):
+        for change in (dict(faults=fc), dict(watchdog=wd),
+                       dict(population=pc),
+                       dict(population=pc, faults=faults.FaultConfig(
+                           fade=0.05, nan_rate=0.01)),
+                       dict(wireless=wc), dict(wireless=wc, one_bit=True),
+                       dict(wireless=wc, population=pc, watchdog=wd)):
+            trainer.make_fl_step(
+                dataclasses.replace(tfl, backend=backend, **change),
+                lambda w: w, torch_loss, 8, device="cpu")
+        for change, match in (
+                (dict(faults=fc, one_bit=True), "one-bit"),
+                (dict(faults=fc, policy="randk"), "index arithmetic"),
+                (dict(wireless=wc, policy="agetopk"), "index arithmetic"),
+                (dict(watchdog=wd, policy="topk"), "watchdog"),
+                (dict(wireless=channel.ChannelConfig(n_clients=5)),
+                 "wireless.n_clients"),
+                (dict(population=dataclasses.replace(pc, participants=3)),
+                 "participants"),
+                (dict(population=pc, faults=faults.FaultConfig(
+                    dropout=0.1)), "dropout"),
+                (dict(population=pc, one_bit=True), "one-bit")):
+            with pytest.raises(ValueError, match=match):
+                trainer.make_fl_step(
+                    dataclasses.replace(tfl, backend=backend, **change),
+                    lambda w: w, torch_loss, 8, device="cpu")
     # the index-form policies run on the exact backend only, as in JAX
     for policy in ("randk", "toprand", "agetopk"):
         with pytest.raises(ValueError, match="index arithmetic"):

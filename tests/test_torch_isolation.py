@@ -32,12 +32,15 @@ def test_every_port_module_imports_without_jax():
     for name in ("repro_torch.fl.trainer", "repro_torch.fl.sweep",
                  "repro_torch.core.controller", "repro_torch.core.markov",
                  "repro_torch.core.lipschitz", "repro_torch.tree",
-                 "repro_torch.core.packing", "repro_torch.core.engine"):
+                 "repro_torch.core.packing", "repro_torch.core.engine",
+                 "repro_torch.core.faults", "repro_torch.core.population",
+                 "repro_torch.core.channel"):
         assert name in mods
-    assert len(mods) >= 20
-    assert len(BENCHMARKS) == 11
+    assert len(mods) >= 23
+    assert len(BENCHMARKS) == 12
     for name in ("benchmarks.torch_engine_bench",
-                 "benchmarks.torch_packed_bench"):
+                 "benchmarks.torch_packed_bench",
+                 "benchmarks.torch_population_bench"):
         assert name in BENCHMARKS
     code = (
         "import sys, importlib\n"
@@ -119,7 +122,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             # the server-phase benchmarks are cut by repeats, the figures
             # by rounds
-            mod.run(**({"repeats": 1} if name in ("engine", "packed")
+            mod.run(**({"repeats": 1}
+                       if name in ("engine", "packed", "population")
                        else {"rounds": 1}))
     from benchmarks import torch_packed_bench
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -138,6 +142,23 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     state, _ = trainer.init_server(params, fl, device="cpu")
     assert state.w.device.type == "cpu"
     assert packing.init_threshold_state("cpu")["theta_m"].device.type == "cpu"
+    from repro_torch.core import channel, faults, population
+    pcfg = population.PopulationConfig(n_clients=16, participants=4)
+    scenario_builds = {
+        "stateless_round": lambda dev: population.stateless_round(
+            0, 1, pcfg, dev)["n_t"],
+        "stateless_avail": lambda dev: population.stateless_avail(
+            0, 1, pcfg, dev),
+        "availability_rate": lambda dev: population.availability_rate(
+            pcfg, 1, dev),
+        "init_block_fading": lambda dev: channel.init_block_fading(4, dev),
+        "init_watchdog_state": lambda dev: faults.init_watchdog_state(
+            dev)["trips"],
+    }
+    for name, build in scenario_builds.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(None)
+        assert build("cpu").device.type == "cpu", name
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -12,6 +12,8 @@ superposition sums in another order, and XLA folds the noise scale into
 its in-graph draw).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,13 +113,28 @@ def test_run_sweep_draws_per_seed():
 
 
 def test_unknown_policy_and_scenarios_raise():
+    """The scenario lanes are ported (ROADMAP Queue 1 item 8): they run,
+    and the reference's configuration errors are raised."""
+    from repro_torch.core import channel, faults, population
     with pytest.raises(ValueError, match="sweep supports"):
         sweep.sweep_grid(("agetopk",), (0.5,), 1, sweep.SweepConfig())
-    for field, item in (("faults", 8), ("population", 8), ("wireless", 8)):
-        cfg = sweep.SweepConfig(d=32, rounds=2, **{field: object()})
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            sweep.run_sweep(cfg, device="cpu")
+    pc = population.PopulationConfig(n_clients=64, cohort_size=16,
+                                      participants=16)
+    for field, value in (("faults", faults.FaultConfig(dropout=0.2,
+                                                       fade=0.1)),
+                         ("population", pc),
+                         ("wireless", channel.ChannelConfig(n_clients=16))):
+        cfg = sweep.SweepConfig(d=32, rounds=2, **{field: value})
+        out = sweep.run_sweep(cfg, ("fairk", "fairk_auto"), (0.5,), 1,
+                              device="cpu")
+        assert np.isfinite(out["loss"]).all()
+    with pytest.raises(ValueError, match="wireless.n_clients"):
+        sweep.SweepConfig(wireless=channel.ChannelConfig(n_clients=4))
+    with pytest.raises(ValueError, match="participants"):
+        sweep.SweepConfig(population=dataclasses.replace(pc, participants=4))
+    with pytest.raises(ValueError, match="dropout"):
+        sweep.SweepConfig(population=pc,
+                          faults=faults.FaultConfig(dropout=0.1))
     # async lanes are ported (ROADMAP Queue 1 item 7)
     out = sweep.run_sweep(sweep.SweepConfig(d=32, rounds=2, async_lag=1),
                           device="cpu")

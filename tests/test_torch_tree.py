@@ -155,8 +155,8 @@ def test_persisted_rounds_match_jax(trees, route):
 def test_structural_counters_of_the_smoke():
     """``torch_packed_bench --smoke``: one fused launch against one per
     leaf; 1 pack and 1 unpack per persisted round (3 and 2 re-packing);
-    one read of g on the fused, adaptive, async and sanitize rounds
-    against 3 on the legacy round."""
+    one read of g on the fused, adaptive, async, sanitize, chaos and
+    channel rounds against 3 on the legacy round; no row is skipped."""
     res = bench.smoke("cpu")
     assert res["counts_per_leaf"]["fused_calls"] == res["n_leaves"]
     assert res["counts_packed"]["fused_calls"] == 1
@@ -164,13 +164,10 @@ def test_structural_counters_of_the_smoke():
             res["counts_persisted"]["unpacks"]) == (1, 1)
     assert res["counts_fused_stats"]["g_reads"] == 1
     assert res["counts_persisted"]["g_reads"] == 3
-    for row in ("adaptive", "async", "sanitize"):
+    for row in ("adaptive", "async", "sanitize", "chaos", "channel"):
         assert res[f"counts_{row}"] == res["counts_fused_stats"], row
-    assert sorted(res["skipped"]) == ["channel", "chaos"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        bench.build_chaos_fn({})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        bench.build_channel_fn({})
+    assert sorted(res["skipped"]) == []
+    assert np.isfinite(res["chaos_us"]) and np.isfinite(res["channel_us"])
 
 
 def test_async_round_keeps_the_double_buffer(trees):
