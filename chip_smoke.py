@@ -103,17 +103,33 @@ failure):
    rerun, each row timed;
    the threshold engine at d = 10^8 equal to plain, and ``exact_theta``
    selecting exact FAIR-k's set at 109,210;
-15. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+15. the launch path's train step (``repro_torch.launch.steps``) on
+   ``internvl2-1b`` at full width and depth (629,619,968 parameters,
+   629,664,256 packed coordinates), batch 4 as two microbatches of the
+   256-patch prefix and 256 text tokens, AdamW, ρ 0.1: (i) the persisted
+   fused-stats route 3 steps, (ii) one-bit with error feedback 2, (iii)
+   adaptive + async + sanitize + fades + the wireless channel 2 — one
+   ``fairk_update`` launch per step (and one ``sign_mv`` in (ii)), 1 pack,
+   1 unpack and 1 read of g per step, finite losses and weights, pads
+   never selected, the kernel and plain update phases identical from one
+   state and one recorded gradient tree, 0 host syncs in a warm step of
+   (i) and (iii), the server state's checkpoint round trip bit for bit,
+   ``--ckpt-every`` / ``--resume`` of the launcher at the reduced config
+   continuing one trajectory bit for bit (deterministic algorithms); the
+   two kernels at the path's 629,664,256 coordinates against their plain
+   versions; steady step ms, the server phase's share, tokens per second,
+   a profile of one step and the peak allocated memory;
+16. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-16. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+17. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-17. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+18. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-14) runs with every launch count set to 0 just before it
+Each path (4-15) runs with every launch count set to 0 just before it
 and read just after; a kernel that none of them launched fails the run.
 
 Imports neither JAX nor the JAX package.  Writes the full kernel timings to
@@ -123,6 +139,8 @@ Imports neither JAX nor the JAX package.  Writes the full kernel timings to
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1753,7 +1771,10 @@ def _same_out(a, b, what):
 
 
 def _syncs(fn) -> int:
-    """Host syncs one warm call of ``fn`` makes (sync debug mode)."""
+    """Host syncs one warm call of ``fn`` makes (sync debug mode).  Where
+    there is one, a further call in the "error" mode prints the stack of
+    the first."""
+    import traceback
     import warnings
     import torch
     fn()
@@ -1766,10 +1787,20 @@ def _syncs(fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("called a synchronizing" in str(w.message) for w in caught)
+    n = sum("called a synchronizing" in str(w.message) for w in caught)
+    if n:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError:
+            print("the first host sync:\n" + "".join(
+                traceback.format_exc().splitlines(True)[-24:]), flush=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return n
 
 
-def _profile_round(fn, top: int = 8):
+def _profile_round(fn, top: int = 8, label: str = "one fused tree round"):
     """Device time of one call of ``fn`` by kernel (``torch.profiler``,
     after a warm-up call): report only."""
     import torch
@@ -1785,7 +1816,7 @@ def _profile_round(fn, top: int = 8):
                    if ev.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile of one fused tree round: device {total:.3f} ms in "
+    print(f"profile of {label}: device {total:.3f} ms in "
           f"{sum(r[2] for r in rows)} operations", flush=True)
     for ms, key, n in rows[:top]:
         print(f"  {ms:8.4f} ms  x{n:<4d} {key[:90]}", flush=True)
@@ -2307,12 +2338,334 @@ def engine_big_phase(dev):
     return launches, {"d": d, "k": k, "n_selected": n_sel, "ms": ms}
 
 
+# --------------------------------------------------------------------------
+# the launch path: the single-card train step at internvl2-1b's full width
+# --------------------------------------------------------------------------
+
+LAUNCH_ARCH = "internvl2-1b"
+LAUNCH_SEQ = 256                    # text tokens after the 256-patch prefix
+LAUNCH_BATCH, LAUNCH_MICRO = 4, 2   # batch 4 as two microbatches
+LAUNCH_D = 629_664_256              # packed coordinates (384 of them pads)
+
+
+def launch_configs():
+    """(name, OacServerConfig, steps): (i) the default persisted
+    fused-stats route, (ii) one-bit with error feedback (and vote noise),
+    (iii) adaptive + async + sanitize + fades + the wireless channel."""
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.launch.steps import OacServerConfig
+    return [("fused", OacServerConfig(rho=0.1), 3),
+            ("one_bit_ef", OacServerConfig(rho=0.1, one_bit=True,
+                                           error_feedback=True,
+                                           noise_std=0.5), 2),
+            ("composed", OacServerConfig(
+                rho=0.1, adaptive_km=True, async_agg=True, sanitize=True,
+                fade=0.05, wireless=ChannelConfig(rho_f=0.5, gmin=0.3)), 2)]
+
+
+def _launch_kernels(dev, records):
+    """``fairk_update`` [stats] / [stats+fresh+res] and ``sign_mv`` (1, d)
+    with noise at the launch path's 629,664,256 coordinates, kernel
+    against plain: equal bit for bit, timed (device ms from a graph of 2
+    calls replayed 3 times; the plain version from 1 call)."""
+    import torch
+    from repro_torch.kernels import ops
+    d = LAUNCH_D
+    gen = torch.Generator(device=dev).manual_seed(19)
+    g = torch.randn(d, generator=gen, device=dev) * 0.01
+    g_prev = torch.randn(d, generator=gen, device=dev)
+    age = torch.randint(0, 40, (d,), generator=gen, device=dev).float()
+    age[-384:] = -1.0
+    res = torch.randn(d, generator=gen, device=dev) * 1e-3
+    fresh = torch.where(torch.rand(d, generator=gen, device=dev) < 0.5,
+                        1.0, -1.0)
+    tm, ta = (torch.tensor(v, device=dev) for v in (0.0196, 35.5))
+
+    def case(name, kw, n_bytes):
+        k = ops.fairk_stats_update(g, g_prev, age, tm, ta, mode="kernel",
+                                   **kw)
+        p = ops.fairk_stats_update(g, g_prev, age, tm, ta, mode="plain",
+                                   **kw)
+        errs = [_same(a, b, f"{name} out{i}")
+                for i, (a, b) in enumerate(zip(k[:3], p[:3]))
+                if a is not None]
+        errs += [_same(k[3][key], p[3][key], f"{name} {key}")
+                 for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist")]
+        del k, p
+        ms = {"kernel": _time_ms(lambda: ops.fairk_stats_update(
+                  g, g_prev, age, tm, ta, mode="kernel", **kw),
+                  blocks=3, per_block=2),
+              "plain": _time_ms(lambda: ops.fairk_stats_update(
+                  g, g_prev, age, tm, ta, mode="plain", **kw),
+                  blocks=2, per_block=1)}
+        torch.cuda.empty_cache()
+        records[name] = _record(max(errs), ms, n_bytes,
+                                *_bound_ms(n_bytes, 12 * d))
+
+    case(f"fairk_update[stats][launch {d}]", {}, 20 * d + 4 * 258 + 8)
+    case(f"fairk_update[stats+fresh+res][launch {d}]",
+         dict(residual=res, fresh=fresh), 32 * d + 4 * 258 + 8)
+    del fresh, g_prev, age
+    torch.cuda.empty_cache()
+    votes = (g + res)[None]
+    noise = 0.5 * torch.randn(d, generator=gen, device=dev)
+    del g, res
+    name = f"sign_mv[1x{d}+noise][launch]"
+    ks, ke = ops.sign_mv(votes, noise, mode="kernel")
+    ps, pe = ops.sign_mv(votes, noise, mode="plain")
+    err = max(_same(ks, ps, f"{name} signs"), _same(ke, pe,
+                                                   f"{name} energy"))
+    del ks, ke, ps, pe
+    ms = {"kernel": _time_ms(lambda: ops.sign_mv(votes, noise,
+                                                 mode="kernel"),
+                             blocks=3, per_block=2),
+          "plain": _time_ms(lambda: ops.sign_mv(votes, noise, mode="plain"),
+                            blocks=2, per_block=1)}
+    n_bytes = 16 * d
+    records[name] = _record(err, ms, n_bytes, *_bound_ms(n_bytes, 2 * d))
+    del votes, noise
+    torch.cuda.empty_cache()
+    for key in (f"fairk_update[stats][launch {d}]",
+                f"fairk_update[stats+fresh+res][launch {d}]", name):
+        rec = records[key]
+        print(f"kernel {key}: exact match; device {rec['ms']:.3f} ms "
+              f"(plain {rec['plain_ms']:.3f} ms), bound "
+              f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}", flush=True)
+
+
+def _clone_state(state):
+    from repro_torch import tree as tree_util
+    return tree_util.tree_map(lambda x: x.clone(), state)
+
+
+def _states_same(a, b, what):
+    from repro_torch import tree as tree_util
+    la, lb = tree_util.leaves(a), tree_util.leaves(b)
+    check(len(la) == len(lb), f"{what}: {len(la)} vs {len(lb)} leaves")
+    for (path, x), (_, y) in zip(la, lb):
+        _same(x, y, f"{what} {path}")
+
+
+def _cli_resume_check(dev):
+    """``repro_torch.launch.train`` at the reduced config on the card: 4
+    steps in one run against 2 steps, a checkpoint, and ``--resume`` for
+    2 more, under deterministic algorithms: identical final state."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    base = ["--arch", LAUNCH_ARCH, "--batch", "4", "--seq", "64",
+            "--client-chunk", "2", "--adaptive-km", "--ef"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            whole = train.main(base + ["--steps", "4", "--ckpt-dir",
+                                       tmp + "/a"])
+            train.main(base + ["--steps", "2", "--ckpt-every", "2",
+                               "--ckpt-dir", tmp + "/b"])
+            rest = train.main(base + ["--steps", "2", "--resume",
+                                      "--ckpt-dir", tmp + "/b"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(rest["start"] == 2, f"resume started at {rest['start']}")
+    check(rest["losses"] == whole["losses"][2:],
+          f"resumed losses {rest['losses']} vs {whole['losses'][2:]}")
+    for key in ("params", "opt", "server"):
+        _states_same(rest[key], whole[key], f"cli resume {key}")
+    print(f"launch cli: --ckpt-every 2 / --resume continues the 4-step "
+          f"trajectory bit for bit (losses {whole['losses']})", flush=True)
+    return whole["losses"]
+
+
+def launch_phase(dev, records):
+    """The launch path's train step (``repro_torch.launch.steps``) on
+    ``internvl2-1b`` at full width and depth (629,619,968 parameters,
+    629,664,256 packed coordinates), batch 4 as two microbatches of the
+    256-patch prefix plus 256 text tokens, AdamW, ρ 0.1: runs (i)-(iii) of
+    ``launch_configs``, each with the counts set to 0 before it — one
+    ``fairk_update`` launch per step (and one ``sign_mv`` in (ii)), 1 pack
+    and 1 unpack per step, one read of g on the fused routes, finite
+    losses and weights, pads never selected; then on a recorded gradient
+    tree the update phase through the kernels and through the plain
+    versions from one cloned state: identical parameters, optimizer state
+    and server buffers; 0 host syncs in a warm step of (i) and (iii); the
+    server state's save/restore round trip bit for bit; the launcher's
+    --resume at the reduced config.  Reports the steady step time (CUDA
+    events), the server phase's share, tokens per second, device time by
+    kernel and the peak allocated memory (over each configuration's steps,
+    and with its kernel-against-plain comparison)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import packing
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+
+    t_phase = time.time()
+    _launch_kernels(dev, records)
+    cfg = get_config(LAUNCH_ARCH)
+    shape = InputShape("custom", LAUNCH_SEQ + cfg.n_patches, LAUNCH_BATCH,
+                       "train")
+    tokens = LAUNCH_BATCH * (LAUNCH_SEQ + cfg.n_patches)
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {"arch": LAUNCH_ARCH, "batch": LAUNCH_BATCH,
+               "n_micro": LAUNCH_MICRO, "text_seq": LAUNCH_SEQ,
+               "patches": cfg.n_patches}
+
+    def batch(t):
+        return train.make_batch(cfg, 0, t, LAUNCH_BATCH, LAUNCH_SEQ,
+                                LAUNCH_MICRO, dev)
+
+    for name, oac, n_steps in launch_configs():
+        kern = steps.make_train_step(cfg, shape, n_micro=LAUNCH_MICRO,
+                                     oac=oac, device=dev)
+        plain = steps.make_train_step(cfg, shape, n_micro=LAUNCH_MICRO,
+                                      oac=oac, kernel_mode="plain",
+                                      device=dev)
+        lay = kern.layout
+        check(lay.d_packed == LAUNCH_D,
+              f"launch: {lay.d_packed} packed coordinates")
+        params = transformer.init_lm_seeded(cfg, 0, dev)
+        n_params = sum(x.numel() for _, x in tree_util.leaves(params))
+        opt = make_optimizer("adamw", 1e-3)
+        opt_state = opt.init(params)
+        server = steps.init_server_state(params, oac=oac)
+        pads = ~lay.valid_mask(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        c0 = (packing.PACK_CALLS, packing.UNPACK_CALLS, packing.G_READS)
+        step_ms, losses = [], []
+        for t in range(n_steps):
+            b = batch(t)
+            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            params, opt_state, server, loss = kern.fn(params, opt_state,
+                                                      server, b, t)
+            e.record()
+            torch.cuda.synchronize()
+            step_ms.append(a.elapsed_time(e))
+            losses.append(float(loss))
+        got = read_counters()
+        counts = (packing.PACK_CALLS - c0[0], packing.UNPACK_CALLS - c0[1],
+                  packing.G_READS - c0[2])
+        steps_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        want = dict.fromkeys(KERNELS, 0)
+        want["fairk_update"] = n_steps
+        want["sign_mv"] = n_steps if oac.one_bit else 0
+        check(got == want, f"launch {name}: launches {got}, expected {want}")
+        for key in launches:
+            launches[key] += got[key]
+        check(counts == (n_steps, n_steps, n_steps),
+              f"launch {name}: (packs, unpacks, reads of g) {counts} in "
+              f"{n_steps} steps")
+        check(all(math.isfinite(x) for x in losses),
+              f"launch {name}: losses {losses}")
+        check(all(bool(torch.isfinite(x).all())
+                  for _, x in tree_util.leaves(params)),
+              f"launch {name}: a weight is not finite")
+        check(bool((server["age"][pads] == packing.PAD_AGE).all()),
+              f"launch {name}: a pad was selected or lost its age -1")
+        n_sel = float(server["theta"][3])
+        check(0 < n_sel <= lay.d_valid, f"launch {name}: selected {n_sel}")
+        # kernel against plain from one state and one recorded gradient
+        t = n_steps
+        b = batch(t)
+        g0, g1, u1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        g0.record()
+        _, grads = kern.grads_fn(params, b)
+        g1.record()
+        copy = _clone_state((params, opt_state, server))
+        kern.update(params, opt_state, server, grads, t)
+        u1.record()
+        torch.cuda.synchronize()
+        grads_ms, update_ms = g0.elapsed_time(g1), g1.elapsed_time(u1)
+        plain.update(*copy, grads, t)
+        _states_same((params, opt_state, server), copy,
+                     f"launch {name} kernel vs plain")
+        del copy, grads
+        torch.cuda.empty_cache()
+        steady = (statistics.median(step_ms[1:]) if len(step_ms) > 1
+                  else step_ms[0])
+        row = {"steps": n_steps, "losses": losses, "step_ms": step_ms,
+               "steady_ms": steady, "grads_ms": grads_ms,
+               "update_ms": update_ms,
+               "server_share": update_ms / (grads_ms + update_ms),
+               "tokens_per_s": tokens / (steady / 1e3),
+               "n_selected": n_sel, "launches": got,
+               "packs_unpacks_reads": counts, "steps_peak_gb": steps_peak_gb}
+        if name in ("fused", "composed"):
+            b = batch(t + 1)         # the batch's upload is not the step's
+            row["warm_syncs"] = _syncs(lambda: kern.fn(
+                params, opt_state, server, b, t + 1))
+            check(row["warm_syncs"] == 0,
+                  f"launch {name}: {row['warm_syncs']} host syncs in a "
+                  f"warm step")
+        if name == "fused":
+            b = batch(t + 3)
+            row["profile"] = _profile_round(
+                lambda: kern.fn(params, opt_state, server, b, t + 3),
+                top=10, label="one launch step")
+            tmp = tempfile.mkdtemp(prefix="launch_ckpt_")
+            try:
+                t0 = time.time()
+                path = checkpoint.save_server_state(tmp, server, layout=lay,
+                                                    step=t + 4)
+                t1 = time.time()
+                back, _ = checkpoint.restore_server_state(path, layout=lay,
+                                                          device=dev)
+                t2 = time.time()
+                check(set(back) == set(server), "launch ckpt: fields")
+                for key in server:
+                    _same(back[key], server[key], f"launch ckpt {key}")
+                del back
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            row["ckpt_save_s"], row["ckpt_restore_s"] = t1 - t0, t2 - t1
+            print(f"launch ckpt: save_server_state / restore_server_state "
+                  f"of the {LAUNCH_D}-coordinate state bit for bit "
+                  f"(save {t1 - t0:.2f} s, restore {t2 - t1:.2f} s)",
+                  flush=True)
+        summary[name] = row
+        print(f"launch {name}: {n_params} parameters, {lay.d_packed} packed "
+              f"coordinates, {n_steps} steps, losses "
+              f"{[round(x, 4) for x in losses]}; launches {got}; (packs, "
+              f"unpacks, reads of g) {counts}; selected {n_sel:.0f}; kernel "
+              f"and plain update phases identical; steady step "
+              f"{steady:.1f} ms (CUDA events; steps {[round(x, 1) for x in step_ms]}), "
+              f"gradients {grads_ms:.1f} ms + server phase and optimizer "
+              f"{update_ms:.1f} ms (share {row['server_share']:.3f}), "
+              f"{row['tokens_per_s']:.0f} tokens/s, peak allocated "
+              f"{steps_peak_gb:.2f} GB over the steps"
+              + (f", {row['warm_syncs']} host syncs in a warm step"
+                 if "warm_syncs" in row else ""), flush=True)
+        del params, opt_state, server, kern, plain
+        torch.cuda.empty_cache()
+    summary["max_memory_allocated_gb"] = (
+        torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"launch: torch.cuda.max_memory_allocated "
+          f"{summary['max_memory_allocated_gb']:.2f} GB since the last "
+          f"configuration's steps began (its kernel-against-plain "
+          f"comparison holds a cloned state)", flush=True)
+    summary["cli_losses"] = _cli_resume_check(dev)
+    summary["seconds"] = time.time() - t_phase
+    print(f"launch phase: {summary['seconds']:.1f} s", flush=True)
+    return launches, summary
+
+
 def main(argv) -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found: run chip_smoke.py from the root of "
              "a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))           # benchmarks.torch_common
+    # cuBLAS reproducible under deterministic algorithms (the launch
+    # phase's --resume check): set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2356,6 +2709,7 @@ def main(argv) -> None:
     by_path["scenario"], scenario_summary = scenario_phase(dev, task)
     by_path["tree"], tree_summary = tree_phase(dev)
     by_path["engine_1e8"], engine_big_summary = engine_big_phase(dev)
+    by_path["launch"], launch_summary = launch_phase(dev, records)
     launches = {key: sum(p[key] for p in by_path.values())
                 for key in KERNELS}
     for key, n in launches.items():
@@ -2417,7 +2771,7 @@ def main(argv) -> None:
          "threshold": threshold_summary, "async": async_summary,
          "scan_rounds": scan_summary, "scenario": scenario_summary,
          "tree": tree_summary,
-         "engine_1e8": engine_big_summary,
+         "engine_1e8": engine_big_summary, "launch": launch_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))

@@ -172,6 +172,17 @@ def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
     return torch.where(x > xp[-1], fp[-1], f)
 
 
+def _blend(a: float, old: Tensor, new: Tensor) -> Tensor:
+    """``a·old + (1 − a)·new`` as the compiled reference computes it: XLA
+    on the CPU contracts the first product into a fused multiply-add,
+    ``fma(a, old, round((1 − a)·new))``, formed here in float64 and
+    rounded once."""
+    a32 = float(np.float32(a))
+    c = (float(np.float32(1.0 - a)) * new.to(torch.float32)).to(
+        torch.float64)
+    return (a32 * old.to(torch.float64) + c).to(torch.float32)
+
+
 class BudgetController:
     """Clipped proportional regulation of ``k_m_frac`` on the staleness
     quantile.  Built once per (ρ, config): the Lemma-1 target table is
@@ -223,13 +234,14 @@ class BudgetController:
         cfg = self.cfg
         seen = state["init"] > 0.0
         a_new = age_hist.to(torch.float32)
-        age_ema = torch.where(seen[..., None], cfg.ema * state["age_ema"]
-                              + (1.0 - cfg.ema) * a_new, a_new)
+        age_ema = torch.where(seen[..., None],
+                              _blend(cfg.ema, state["age_ema"], a_new),
+                              a_new)
         if mag_hist is not None:
             m_new = mag_hist.to(torch.float32)
-            mag_ema = torch.where(seen[..., None], cfg.ema
-                                  * state["mag_ema"]
-                                  + (1.0 - cfg.ema) * m_new, m_new)
+            mag_ema = torch.where(seen[..., None],
+                                  _blend(cfg.ema, state["mag_ema"], m_new),
+                                  m_new)
         else:
             mag_ema = state["mag_ema"]
         q_meas = pmf_quantile(staleness_pmf(age_ema), cfg.target_quantile)
@@ -241,7 +253,7 @@ class BudgetController:
         tick = state["tick"] + 1.0
         act = seen & (age_ema.sum(-1) > 0.0) & (tick >= cfg.period)
         raw = torch.clamp(-cfg.gain * err, -cfg.max_step, cfg.max_step)
-        step = cfg.damping * state["prev_step"] + (1.0 - cfg.damping) * raw
+        step = _blend(cfg.damping, state["prev_step"], raw)
         step = torch.where(act, step, 0.0)
         k_m_frac = torch.clamp(state["k_m_frac"] + step, cfg.min_frac,
                                cfg.max_frac)

@@ -370,11 +370,11 @@ class SelectionEngine:
                 f"{THRESHOLD_POLICIES} run on the {cfg.backend!r} backend")
         if cfg.backend == "sharded":
             raise NotImplementedError("backend 'sharded' is "
-                                      + _NOT_PORTED.format(item=11))
+                                      + _NOT_PORTED.format(item="11d"))
         if cfg.reduce_axes:
             raise NotImplementedError(
                 "reduce_axes (the sharded launch path) is "
-                + _NOT_PORTED.format(item=11))
+                + _NOT_PORTED.format(item="11d"))
         if cfg.backend == "packed":
             if layout is None:
                 raise ValueError("packed backend needs a PackedLayout")

@@ -226,8 +226,10 @@ def shift_age_hist(age_hist: Tensor, lag: int) -> Tensor:
         return age_hist
     b = min(int(lag), STATS_AGE_BINS - 1)
     out = age_hist.to(torch.float32).clone()
-    out[b] += out[0]
-    out[0] = 0.0
+    # in-place on views: assigning a Python scalar to an element of a
+    # CUDA tensor is a host-to-device copy that waits for the device
+    out[b].add_(out[0])
+    out[0].zero_()
     return out
 
 
@@ -315,6 +317,70 @@ def init_threshold_state(device) -> Dict[str, Tensor]:
                                     device=device),
             "age_hist": torch.zeros(STATS_AGE_BINS, dtype=torch.float32,
                                     device=device)}
+
+
+THRESHOLD_STATE_FIELDS = ("theta_m", "theta_a", "n_sel_m", "n_sel",
+                          "init", "streak")
+THRESHOLD_STATE_SIZE = (len(THRESHOLD_STATE_FIELDS)
+                        + STATS_MAG_BINS + STATS_AGE_BINS)
+
+
+def threshold_state_to_vec(ts: Dict[str, Tensor]) -> Tensor:
+    """(THRESHOLD_STATE_SIZE,) float32 encoding: the six scalars, then the
+    two histograms (the launch path's carried ``theta`` vector)."""
+    scalars = torch.stack([ts[f].to(torch.float32).reshape(())
+                           for f in THRESHOLD_STATE_FIELDS])
+    return torch.cat([scalars, ts["mag_hist"].to(torch.float32),
+                      ts["age_hist"].to(torch.float32)])
+
+
+def threshold_state_from_vec(vec: Tensor) -> Dict[str, Tensor]:
+    """The inverse of ``threshold_state_to_vec`` (views of ``vec``); a
+    scalar-only legacy vector gets zero histograms."""
+    ns = len(THRESHOLD_STATE_FIELDS)
+    ts = {f: vec[i] for i, f in enumerate(THRESHOLD_STATE_FIELDS)}
+    if vec.shape[0] >= THRESHOLD_STATE_SIZE:
+        ts["mag_hist"] = vec[ns:ns + STATS_MAG_BINS]
+        ts["age_hist"] = vec[ns + STATS_MAG_BINS:THRESHOLD_STATE_SIZE]
+    else:
+        ts["mag_hist"] = torch.zeros(STATS_MAG_BINS, dtype=torch.float32,
+                                     device=vec.device)
+        ts["age_hist"] = torch.zeros(STATS_AGE_BINS, dtype=torch.float32,
+                                     device=vec.device)
+    return ts
+
+
+# --- layout (de)serialisation: checkpoints of the packed server buffers --
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype by the numpy name the reference records
+    (``torch.bfloat16`` -> ``"bfloat16"``)."""
+    return str(dtype).replace("torch.", "")
+
+
+def layout_to_meta(layout: PackedLayout) -> Dict[str, Any]:
+    """JSON-serialisable block table (no tree structure: the restoring
+    process rebuilds the layout from its own parameter tree and checks it
+    with ``layout_matches``) — the reference's record, key for key."""
+    return {
+        "lane": layout.lane,
+        "d_packed": layout.d_packed,
+        "d_valid": layout.d_valid,
+        "entries": [[e.offset, e.size, e.pad, list(e.shape),
+                     dtype_name(e.dtype)] for e in layout.table],
+    }
+
+
+def layout_matches(layout: PackedLayout, meta: Dict[str, Any]) -> bool:
+    """True when ``layout`` describes the buffer geometry of a saved
+    ``layout_to_meta`` record (offsets, sizes, pads, shapes and dtypes)."""
+    if (layout.lane != meta["lane"] or layout.d_packed != meta["d_packed"]
+            or layout.d_valid != meta["d_valid"]
+            or len(layout.table) != len(meta["entries"])):
+        return False
+    return all([e.offset, e.size, e.pad, list(e.shape),
+                dtype_name(e.dtype)] == m
+               for e, m in zip(layout.table, meta["entries"]))
 
 
 def _pow(x: Tensor, alpha: float) -> Tensor:

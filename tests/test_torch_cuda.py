@@ -913,3 +913,118 @@ def test_population_step_at_a_million_matches_the_cpu(cuda):
             assert int(st["cpu"]["t"]) == int(st["cuda"]["t"])
             for key in ps_c:
                 _same(ps_g[key].cpu(), ps_c[key])
+
+
+# --- the launch path: 32-bit offsets and the train step -------------------
+
+BIG_D = (1 << 29) + 4099          # past 2^29 coordinates; 4·d > 2^31 bytes
+
+
+def test_fairk_update_past_2_pow_29_matches_plain(cuda):
+    """``fairk_update`` [stats+res] on more than 2^29 coordinates (byte
+    offsets past 2^31): the tail, the pads and the statistics equal the
+    plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    d = BIG_D
+    g = torch.randn(d, generator=gen, device=cuda) * 0.1
+    g_prev = torch.randn(d, generator=gen, device=cuda)
+    age = torch.randint(0, 60, (d,), generator=gen, device=cuda).float()
+    age[-300:] = -1.0
+    age[(1 << 29) - 7:(1 << 29) + 9] = -1.0
+    res = torch.randn(d, generator=gen, device=cuda) * 0.01
+    tm, ta = (torch.tensor(v, device=cuda) for v in (0.16, 40.5))
+    k = ops.fairk_stats_update(g, g_prev, age, tm, ta, residual=res,
+                               mode="kernel")
+    p = ops.fairk_stats_update(g, g_prev, age, tm, ta, residual=res,
+                               mode="plain")
+    for a, b in zip(k[:3], p[:3]):
+        _same(a, b)
+    for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
+        _same(k[3][key], p[3][key])
+    assert bool((k[1][-300:] == -1.0).all())
+    assert float(k[3]["n_sel"]) > 0.1 * d
+
+
+def test_sign_mv_one_row_past_2_pow_29_matches_plain(cuda):
+    """``sign_mv`` on the launch path's (1, d) vote row with noise, d past
+    2^29."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    votes = torch.randn(1, BIG_D, generator=gen, device=cuda)
+    votes[0, -5:] = -0.0
+    noise = torch.randn(BIG_D, generator=gen, device=cuda) * 0.5
+    for nz in (None, noise):
+        ks, ke = ops.sign_mv(votes, nz, mode="kernel")
+        ps, pe = ops.sign_mv(votes, nz, mode="plain")
+        _same(ks, ps)
+        _same(ke, pe)
+
+
+@pytest.mark.parametrize("oac_kw", [{}, dict(one_bit=True,
+                                             error_feedback=True,
+                                             noise_std=0.5),
+                                    dict(adaptive_km=True, async_agg=True,
+                                         sanitize=True, fade=0.05)])
+def test_launch_step_kernel_and_plain_are_identical(cuda, oac_kw):
+    """The reduced ``internvl2-1b`` train step on the card: the update
+    phase through the kernels and through the plain versions, from one
+    state and one recorded gradient tree, gives identical parameters,
+    optimizer state and server buffers; one ``fairk_update`` launch (and
+    one ``sign_mv`` with ``one_bit``) per step."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import make_optimizer
+    cfg = get_config("internvl2-1b", reduced_variant=True)
+    shape = InputShape("custom", 48, 4, "train")
+    oac = steps.OacServerConfig(**oac_kw)
+    kern = steps.make_train_step(cfg, shape, n_micro=2, oac=oac, device=cuda)
+    plain = steps.make_train_step(cfg, shape, n_micro=2, oac=oac,
+                                  kernel_mode="plain", device=cuda)
+    params = steps.tr.init_lm_seeded(cfg, 0, cuda)
+    opt = make_optimizer("adamw", 1e-3)
+    st = opt.init(params)
+    srv = steps.init_server_state(params, oac=oac)
+    for t in range(3):
+        batch = train.make_batch(cfg, 0, t, 4, 32, 2, cuda)
+        _, grads = kern.grads_fn(params, batch)
+        copy = tree_util.tree_map(lambda x: x.clone(), (params, st, srv))
+        f0, s0 = fairk_update.LAUNCHES, sign_mv.SIGN_MV_LAUNCHES
+        kern.update(params, st, srv, grads, t)
+        assert fairk_update.LAUNCHES - f0 == 1
+        assert sign_mv.SIGN_MV_LAUNCHES - s0 == (1 if oac.one_bit else 0)
+        plain.update(*copy, grads, t)
+        for (path, a), (_, b) in zip(tree_util.leaves((params, st, srv)),
+                                     tree_util.leaves(copy)):
+            if a.dtype == torch.bfloat16:
+                assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+            else:
+                _same(a, b)
+        lay = kern.layout
+        pads = ~lay.valid_mask(cuda)
+        assert bool((srv["age"][pads] == -1).all())
+
+
+def test_launch_entry_points_on_the_card(cuda, tmp_path):
+    """The new entry points default to the card: the model, the step, the
+    server state, the draws and the checkpoints."""
+    from repro_torch import checkpoint
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer
+    cfg = get_config("qwen2.5-32b", reduced_variant=True)
+    params = transformer.init_lm_seeded(cfg, 0)
+    assert params["embed"].is_cuda
+    bundle = steps.make_train_step(cfg, InputShape("custom", 16, 2, "train"),
+                                   n_micro=1)
+    batch = train.make_batch(cfg, 0, 0, 2, 16, 1, cuda)
+    loss, grads = bundle.grads_fn(params, batch)
+    assert loss.is_cuda and bool(torch.isfinite(loss))
+    srv = steps.init_server_state(params)
+    assert srv["g"].is_cuda and srv["g"].dtype == torch.bfloat16
+    path = checkpoint.save_server_state(str(tmp_path), srv,
+                                        layout=bundle.layout, step=1)
+    back, _ = checkpoint.restore_server_state(path, layout=bundle.layout)
+    assert back["age"].is_cuda and torch.equal(back["age"], srv["age"])
+    out = train.main(["--arch", "qwen2.5-32b", "--steps", "2", "--batch",
+                      "2", "--seq", "16"])
+    assert out["params"]["embed"].is_cuda and len(out["losses"]) == 2

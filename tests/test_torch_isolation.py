@@ -7,6 +7,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,9 +35,18 @@ def test_every_port_module_imports_without_jax():
                  "repro_torch.core.lipschitz", "repro_torch.tree",
                  "repro_torch.core.packing", "repro_torch.core.engine",
                  "repro_torch.core.faults", "repro_torch.core.population",
-                 "repro_torch.core.channel"):
+                 "repro_torch.core.channel", "repro_torch.configs",
+                 "repro_torch.configs.base",
+                 "repro_torch.configs.internvl2_1b",
+                 "repro_torch.data.tokens", "repro_torch.models.layers",
+                 "repro_torch.models.mlp", "repro_torch.models.attention",
+                 "repro_torch.models.transformer", "repro_torch.optim",
+                 "repro_torch.optim.optimizers",
+                 "repro_torch.optim.schedule", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.io", "repro_torch.launch",
+                 "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert name in mods
-    assert len(mods) >= 23
+    assert len(mods) >= 52
     assert len(BENCHMARKS) == 12
     for name in ("benchmarks.torch_engine_bench",
                  "benchmarks.torch_packed_bench",
@@ -159,6 +169,39 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build(None)
         assert build("cpu").device.type == "cpu", name
+
+
+def test_launch_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch,
+                                                            tmp_path):
+    from repro_torch import checkpoint
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("internvl2-1b", reduced_variant=True)
+    shape = InputShape("custom", 32, 2, "train")
+    builds = {
+        "make_train_step": lambda dev: steps.make_train_step(
+            cfg, shape, n_micro=2, device=dev).grads_fn(
+                params, train.make_batch(cfg, 0, 0, 2, 16, 2, "cpu"))[0],
+        "init_lm_seeded": lambda dev: transformer.init_lm_seeded(
+            cfg, 0, dev)["embed"],
+        "state_from_numpy": lambda dev: steps.state_from_numpy(
+            {"a": np.zeros(3, np.float32)}, dev)["a"],
+        "restore": lambda dev: checkpoint.restore(path, device=dev)["a"],
+        "restore_server_state": lambda dev: checkpoint.restore_server_state(
+            srv_path, device=dev)[0]["g"],
+    }
+    params = transformer.init_lm_seeded(cfg, 0, "cpu")
+    path = checkpoint.save(str(tmp_path / "t.npz"), {"a": torch.zeros(3)})
+    srv_path = checkpoint.save_server_state(
+        str(tmp_path / "s.npz"), {"g": torch.zeros(4, dtype=torch.bfloat16)})
+    for name, build in builds.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(None)
+        assert build("cpu").device.type == "cpu", name
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "internvl2-1b", "--steps", "1"])
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

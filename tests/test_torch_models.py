@@ -1,0 +1,266 @@
+"""The launch path's transformer LM against the JAX package's
+(``repro.models``): the layers, both MLPs and both attention forms on
+the same numpy inputs, then ``loss_fn`` and its gradients on carried
+weights for the reduced ``internvl2-1b`` (GQA, QKV bias, the patch
+prefix), ``qwen2.5-32b`` and ``granite-34b`` (MQA, LayerNorm, GeLU), in
+bf16 and in float32 compute.
+
+Tolerances (the reference runs jitted, XLA on the CPU; the port eagerly):
+- float32 layers and attention: rtol 1e-5 / atol 1e-6 (reduction order,
+  XLA's ``rsqrt``, ``pow``, ``sin``/``cos`` and ``exp`` one ulp off);
+  RoPE: atol 2e-6 on unit-scale inputs (XLA's float32 ``sin``/``cos`` may
+  be one ulp off torch's at large angles);
+- bf16 layers: within 2 bf16 ulps relative (rtol 1.6e-2, the products are
+  accumulated in another order before the one rounding);
+- the whole loss: float32 rtol 1e-5 and gradients within 1e-5 of each
+  leaf's largest magnitude; bf16 rtol 1e-3 and gradients within 5e-2 of
+  each leaf's largest magnitude (measured: 2.4e-2 at most) — the float32
+  run is the one that would show a real fault.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torchutil import to_np
+
+from repro.configs import get_config as jax_get_config
+from repro.data.tokens import lm_batch
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import mlp as jmlp
+from repro.models import transformer as jtr
+from repro_torch import tree as tree_util
+from repro_torch.configs import get_config
+from repro_torch.launch.steps import state_from_numpy
+from repro_torch.models import attention, layers, mlp, transformer
+
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
+
+
+def _t(x):
+    return state_from_numpy(np.asarray(x), "cpu")
+
+
+def _np(x):
+    x = to_np(x.detach().to(torch.float32) if isinstance(x, torch.Tensor)
+              else x)
+    return np.asarray(x, np.float32)
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_norms_and_mlps(dtype):
+    rng = np.random.default_rng(0)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    x = _rand(rng, 2, 7, 48)
+    p = {"w": _rand(rng, 48, 40, scale=0.2), "b": _rand(rng, 40)}
+    np.testing.assert_allclose(
+        _np(layers.dense({k: _t(v) for k, v in p.items()}, _t(x), tdt)),
+        _np(jax.jit(lambda a: jlayers.dense(p, a, jdt))(x)), **tol)
+    scale, bias = _rand(rng, 48), _rand(rng, 48)
+    xs = jnp.asarray(x).astype(jdt)
+    for fn, jfn, pp in ((layers.rmsnorm, jlayers.rmsnorm,
+                         {"scale": scale}),
+                        (layers.layernorm, jlayers.layernorm,
+                         {"scale": scale, "bias": bias})):
+        got = fn({k: _t(v) for k, v in pp.items()},
+                 _t(x).to(tdt), 1e-5)
+        assert got.dtype == tdt
+        np.testing.assert_allclose(
+            _np(got), _np(jax.jit(lambda a: jfn(pp, a, 1e-5))(xs)), **tol)
+    for kind in ("swiglu", "gelu"):
+        jp = jmlp.init_mlp(jax.random.PRNGKey(1), 48, 64, kind, jnp.float32)
+        tp = state_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+        np.testing.assert_allclose(
+            _np(mlp.mlp(tp, _t(x), kind, tdt)),
+            _np(jax.jit(lambda a: jmlp.mlp(jp, a, kind, jdt))(x)), **tol)
+    with pytest.raises(ValueError, match="mlp_type"):
+        mlp.init_mlp(torch.Generator().manual_seed(0), 4, 4, "relu",
+                     torch.float32)
+
+
+def test_rope_and_inits():
+    rng = np.random.default_rng(1)
+    x = _rand(rng, 2, 9, 3, 16)
+    pos = np.arange(9)
+    for theta in (1e4, 1e6):
+        np.testing.assert_allclose(
+            _np(layers.rope_freqs(16, theta)),
+            np.asarray(jlayers.rope_freqs(16, theta)), rtol=1e-6)
+        np.testing.assert_allclose(
+            _np(layers.apply_rope(_t(x), torch.arange(9)[None], theta)),
+            np.asarray(jax.jit(lambda a: jlayers.apply_rope(
+                a, jnp.asarray(pos)[None], theta))(x)), rtol=0, atol=2e-6)
+    gen = torch.Generator().manual_seed(0)
+    p = layers.dense_init(gen, 64, 32, torch.float32, scale=0.5, bias=True,
+                          lead=(3,))
+    assert p["w"].shape == (3, 64, 32) and p["b"].shape == (3, 32)
+    assert abs(float(p["w"].std()) - 0.5 / 8) < 0.005
+    assert not bool(p["b"].any())
+    e = layers.embed_init(gen, 100, 16, torch.float32)
+    assert abs(float(e.std()) - 0.02) < 0.002
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    dict(s=32, heads=4, kv=1),                       # MQA
+    dict(s=32, heads=6, kv=2),                       # GQA
+    dict(s=32, heads=4, kv=2, window=5),
+    dict(s=24, heads=4, kv=2, q_chunk=16),           # ragged: one tile
+    dict(s=32, heads=4, kv=2, q_chunk=8, kv_chunk=8, causal_skip=True),
+    dict(s=32, heads=4, kv=4, q_chunk=8, kv_chunk=16, causal=False),
+])
+def test_attention_forms(case, dtype):
+    rng = np.random.default_rng(2)
+    s, h, kv, hd = case["s"], case["heads"], case["kv"], 8
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    q, k, v = (_rand(rng, 2, s, n, hd) for n in (h, kv, kv))
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    tq, tk, tv = (_t(a).to(tdt) for a in (q, k, v))
+    pos = np.arange(s)
+    kw = dict(causal=case.get("causal", True), window=case.get("window", 0))
+    chunk = dict(q_chunk=case.get("q_chunk", 1024),
+                 kv_chunk=case.get("kv_chunk", 1024),
+                 causal_skip=case.get("causal_skip", False))
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    want = jax.jit(lambda a, b, c: jattn.plain_attention(
+        a, b, c, jnp.asarray(pos), jnp.asarray(pos), **kw))(jq, jk, jv)
+    got = attention.plain_attention(tq, tk, tv, torch.arange(s),
+                                    torch.arange(s), **kw)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    want_c = jax.jit(lambda a, b, c: jattn.chunked_attention(
+        a, b, c, jnp.asarray(pos), jnp.asarray(pos), **kw, **chunk))(
+            jq, jk, jv)
+    got_c = attention.chunked_attention(tq, tk, tv, torch.arange(s),
+                                        torch.arange(s), **kw, **chunk)
+    np.testing.assert_allclose(_np(got_c), _np(want_c), **tol)
+    # the online softmax equals the single tile
+    np.testing.assert_allclose(_np(got_c), _np(got), **tol)
+
+
+ARCHS = ("internvl2-1b", "qwen2.5-32b", "granite-34b")
+SEQ = 48
+
+
+def _batch(cfg, seed=3):
+    s_text = SEQ - cfg.n_patches if cfg.family == "vlm" else SEQ
+    toks, labels = lm_batch(seed, 2, s_text, cfg.vocab)
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "vlm":
+        batch["embeds"] = _rand(np.random.default_rng(seed), 2,
+                                cfg.n_patches, cfg.d_model, scale=0.1)
+    return batch
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_on_carried_weights(arch, compute):
+    jcfg = dataclasses.replace(jax_get_config(arch, reduced_variant=True),
+                               compute_dtype=compute)
+    tcfg = dataclasses.replace(get_config(arch, reduced_variant=True),
+                               compute_dtype=compute)
+    params = jtr.init_lm(jax.random.PRNGKey(1), jcfg)
+    nb = _batch(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    if "embeds" in jb:
+        jb["embeds"] = jb["embeds"].astype(jnp.dtype(compute))
+    (j_loss, j_aux), j_grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jtr.loss_fn(p, jcfg, b), has_aux=True))(params, jb)
+    j_logits, _ = jax.jit(lambda p, b: jtr.forward_train(
+        p, jcfg, b["tokens"], embeds=b.get("embeds")))(params, jb)
+
+    tp = state_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    tb = {k: _t(v) for k, v in nb.items()}
+    if "embeds" in tb:
+        tb["embeds"] = tb["embeds"].to(getattr(torch, compute))
+    leaves = tree_util.leaves(tp)
+    assert [p for p, _ in leaves] == [
+        tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+        for path, _ in jax.tree_util.tree_leaves_with_path(params)]
+    xs = [leaf.requires_grad_(True) for _, leaf in leaves]
+    tree = tree_util.unflatten([p for p, _ in leaves], xs)
+    loss, aux = transformer.loss_fn(tree, tcfg, tb)
+    grads = torch.autograd.grad(loss, xs)
+    logits, _ = transformer.forward_train(tree, tcfg, tb["tokens"],
+                                          embeds=tb.get("embeds"))
+    assert logits.dtype == getattr(torch, compute)
+    assert float(aux["aux"]) == 0.0 == float(j_aux["aux"])
+    if compute == "float32":
+        loss_rtol, grad_tol = 1e-5, 1e-5
+        np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=1e-4,
+                                   atol=1e-5)
+    else:
+        loss_rtol, grad_tol = 1e-3, 5e-2
+        np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=0.05,
+                                   atol=0.05)
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss),
+                               rtol=loss_rtol)
+    for (path, _), g, jg in zip(leaves, grads,
+                                jax.tree_util.tree_leaves(j_grads)):
+        jg = np.asarray(jg)
+        assert g.shape == jg.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(
+            _np(g), jg, rtol=0, atol=grad_tol * float(np.abs(jg).max()),
+            err_msg=f"{arch} {compute} grad {path}")
+
+
+def test_init_lm_layout_matches_the_reference():
+    """The tree's paths, shapes and dtypes are the reference's, so the
+    packed layout and checkpoints line up; the meta tree has no data."""
+    for arch in ARCHS:
+        jcfg = jax_get_config(arch, reduced_variant=True)
+        tcfg = get_config(arch, reduced_variant=True)
+        jabs = jax.eval_shape(lambda k: jtr.init_lm(k, jcfg),
+                              jax.random.PRNGKey(0))
+        tp = transformer.init_lm_seeded(tcfg, 0, "cpu")
+        meta = transformer.init_lm(None, tcfg)
+        jl = jax.tree_util.tree_leaves(jabs)
+        for (_, t), (_, m), j in zip(tree_util.leaves(tp),
+                                     tree_util.leaves(meta), jl):
+            assert tuple(t.shape) == tuple(m.shape) == j.shape
+            assert str(t.dtype) == "torch." + str(j.dtype)
+            assert m.is_meta
+        assert len(tree_util.leaves(tp)) == len(jl)
+        assert isinstance(tp["blocks"], list) and len(tp["blocks"]) == 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "arctic-480b",
+                                  "whisper-base"])
+def test_unported_families_raise(arch):
+    cfg = get_config(arch, reduced_variant=True)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        transformer.init_lm_seeded(cfg, 0, "cpu")
+
+
+def test_onehot_embedding_and_tied_head():
+    """``embed_mode="onehot"`` equals the gather; a tied head reads the
+    embedding (float32 compute, against the reference)."""
+    base = dataclasses.replace(get_config("qwen2.5-32b", reduced_variant=True),
+                               compute_dtype="float32")
+    jbase = dataclasses.replace(
+        jax_get_config("qwen2.5-32b", reduced_variant=True),
+        compute_dtype="float32")
+    nb = _batch(base)
+    for kw in (dict(embed_mode="onehot"), dict(tie_embeddings=True),
+               dict(remat=False)):
+        jcfg, tcfg = (dataclasses.replace(c, **kw) for c in (jbase, base))
+        params = jtr.init_lm(jax.random.PRNGKey(2), jcfg)
+        want, _ = jtr.loss_fn(params, jcfg,
+                              {k: jnp.asarray(v) for k, v in nb.items()})
+        tp = state_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+        got, _ = transformer.loss_fn(tp, tcfg,
+                                     {k: _t(v) for k, v in nb.items()})
+        assert ("head" in tp) == (not tcfg.tie_embeddings)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

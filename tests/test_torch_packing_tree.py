@@ -169,3 +169,65 @@ def test_pack_rejects_another_tree():
                                           "b": torch.zeros(4)})
     with pytest.raises(ValueError, match="leaves"):
         lay.pack({"a": torch.zeros(3)})
+
+
+# --- trees with lists, tuples and None (the transformer and optimizer) -----
+
+def test_tree_flattens_lists_tuples_and_none_as_jax():
+    """``repro_torch.tree`` flattens sequences by position and skips
+    ``None`` as ``jax.tree_util`` does; ``unflatten`` rebuilds lists and
+    tuples (a list position without a leaf comes back as ``None``) and
+    ``tree_map`` keeps every ``None``."""
+    import jax
+    from repro_torch import tree as tree_util
+    tree = {"b": [{"y": 1, "x": 2}, (3, None, 4)], "a": None, "c": 5,
+            "d": [None, 6]}
+    got = tree_util.leaves(tree)
+    assert [v for _, v in got] == jax.tree_util.tree_leaves(tree)
+    assert [p for p, _ in got] == [
+        tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+        for path, _ in jax.tree_util.tree_leaves_with_path(tree)]
+    back = tree_util.unflatten([p for p, _ in got], [v for _, v in got])
+    assert back == {"b": [{"x": 2, "y": 1}, (3, None, 4)], "c": 5,
+                    "d": [None, 6]}
+    assert isinstance(back["b"][1], tuple)
+    mapped = tree_util.tree_map(lambda v: v * 10, tree)
+    assert mapped["a"] is None and mapped["b"][1] == (30, None, 40)
+    assert tree_util.leaves(torch.zeros(2))[0][0] == ()
+    assert tree_util.leaves(None) == []
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "granite-34b"])
+def test_transformer_layout_matches_jax(arch):
+    """``PackedLayout.from_tree`` on the reference's transformer tree
+    (``jax.eval_shape`` of ``init_lm``) and on the port's (its ``meta``
+    tree): the same offsets, sizes, pads, shapes and dtypes; pack and
+    unpack on it, with the ``blocks`` list rebuilt."""
+    import jax
+    from repro.configs import get_config as jax_get_config
+    from repro.models import transformer as jtr
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    jabs = jax.eval_shape(
+        lambda k: jtr.init_lm(k, jax_get_config(arch, reduced_variant=True)),
+        jax.random.PRNGKey(0))
+    jl = jax_packing.PackedLayout.from_tree(jabs)
+    cfg = get_config(arch, reduced_variant=True)
+    tl = packing.PackedLayout.from_tree(transformer.init_lm(None, cfg))
+    assert (tl.d_packed, tl.d_valid, tl.n_leaves) == (
+        jl.d_packed, jl.d_valid, jl.n_leaves)
+    for te, je in zip(tl.table, jl.table):
+        assert (te.index, te.offset, te.size, te.pad, te.shape) == (
+            je.index, je.offset, je.size, je.pad, tuple(je.shape))
+        assert str(te.dtype) == "torch." + str(np.dtype(je.dtype))
+    params = transformer.init_lm_seeded(cfg, 0, CPU)
+    flat = tl.pack(params)
+    back = tl.unpack(flat)
+    assert isinstance(back["blocks"], list) and len(back["blocks"]) == 1
+    for (pa, a), (pb, b) in zip(tree_util.leaves(params),
+                                tree_util.leaves(back)):
+        assert pa == pb and torch.equal(a, b)
+    pads = ~to_np(tl.valid_mask(CPU))
+    assert (to_np(flat)[pads] == 0.0).all()
+    assert (to_np(tl.init_age(device=CPU))[pads] == packing.PAD_AGE).all()
