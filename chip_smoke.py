@@ -119,18 +119,40 @@ failure):
    two kernels at the path's 629,664,256 coordinates against their plain
    versions; steady step ms, the server phase's share, tokens per second,
    a profile of one step and the peak allocated memory;
-16. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+16. the other layer families' train steps, batch 4 as two microbatches,
+   ρ 0.1, each configuration's optimizer, with the checks of 15:
+   ``mamba2-370m`` whole (48 layers, 512 tokens; (i) 3 steps and the
+   one-bit + EF route 2), ``whisper-base`` whole (6 + 6 layers, 256 text
+   tokens and 1,500 seeded frames), ``granite-moe-3b-a800m`` at full
+   width with 8 of its 32 layers (512 tokens; no kernel-against-plain
+   comparison: its cloned state would not fit), and narrow structural
+   runs of ``jamba-1.5-large-398b`` (the nested per-layer checkpoint,
+   ``sgdm``, bf16 parameters with float32 Mamba leaves) and
+   ``arctic-480b`` (the dense branch beside the MoE), 2 steps each;
+17. serving: ``make_prefill_step`` then ``make_serve_step`` at batch 4
+   with 32 greedy tokens decoded on the device, on ``internvl2-1b``
+   (256 patches + 256 tokens), granite at 8 layers (512 tokens),
+   ``mamba2-370m`` (512) and ``whisper-base`` (1,500 frames + 64 tokens)
+   at full width, and ``mamba2-370m`` again in float32 compute: finite
+   logits, the caches' ``idx`` and ``pos``, 0 host syncs in a warm decode
+   step, and but for MoE each decoded token's logits against a
+   teacher-forced ``forward_train`` (relative L2 per position: 0.1 in
+   bf16, 1e-4 in float32); prefill ms, ms per decoded token, tokens per
+   second, cache bytes;
+18. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-17. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+19. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-18. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+20. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-15) runs with every launch count set to 0 just before it
+Each path (4-16) runs with every launch count set to 0 just before it
 and read just after; a kernel that none of them launched fails the run.
+The serving path (17) launches none of the five kernels: its counts must
+stay 0.
 
 Imports neither JAX nor the JAX package.  Writes the full kernel timings to
 ``chiprun_out/chip_smoke.json``.
@@ -2476,33 +2498,151 @@ def _cli_resume_check(dev):
     return whole["losses"]
 
 
+def _train_run(dev, label, cfg, shape, oac, n_steps, batch, n_micro,
+               tokens, *, compare=True, syncs=False, profile=False):
+    """``n_steps`` steps of ``make_train_step(cfg, shape, oac)`` from a
+    seeded ``init_lm`` with the configuration's optimizer, the launch
+    counts set to 0 just before them and read just after: one
+    ``fairk_update`` launch per step (and one ``sign_mv`` on the one-bit
+    route), 1 pack, 1 unpack and 1 read of g per step, finite losses and
+    weights, pads never selected; with ``compare`` the update phase
+    through the kernels and through the plain versions from one cloned
+    state and one recorded gradient tree, identical; with ``syncs`` 0
+    host syncs in a warm step; with ``profile`` the device operations of
+    one step.  Returns (row, launches, (params, opt_state, server,
+    layout, next step))."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.core import packing
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+
+    kern = steps.make_train_step(cfg, shape, n_micro=n_micro, oac=oac,
+                                 device=dev)
+    lay = kern.layout
+    params = transformer.init_lm_seeded(cfg, 0, dev)
+    n_params = sum(x.numel() for _, x in tree_util.leaves(params))
+    opt = make_optimizer(kern.meta["optimizer"], kern.meta["lr"])
+    opt_state = opt.init(params)
+    server = steps.init_server_state(params, oac=oac)
+    pads = ~lay.valid_mask(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    c0 = (packing.PACK_CALLS, packing.UNPACK_CALLS, packing.G_READS)
+    step_ms, losses = [], []
+    for t in range(n_steps):
+        b = batch(t)
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        params, opt_state, server, loss = kern.fn(params, opt_state,
+                                                  server, b, t)
+        e.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(e))
+        losses.append(float(loss))
+    got = read_counters()
+    counts = (packing.PACK_CALLS - c0[0], packing.UNPACK_CALLS - c0[1],
+              packing.G_READS - c0[2])
+    steps_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = dict.fromkeys(KERNELS, 0)
+    want["fairk_update"] = n_steps
+    want["sign_mv"] = n_steps if oac.one_bit else 0
+    check(got == want, f"{label}: launches {got}, expected {want}")
+    check(counts == (n_steps, n_steps, n_steps),
+          f"{label}: (packs, unpacks, reads of g) {counts} in {n_steps} "
+          f"steps")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: losses {losses}")
+    check(all(bool(torch.isfinite(x).all())
+              for _, x in tree_util.leaves(params)),
+          f"{label}: a weight is not finite")
+    check(bool((server["age"][pads] == packing.PAD_AGE).all()),
+          f"{label}: a pad was selected or lost its age -1")
+    n_sel = float(server["theta"][3])
+    check(0 < n_sel <= lay.d_valid, f"{label}: selected {n_sel}")
+    # the gradient phase and the update phase apart, on one recorded
+    # gradient tree; with ``compare`` the plain update from a clone, taken
+    # outside the timed interval
+    t = n_steps
+    b = batch(t)
+    copy = _clone_state((params, opt_state, server)) if compare else None
+    g0, g1, u1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    g0.record()
+    _, grads = kern.grads_fn(params, b)
+    g1.record()
+    kern.update(params, opt_state, server, grads, t)
+    u1.record()
+    torch.cuda.synchronize()
+    grads_ms, update_ms = g0.elapsed_time(g1), g1.elapsed_time(u1)
+    if compare:
+        plain = steps.make_train_step(cfg, shape, n_micro=n_micro, oac=oac,
+                                      kernel_mode="plain", device=dev)
+        plain.update(*copy, grads, t)
+        _states_same((params, opt_state, server), copy,
+                     f"{label} kernel vs plain")
+    del copy, grads
+    torch.cuda.empty_cache()
+    steady = (statistics.median(step_ms[1:]) if len(step_ms) > 1
+              else step_ms[0])
+    row = {"parameters": n_params, "d_packed": lay.d_packed,
+           "steps": n_steps, "losses": losses, "step_ms": step_ms,
+           "steady_ms": steady, "grads_ms": grads_ms,
+           "update_ms": update_ms,
+           "server_share": update_ms / (grads_ms + update_ms),
+           "tokens_per_s": tokens / (steady / 1e3),
+           "n_selected": n_sel, "launches": got,
+           "packs_unpacks_reads": counts, "steps_peak_gb": steps_peak_gb,
+           "kernel_vs_plain": "identical" if compare else "not compared"}
+    t += 1
+    if syncs:
+        b = batch(t)                 # the batch's upload is not the step's
+        row["warm_syncs"] = _syncs(lambda: kern.fn(
+            params, opt_state, server, b, t))
+        check(row["warm_syncs"] == 0,
+              f"{label}: {row['warm_syncs']} host syncs in a warm step")
+        t += 2
+    if profile:
+        b = batch(t)
+        row["profile"] = _profile_round(
+            lambda: kern.fn(params, opt_state, server, b, t), top=10,
+            label=f"one step of {label}")
+        t += 1
+    print(f"{label}: {n_params} parameters, {lay.d_packed} packed "
+          f"coordinates, {n_steps} steps, losses "
+          f"{[round(x, 4) for x in losses]}; launches {got}; (packs, "
+          f"unpacks, reads of g) {counts}; selected {n_sel:.0f}; kernel "
+          f"and plain update phases {row['kernel_vs_plain']}; steady step "
+          f"{steady:.1f} ms (CUDA events; steps "
+          f"{[round(x, 1) for x in step_ms]}), gradients {grads_ms:.1f} ms "
+          f"+ server phase and optimizer {update_ms:.1f} ms (share "
+          f"{row['server_share']:.3f}), {row['tokens_per_s']:.0f} tokens/s, "
+          f"peak allocated {steps_peak_gb:.2f} GB over the steps"
+          + (f", {row['warm_syncs']} host syncs in a warm step"
+             if "warm_syncs" in row else ""), flush=True)
+    return row, got, (params, opt_state, server, lay, t)
+
+
 def launch_phase(dev, records):
     """The launch path's train step (``repro_torch.launch.steps``) on
     ``internvl2-1b`` at full width and depth (629,619,968 parameters,
     629,664,256 packed coordinates), batch 4 as two microbatches of the
     256-patch prefix plus 256 text tokens, AdamW, ρ 0.1: runs (i)-(iii) of
-    ``launch_configs``, each with the counts set to 0 before it — one
-    ``fairk_update`` launch per step (and one ``sign_mv`` in (ii)), 1 pack
-    and 1 unpack per step, one read of g on the fused routes, finite
-    losses and weights, pads never selected; then on a recorded gradient
-    tree the update phase through the kernels and through the plain
-    versions from one cloned state: identical parameters, optimizer state
-    and server buffers; 0 host syncs in a warm step of (i) and (iii); the
-    server state's save/restore round trip bit for bit; the launcher's
-    --resume at the reduced config.  Reports the steady step time (CUDA
-    events), the server phase's share, tokens per second, device time by
-    kernel and the peak allocated memory (over each configuration's steps,
-    and with its kernel-against-plain comparison)."""
+    ``launch_configs`` through ``_train_run`` — its checks, the kernel and
+    plain update phases identical, 0 host syncs in a warm step of (i) and
+    (iii) —, the server state's save/restore round trip bit for bit, and
+    the launcher's --resume at the reduced config.  Reports the steady
+    step time (CUDA events), the server phase's share, tokens per second,
+    device time by kernel and the peak allocated memory (over each
+    configuration's steps, and with its kernel-against-plain
+    comparison)."""
     import shutil
     import tempfile
     import torch
     from repro_torch import checkpoint
-    from repro_torch import tree as tree_util
     from repro_torch.configs import InputShape, get_config
-    from repro_torch.core import packing
-    from repro_torch.launch import steps, train
-    from repro_torch.models import transformer
-    from repro_torch.optim import make_optimizer
+    from repro_torch.launch import train
 
     t_phase = time.time()
     _launch_kernels(dev, records)
@@ -2520,101 +2660,21 @@ def launch_phase(dev, records):
                                 LAUNCH_MICRO, dev)
 
     for name, oac, n_steps in launch_configs():
-        kern = steps.make_train_step(cfg, shape, n_micro=LAUNCH_MICRO,
-                                     oac=oac, device=dev)
-        plain = steps.make_train_step(cfg, shape, n_micro=LAUNCH_MICRO,
-                                      oac=oac, kernel_mode="plain",
-                                      device=dev)
-        lay = kern.layout
-        check(lay.d_packed == LAUNCH_D,
-              f"launch: {lay.d_packed} packed coordinates")
-        params = transformer.init_lm_seeded(cfg, 0, dev)
-        n_params = sum(x.numel() for _, x in tree_util.leaves(params))
-        opt = make_optimizer("adamw", 1e-3)
-        opt_state = opt.init(params)
-        server = steps.init_server_state(params, oac=oac)
-        pads = ~lay.valid_mask(dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counters()
-        c0 = (packing.PACK_CALLS, packing.UNPACK_CALLS, packing.G_READS)
-        step_ms, losses = [], []
-        for t in range(n_steps):
-            b = batch(t)
-            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            params, opt_state, server, loss = kern.fn(params, opt_state,
-                                                      server, b, t)
-            e.record()
-            torch.cuda.synchronize()
-            step_ms.append(a.elapsed_time(e))
-            losses.append(float(loss))
-        got = read_counters()
-        counts = (packing.PACK_CALLS - c0[0], packing.UNPACK_CALLS - c0[1],
-                  packing.G_READS - c0[2])
-        steps_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        want = dict.fromkeys(KERNELS, 0)
-        want["fairk_update"] = n_steps
-        want["sign_mv"] = n_steps if oac.one_bit else 0
-        check(got == want, f"launch {name}: launches {got}, expected {want}")
+        row, got, state = _train_run(
+            dev, f"launch {name}", cfg, shape, oac, n_steps, batch,
+            LAUNCH_MICRO, tokens, syncs=name in ("fused", "composed"),
+            profile=name == "fused")
+        check(row["d_packed"] == LAUNCH_D,
+              f"launch: {row['d_packed']} packed coordinates")
         for key in launches:
             launches[key] += got[key]
-        check(counts == (n_steps, n_steps, n_steps),
-              f"launch {name}: (packs, unpacks, reads of g) {counts} in "
-              f"{n_steps} steps")
-        check(all(math.isfinite(x) for x in losses),
-              f"launch {name}: losses {losses}")
-        check(all(bool(torch.isfinite(x).all())
-                  for _, x in tree_util.leaves(params)),
-              f"launch {name}: a weight is not finite")
-        check(bool((server["age"][pads] == packing.PAD_AGE).all()),
-              f"launch {name}: a pad was selected or lost its age -1")
-        n_sel = float(server["theta"][3])
-        check(0 < n_sel <= lay.d_valid, f"launch {name}: selected {n_sel}")
-        # kernel against plain from one state and one recorded gradient
-        t = n_steps
-        b = batch(t)
-        g0, g1, u1 = (torch.cuda.Event(enable_timing=True)
-                      for _ in range(3))
-        g0.record()
-        _, grads = kern.grads_fn(params, b)
-        g1.record()
-        copy = _clone_state((params, opt_state, server))
-        kern.update(params, opt_state, server, grads, t)
-        u1.record()
-        torch.cuda.synchronize()
-        grads_ms, update_ms = g0.elapsed_time(g1), g1.elapsed_time(u1)
-        plain.update(*copy, grads, t)
-        _states_same((params, opt_state, server), copy,
-                     f"launch {name} kernel vs plain")
-        del copy, grads
-        torch.cuda.empty_cache()
-        steady = (statistics.median(step_ms[1:]) if len(step_ms) > 1
-                  else step_ms[0])
-        row = {"steps": n_steps, "losses": losses, "step_ms": step_ms,
-               "steady_ms": steady, "grads_ms": grads_ms,
-               "update_ms": update_ms,
-               "server_share": update_ms / (grads_ms + update_ms),
-               "tokens_per_s": tokens / (steady / 1e3),
-               "n_selected": n_sel, "launches": got,
-               "packs_unpacks_reads": counts, "steps_peak_gb": steps_peak_gb}
-        if name in ("fused", "composed"):
-            b = batch(t + 1)         # the batch's upload is not the step's
-            row["warm_syncs"] = _syncs(lambda: kern.fn(
-                params, opt_state, server, b, t + 1))
-            check(row["warm_syncs"] == 0,
-                  f"launch {name}: {row['warm_syncs']} host syncs in a "
-                  f"warm step")
         if name == "fused":
-            b = batch(t + 3)
-            row["profile"] = _profile_round(
-                lambda: kern.fn(params, opt_state, server, b, t + 3),
-                top=10, label="one launch step")
+            _, _, server, lay, t = state
             tmp = tempfile.mkdtemp(prefix="launch_ckpt_")
             try:
                 t0 = time.time()
                 path = checkpoint.save_server_state(tmp, server, layout=lay,
-                                                    step=t + 4)
+                                                    step=t)
                 t1 = time.time()
                 back, _ = checkpoint.restore_server_state(path, layout=lay,
                                                           device=dev)
@@ -2631,19 +2691,7 @@ def launch_phase(dev, records):
                   f"(save {t1 - t0:.2f} s, restore {t2 - t1:.2f} s)",
                   flush=True)
         summary[name] = row
-        print(f"launch {name}: {n_params} parameters, {lay.d_packed} packed "
-              f"coordinates, {n_steps} steps, losses "
-              f"{[round(x, 4) for x in losses]}; launches {got}; (packs, "
-              f"unpacks, reads of g) {counts}; selected {n_sel:.0f}; kernel "
-              f"and plain update phases identical; steady step "
-              f"{steady:.1f} ms (CUDA events; steps {[round(x, 1) for x in step_ms]}), "
-              f"gradients {grads_ms:.1f} ms + server phase and optimizer "
-              f"{update_ms:.1f} ms (share {row['server_share']:.3f}), "
-              f"{row['tokens_per_s']:.0f} tokens/s, peak allocated "
-              f"{steps_peak_gb:.2f} GB over the steps"
-              + (f", {row['warm_syncs']} host syncs in a warm step"
-                 if "warm_syncs" in row else ""), flush=True)
-        del params, opt_state, server, kern, plain
+        del state
         torch.cuda.empty_cache()
     summary["max_memory_allocated_gb"] = (
         torch.cuda.max_memory_allocated(dev) / 1e9)
@@ -2655,6 +2703,264 @@ def launch_phase(dev, records):
     summary["seconds"] = time.time() - t_phase
     print(f"launch phase: {summary['seconds']:.1f} s", flush=True)
     return launches, summary
+
+
+# --------------------------------------------------------------------------
+# the layer families' train steps and the serving path
+# --------------------------------------------------------------------------
+
+FAMILY_SEQ = 512                    # mamba2 / granite tokens per sequence
+WHISPER_TEXT = 256                  # whisper: text tokens (1,500 frames)
+GRANITE_LAYERS = 8                  # granite-moe's depth cut, of 32
+SERVE_BATCH, SERVE_NEW = 4, 32      # serving: batch, greedy tokens decoded
+# decode against teacher forcing: the relative L2 error of each
+# position's logits.  bf16: tests/test_torch_serve.py holds 0.02 at 2
+# layers and 4 tokens (measured 0.011); at full depth over 32 tokens the
+# card measured 0.020 (internvl2-1b) and 0.053 (mamba2-370m, whose SSM
+# carry is rounded to bf16 after every token, as the reference's is), so
+# 0.1; the float32 rerun of mamba2-370m is held to 1e-4
+SERVE_REL_L2 = {"bfloat16": 0.1, "float32": 1e-4}
+
+
+def family_models():
+    """(label, config, text tokens, full width?) of the families phase:
+    ``mamba2-370m`` and ``whisper-base`` whole, ``granite-moe-3b-a800m``
+    at full width with its depth cut to 8 of 32 layers (the whole model's
+    3.37B parameters at ~41 bytes each would not fit the card), and
+    narrow structural runs of ``jamba-1.5-large-398b`` and
+    ``arctic-480b`` (reduced: width cut, no speed reported)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return [
+        ("mamba2-370m", get_config("mamba2-370m"), FAMILY_SEQ, True),
+        ("whisper-base", get_config("whisper-base"), WHISPER_TEXT, True),
+        (f"granite-moe-3b-a800m[{GRANITE_LAYERS} layers]",
+         dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                             n_layers=GRANITE_LAYERS),
+         FAMILY_SEQ, True),
+        ("reduced(jamba-1.5-large-398b)",
+         get_config("jamba-1.5-large-398b", reduced_variant=True), 64,
+         False),
+        ("reduced(arctic-480b)",
+         get_config("arctic-480b", reduced_variant=True), 64, False),
+    ]
+
+
+def families_phase(dev):
+    """The train step of every other layer family (``_train_run``): batch
+    4 as two microbatches, ρ 0.1, the configuration's optimizer, (i) the
+    persisted fused-stats route — 3 steps at full width, 2 on the narrow
+    runs — and on ``mamba2-370m`` also (ii) one-bit with error feedback, 2
+    steps; kernel and plain update phases identical except on granite
+    (its cloned state would not fit), 0 host syncs in a warm step and the
+    device operations of one step at full width."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import OacServerConfig
+
+    t_phase = time.time()
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {"batch": LAUNCH_BATCH, "n_micro": LAUNCH_MICRO}
+    for label, cfg, seq, full in family_models():
+        runs = [("fused", OacServerConfig(rho=0.1), 3 if full else 2)]
+        if cfg.name == "mamba2-370m":
+            runs.append(("one_bit_ef", OacServerConfig(
+                rho=0.1, one_bit=True, error_feedback=True, noise_std=0.5),
+                2))
+        shape = InputShape("custom", seq, LAUNCH_BATCH, "train")
+        tokens = LAUNCH_BATCH * (seq + (cfg.encoder_seq
+                                        if cfg.is_encdec else 0))
+
+        def batch(t, cfg=cfg, seq=seq):
+            return train.make_batch(cfg, 0, t, LAUNCH_BATCH, seq,
+                                    LAUNCH_MICRO, dev)
+
+        for name, oac, n_steps in runs:
+            row, got, state = _train_run(
+                dev, f"family {label} {name}", cfg, shape, oac, n_steps,
+                batch, LAUNCH_MICRO, tokens,
+                compare=not cfg.name.startswith("granite-moe"),
+                syncs=full and name == "fused",
+                profile=full and name == "fused")
+            row.update(full_width=full, text_seq=seq,
+                       frames=cfg.encoder_seq if cfg.is_encdec else 0)
+            summary[f"{label} {name}"] = row
+            for key in launches:
+                launches[key] += got[key]
+            del state
+            torch.cuda.empty_cache()
+    summary["seconds"] = time.time() - t_phase
+    print(f"families phase: {summary['seconds']:.1f} s", flush=True)
+    return launches, summary
+
+
+def serve_models():
+    """(label, config, prompt text tokens) of the serving phase, full
+    width: ``internvl2-1b`` (256 patches in front), granite at 8 layers,
+    ``mamba2-370m``, ``whisper-base`` (1,500 frames to the encoder), and
+    ``mamba2-370m`` again in float32 compute (the teacher-forced check
+    without bf16 rounding)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return [
+        ("internvl2-1b", get_config("internvl2-1b"), 256),
+        (f"granite-moe-3b-a800m[{GRANITE_LAYERS} layers]",
+         dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                             n_layers=GRANITE_LAYERS), 512),
+        ("mamba2-370m", get_config("mamba2-370m"), 512),
+        ("whisper-base", get_config("whisper-base"), 64),
+        ("mamba2-370m[float32]", dataclasses.replace(
+            get_config("mamba2-370m"), compute_dtype="float32"), 512),
+    ]
+
+
+def _serve_prompt(cfg, text, dev):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (SERVE_BATCH, text),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.family == "vlm":
+        batch["embeds"] = (0.02 * torch.randn(
+            SERVE_BATCH, cfg.n_patches, cfg.d_model, generator=gen,
+            device=dev)).to(cdt)
+    if cfg.is_encdec:
+        batch["frames"] = (0.02 * torch.randn(
+            SERVE_BATCH, cfg.encoder_seq, cfg.d_model, generator=gen,
+            device=dev)).to(cdt)
+    return batch
+
+
+def serve_phase(dev):
+    """``make_prefill_step`` then ``make_serve_step`` at batch 4 with 32
+    greedy tokens decoded on the device (argmax and the position stay on
+    the card): finite logits, the caches' ``idx`` and ``pos`` as the
+    prompt and the decoded tokens put them, 0 host syncs in a warm decode
+    step, and except on MoE (``decode_mode`` routes the batch as one
+    group with a capacity floor of 2, by the reference's design) each
+    decoded token's logits and the prompt's last ones against a
+    teacher-forced ``forward_train`` over prompt + decoded tokens within
+    ``SERVE_REL_L2`` of the compute dtype.  Reports prefill ms, ms per
+    decoded token, decoded tokens per second and the cache bytes.  No
+    kernel of the table runs here: the counts must stay 0."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    t_phase = time.time()
+    summary = {"batch": SERVE_BATCH, "decoded": SERVE_NEW}
+    reset_counters()
+    for label, cfg, text in serve_models():
+        prompt = text + (cfg.n_patches if cfg.family == "vlm" else 0)
+        cap = prompt + SERVE_NEW
+        pre = steps.make_prefill_step(cfg, InputShape("prefill", prompt,
+                                                      SERVE_BATCH,
+                                                      "prefill"))
+        serve = steps.make_serve_step(cfg, InputShape("decode", cap,
+                                                      SERVE_BATCH, "decode"))
+        check((serve.meta["capacity"], serve.meta["ring"]) == (cap, False),
+              f"serve {label}: meta {serve.meta}")
+        params = transformer.init_lm_seeded(cfg, 0, dev)
+        batch = _serve_prompt(cfg, text, dev)
+        # a warm-up prefill, then the timed one on fresh caches
+        pre.fn(params, transformer.init_caches(cfg, SERVE_BATCH, cap,
+                                               device=dev), batch)
+        caches = transformer.init_caches(cfg, SERVE_BATCH, cap, device=dev)
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for _, x in tree_util.leaves(caches))
+        torch.cuda.synchronize()
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        logits, _ = pre.fn(params, caches, batch)
+        e.record()
+        first = logits[:, -1]
+        pos = torch.full((), prompt, dtype=torch.int32, device=dev)
+        toks, outs = [], []
+        d0, d1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        d0.record()
+        for _ in range(SERVE_NEW):
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+            logits, _ = serve.fn(params, caches, tok, pos)
+            outs.append(logits)
+            pos.add_(1)
+        d1.record()
+        torch.cuda.synchronize()
+        prefill_ms = a.elapsed_time(e)
+        decode_ms = d0.elapsed_time(d1) / SERVE_NEW
+        check(all(bool(torch.isfinite(x).all()) for x in outs),
+              f"serve {label}: a logit is not finite")
+        for path, x in tree_util.leaves(caches):
+            if path[-1] == "idx":
+                check(bool((x == cap).all()),
+                      f"serve {label}: cache idx {x.tolist()} != {cap}")
+            if path[-1] == "pos":
+                want = torch.arange(cap, dtype=torch.int32, device=dev)
+                check(bool((x == want).all()),
+                      f"serve {label}: cache positions differ")
+        row = {"prompt": prompt, "capacity": cap, "prefill_ms": prefill_ms,
+               "decode_ms_per_token": decode_ms,
+               "decoded_tokens_per_s": SERVE_BATCH / (decode_ms / 1e3),
+               "prefill_tokens_per_s": SERVE_BATCH * prompt
+               / (prefill_ms / 1e3), "cache_bytes": cache_bytes}
+        if not cfg.n_experts:
+            full = torch.cat([batch["tokens"]] + toks, dim=1)
+            with torch.no_grad():
+                forced, _ = transformer.forward_train(
+                    params, cfg, full, embeds=batch.get("embeds"),
+                    frames=batch.get("frames"))
+            got = torch.stack([first] + [x[:, 0] for x in outs], 1).float()
+            want = forced[:, text - 1:text + SERVE_NEW].float()
+            by_pos = ((got - want).norm(dim=-1)
+                      / want.norm(dim=-1)).amax(0)
+            rel = float(by_pos.max())
+            bound = SERVE_REL_L2[cfg.compute_dtype]
+            row["teacher_forced_rel_l2_by_position"] = by_pos.tolist()
+            row["teacher_forced_max_abs_err"] = float(
+                (got - want).abs().max())
+            row["teacher_forced_max_rel_l2"] = rel
+            row["logits_max_abs"] = float(want.abs().max())
+            check(rel <= bound,
+                  f"serve {label}: decoded logits off the teacher-forced "
+                  f"ones by a relative L2 of {rel} (bound {bound}; max "
+                  f"abs {row['teacher_forced_max_abs_err']}; by position "
+                  f"{[round(x, 4) for x in by_pos.tolist()]})")
+            del forced
+        row["warm_syncs"] = _syncs(lambda: serve.fn(params, caches, tok,
+                                                    pos))
+        check(row["warm_syncs"] == 0,
+              f"serve {label}: {row['warm_syncs']} host syncs in a warm "
+              f"decode step")
+        summary[label] = row
+        print(f"serve {label}: prompt {prompt} at batch {SERVE_BATCH}, "
+              f"prefill {prefill_ms:.1f} ms "
+              f"({row['prefill_tokens_per_s']:.0f} tokens/s), decode "
+              f"{decode_ms:.2f} ms per token "
+              f"({row['decoded_tokens_per_s']:.0f} tokens/s over "
+              f"{SERVE_NEW} greedy steps), caches "
+              f"{cache_bytes / 1e6:.1f} MB, idx and pos as expected"
+              + (f", teacher-forced max relative L2 "
+                 f"{row['teacher_forced_max_rel_l2']:.5f} (first / last "
+                 f"position {row['teacher_forced_rel_l2_by_position'][0]:.5f}"
+                 f" / {row['teacher_forced_rel_l2_by_position'][-1]:.5f}; "
+                 f"max |err| "
+                 f"{row['teacher_forced_max_abs_err']:.4f} on logits up to "
+                 f"{row['logits_max_abs']:.2f})"
+                 if "teacher_forced_max_abs_err" in row
+                 else ", MoE: no teacher-forced check")
+              + f", {row['warm_syncs']} host syncs in a warm decode step",
+              flush=True)
+        del params, caches, outs, logits
+        torch.cuda.empty_cache()
+    got = read_counters()
+    check(not any(got.values()), f"serve: a kernel was launched: {got}")
+    summary["seconds"] = time.time() - t_phase
+    print(f"serve phase: {summary['seconds']:.1f} s", flush=True)
+    return summary
 
 
 def main(argv) -> None:
@@ -2710,6 +3016,8 @@ def main(argv) -> None:
     by_path["tree"], tree_summary = tree_phase(dev)
     by_path["engine_1e8"], engine_big_summary = engine_big_phase(dev)
     by_path["launch"], launch_summary = launch_phase(dev, records)
+    by_path["families"], families_summary = families_phase(dev)
+    serve_summary = serve_phase(dev)
     launches = {key: sum(p[key] for p in by_path.values())
                 for key in KERNELS}
     for key, n in launches.items():
@@ -2772,6 +3080,7 @@ def main(argv) -> None:
          "scan_rounds": scan_summary, "scenario": scenario_summary,
          "tree": tree_summary,
          "engine_1e8": engine_big_summary, "launch": launch_summary,
+         "families": families_summary, "serve": serve_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))

@@ -14,12 +14,16 @@ with ``one_bit`` one ``sign_mv`` launch for the detection, then one
 unpack for the optimizer.  ``OacServerConfig(packed=False)`` runs the
 historical per-leaf loop (one threshold engine per leaf).
 
+``make_prefill_step`` and ``make_serve_step`` return the serving path's
+bundles: ``fn(params, caches, batch)`` fills the caches from a prompt and
+``fn(params, caches, token, pos)`` decodes one token, both updating the
+caches in place (``models.transformer.prefill`` / ``decode_step``).
+
 One card is one shard: the reference's ``shard_map``, the mesh and the
 data-axis reduction are gone, and ``n_clients`` is 1.  The reference's
-``sequence_parallel`` flag is a sharding hint with no effect on one card;
-it is left out until the mesh is ported (ROADMAP item 11d), and so are
-``make_prefill_step`` / ``make_serve_step`` (11c) and
-``make_fl_oac_step`` (11d).
+``sequence_parallel`` flag is a sharding hint with no effect on one card,
+and so is the expert axis it pins MoE tensors to; both are left out until
+the mesh is ported (ROADMAP item 11d), and so is ``make_fl_oac_step``.
 
 The step updates ``params``, ``opt_state`` and ``server`` in place under
 ``torch.no_grad()`` (the reference donates them), so a full-width model
@@ -93,17 +97,18 @@ class OacServerConfig:
 
 @dataclasses.dataclass
 class StepBundle:
-    """One step builder's product.  ``fn(params, opt_state, server, batch,
-    seed, draws=None) -> (params, opt_state, server, loss)`` is the whole
-    step (in place); ``grads_fn(params, batch) -> (loss, grads)`` its
-    local-gradient part and ``update(params, opt_state, server, grads,
-    seed, draws=None)`` its server and optimizer part (in place);
-    ``layout`` the packed layout (None per leaf)."""
+    """One step builder's product.  For a train step ``fn(params,
+    opt_state, server, batch, seed, draws=None) -> (params, opt_state,
+    server, loss)`` is the whole step (in place); ``grads_fn(params, batch)
+    -> (loss, grads)`` its local-gradient part and ``update(params,
+    opt_state, server, grads, seed, draws=None)`` its server and optimizer
+    part (in place); ``layout`` the packed layout (None per leaf).  A
+    serving bundle has only ``fn`` and ``meta``."""
     fn: Callable
-    grads_fn: Callable
-    update: Callable
-    layout: Optional[packing.PackedLayout]
     meta: Dict[str, Any]
+    grads_fn: Optional[Callable] = None
+    update: Optional[Callable] = None
+    layout: Optional[packing.PackedLayout] = None
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +125,31 @@ def _batch_parts(shape: InputShape, n_micro: Optional[int]
         raise ValueError(f"global batch {gb} not divisible by n_micro "
                          f"{n_micro}")
     return n_micro, gb // n_micro, n_shards
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    return seq_len - cfg.n_patches if cfg.family == "vlm" else seq_len
+
+
+def train_input_specs(cfg: ModelConfig, shape: InputShape, n_micro: int,
+                      mb: int) -> Dict[str, Tensor]:
+    """The train step's batch as ``meta`` tensors: ``tokens`` and
+    ``labels`` (n_micro, mb, text length) int32, a VLM's ``embeds`` and an
+    encoder-decoder's ``frames`` in the compute dtype."""
+    s_text = _text_len(cfg, shape.seq_len)
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    specs = {"tokens": meta((n_micro, mb, s_text), torch.int32),
+             "labels": meta((n_micro, mb, s_text), torch.int32)}
+    if cfg.family == "vlm":
+        specs["embeds"] = meta((n_micro, mb, cfg.n_patches, cfg.d_model),
+                               cdt)
+    if cfg.family == "audio":
+        specs["frames"] = meta((n_micro, mb, cfg.encoder_seq, cfg.d_model),
+                               cdt)
+    return specs
 
 
 def server_layout(params: Any) -> packing.PackedLayout:
@@ -376,7 +406,6 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, *,
     ``meta`` keys.  ``kernel_mode`` ("plain") runs the server phase on the
     kernels' plain versions."""
     dev = resolve_device(device)
-    tr.check_supported(cfg)
     n_micro, mb, n_shards = _batch_parts(shape, n_micro)
     if client_chunk is not None and (
             client_chunk < 1 or n_micro % client_chunk):
@@ -409,7 +438,8 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, *,
                           .requires_grad_(True) for _, p in leaves]
                     loss, _ = tr.loss_fn(tree_util.unflatten(paths, xs),
                                          cfg, mbatch)
-                    gs = torch.autograd.grad(loss, xs)
+                    gs = torch.autograd.grad(loss, xs,
+                                             materialize_grads=True)
                 gs = [g.to(torch.float32) for g in gs]
                 loss = loss.detach()
                 if loss_c is None:
@@ -468,7 +498,51 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, *,
         update(params, opt_state, server, grads, seed, draws)
         return params, opt_state, server, loss
 
-    return StepBundle(fn, grads_fn, update, layout, meta)
+    return StepBundle(fn, meta, grads_fn, update, layout)
+
+
+# ---------------------------------------------------------------------------
+# prefill / serve steps
+# ---------------------------------------------------------------------------
+
+def _serve_capacity(cfg: ModelConfig, shape: InputShape) -> Tuple[int, bool]:
+    """(cache capacity, ring?) for decode shapes."""
+    if shape.seq_len > 32768 and cfg.sliding_window and cfg.family not in (
+            "ssm", "hybrid"):
+        return cfg.sliding_window, True       # long-context sliding window
+    return shape.seq_len, False
+
+
+def make_prefill_step(cfg: ModelConfig, shape: InputShape) -> StepBundle:
+    """``fn(params, caches, batch) -> (last logits (B, 1, V), caches)``:
+    the prompt (``tokens``, and ``embeds`` / ``frames`` for a VLM or an
+    encoder-decoder) through the stack, the caches filled in place."""
+    def prefill_step(params, caches, batch):
+        return tr.prefill(params, cfg, batch["tokens"], caches,
+                          embeds=batch.get("embeds"),
+                          frames=batch.get("frames"))
+
+    meta = {"kind": "prefill", "seq_len": shape.seq_len,
+            "global_batch": shape.global_batch,
+            "scans": {"layers": cfg.n_scan_blocks}}
+    return StepBundle(prefill_step, meta)
+
+
+def make_serve_step(cfg: ModelConfig, shape: InputShape) -> StepBundle:
+    """``fn(params, caches, token (B, 1), pos) -> (logits (B, 1, V),
+    caches)``: one decoded token, the caches updated in place.  ``meta``
+    holds the cache ``capacity`` and ``ring`` the step expects
+    (``models.transformer.init_caches``)."""
+    capacity, ring = _serve_capacity(cfg, shape)
+    window = cfg.sliding_window if ring else 0
+
+    def serve_step(params, caches, token, pos):
+        return tr.decode_step(params, cfg, token, pos, caches, window=window)
+
+    meta = {"kind": "decode", "seq_len": shape.seq_len,
+            "global_batch": shape.global_batch, "capacity": capacity,
+            "ring": ring, "scans": {"layers": cfg.n_scan_blocks}}
+    return StepBundle(serve_step, meta)
 
 
 def _assign(server: Dict[str, Any], new: Dict[str, Any]) -> None:
@@ -621,6 +695,7 @@ def _per_leaf_phase(oac: OacServerConfig, kernel_mode, dev):
 
 
 __all__ = ["OacServerConfig", "StepBundle", "make_train_step",
+           "make_prefill_step", "make_serve_step", "train_input_specs",
            "init_server_state", "server_layout", "state_from_numpy",
            "server_draws", "leaf_draws", "fairk_threshold_masks",
            "TAG_NOISE", "TAG_FADING", "TAG_CSI", "TAG_FADE", "TAG_CHURN",

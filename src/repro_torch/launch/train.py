@@ -49,7 +49,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128,
                     help="text tokens per sequence (a VLM's patch prefix "
-                         "comes in front of them)")
+                         "comes in front of them; an encoder-decoder's "
+                         "frames go to its encoder)")
     ap.add_argument("--oac", action="store_true", default=True,
                     help="enable the FAIR-k OAC server phase")
     ap.add_argument("--no-oac", dest="oac", action="store_false")
@@ -137,8 +138,9 @@ def oac_config(args) -> Optional[OacServerConfig]:
 def make_batch(cfg, seed: int, t: int, batch: int, seq: int, n_micro: int,
                device) -> Dict[str, torch.Tensor]:
     """Step ``t``'s batch: ``lm_batch`` text of ``seq`` tokens, as the
-    reference's launcher makes it, and for a VLM the stub vision encoder's
-    patch embeddings in front of it — normals at the token embedding's
+    reference's launcher makes it, and the stub front end's embeddings —
+    a VLM's patches in front of the text, an encoder-decoder's
+    ``encoder_seq`` audio frames — as normals at the token embedding's
     scale (0.02) from a CPU generator seeded ``seed·1000 + t``.  The
     reference's launcher feeds zeros there; at ``internvl2-1b``'s depth
     that makes the gradients overflow in both packages (an RMSNorm of
@@ -148,10 +150,12 @@ def make_batch(cfg, seed: int, t: int, batch: int, seq: int, n_micro: int,
     mb = batch // n_micro
     out = {"tokens": torch.from_numpy(toks).reshape(n_micro, mb, seq),
            "labels": torch.from_numpy(labels).reshape(n_micro, mb, seq)}
-    if cfg.family == "vlm":
+    prefix = {"vlm": ("embeds", cfg.n_patches),
+              "audio": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    if prefix is not None:
         gen = torch.Generator().manual_seed(seed * 1000 + t)
-        out["embeds"] = (0.02 * torch.randn(
-            (n_micro, mb, cfg.n_patches, cfg.d_model), generator=gen)).to(
+        out[prefix[0]] = (0.02 * torch.randn(
+            (n_micro, mb, prefix[1], cfg.d_model), generator=gen)).to(
                 getattr(torch, cfg.compute_dtype))
     return {k: v.to(device) for k, v in out.items()}
 

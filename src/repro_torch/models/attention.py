@@ -1,13 +1,21 @@
-"""Grouped-query attention for training (``repro.models.attention``):
-single-tile masked attention and the chunked online-softmax form.
+"""Grouped-query attention (``repro.models.attention``): single-tile
+masked attention, the chunked online-softmax form, and the KV caches of
+the serving path with single-token decoding.
 
 Scores are the reference's ``einsum(..., preferred_element_type=float32)``
 of compute-dtype operands: here float32 products of the upcast values (a
 product of two bf16 values is exact in float32), the ``NEG_INF`` mask and
 the online-softmax rescale as the reference writes them.  Plain matrix
 products, not ``scaled_dot_product_attention``: its rounding differs.
-The KV caches and single-token decoding belong to the serving path
-(ROADMAP item 11c).
+
+A cache is ``{"k", "v"}`` (B, capacity, KV, hd) in the cache dtype,
+``pos`` (capacity,) int32 with -1 where empty, ``idx`` an int32 scalar
+(the next write offset) and ``ring`` a bool scalar.  ``cache_write`` and
+``cache_fill`` update the cache IN PLACE and return it (the reference
+returns a new one): a decoded token's slot is computed on the device
+(``where(ring, idx % cap, min(idx, cap - 1))``: once full, a non-ring
+cache overwrites its last slot) and written with ``index_copy_``, so a
+step makes no host sync.
 """
 
 from __future__ import annotations
@@ -127,3 +135,84 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, qpos: Tensor,
     outs = [one_q_block(iq, nk if visit_all else iq + 1) for iq in range(nq)]
     out = torch.stack(outs, dim=1)                 # (b, nq, q_chunk, kv, g, hd)
     return out.reshape(b, s_len, n_heads, hd)
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+def init_cache(batch: int, capacity: int, n_kv: int, head_dim: int, dtype,
+               ring: bool = False, device=None) -> Dict:
+    """An empty cache; ``ring=True`` is a sliding-window ring buffer of
+    size ``capacity``."""
+    kv = (batch, capacity, n_kv, head_dim)
+    return {
+        "k": torch.zeros(kv, dtype=dtype, device=device),
+        "v": torch.zeros(kv, dtype=dtype, device=device),
+        "pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        "idx": torch.zeros((), dtype=torch.int32, device=device),
+        "ring": torch.tensor(bool(ring), device=device),
+    }
+
+
+def cache_spec(batch: int, capacity: int, n_kv: int, head_dim: int, dtype,
+               ring: bool = False) -> Dict:
+    """``init_cache``'s shapes and dtypes as ``meta`` tensors."""
+    return init_cache(batch, capacity, n_kv, head_dim, dtype, ring,
+                      device="meta")
+
+
+def cache_write(cache: Dict, k_new: Tensor, v_new: Tensor,
+                position: Tensor) -> Dict:
+    """Append one decode step in place (k_new / v_new: (B, 1, KV, hd),
+    roped already; ``position`` a 0-d tensor)."""
+    cap = cache["k"].shape[1]
+    slot = torch.where(cache["ring"], cache["idx"] % cap,
+                       torch.clamp(cache["idx"], max=cap - 1))
+    slot = slot.reshape(1).to(torch.int64)
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot,
+                             position.reshape(1).to(torch.int32))
+    cache["idx"].add_(1)
+    return cache
+
+
+def cache_fill(cache: Dict, k_all: Tensor, v_all: Tensor,
+               positions: Tensor) -> Dict:
+    """Prefill in place: the whole sequence, or its trailing ``capacity``
+    positions, from slot 0; the rest of the cache emptied."""
+    cap = cache["k"].shape[1]
+    s = k_all.shape[1]
+    keep = min(s, cap)
+    for name, val in (("k", k_all), ("v", v_all)):
+        cache[name][:, :keep].copy_(val[:, s - keep:])
+        cache[name][:, keep:].zero_()
+    cache["pos"][:keep].copy_(positions[s - keep:])
+    cache["pos"][keep:].fill_(-1)
+    cache["idx"].add_(s)
+    return cache
+
+
+def decode_attend(q: Tensor, cache: Dict, qpos: Tensor, *,
+                  window: int = 0) -> Tensor:
+    """Single-token attention against the cache: float32 scores and
+    softmax, ``p`` cast to the value dtype.  q: (B, 1, H, hd) -> (B, 1, H,
+    hd)."""
+    b, _, n_heads, hd = q.shape
+    n_kv = cache["k"].shape[2]
+    g = n_heads // n_kv
+    qh = q.reshape(b, 1, n_kv, g, hd)
+    scale = 1.0 / (hd ** 0.5)
+    s = torch.einsum("bskgd,btkd->bkgst", qh.to(torch.float32),
+                     cache["k"].to(torch.float32)) * scale
+    pos = cache["pos"]
+    valid = (pos >= 0) & (pos <= qpos)
+    if window:
+        valid = valid & (pos > qpos - window)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd",
+                       p.to(cache["v"].dtype).to(torch.float32),
+                       cache["v"].to(torch.float32))
+    return out.reshape(b, 1, n_heads, hd).to(q.dtype)

@@ -7,6 +7,7 @@ record; CRC corruption raises ``CorruptCheckpointError`` on both sides;
 ``layout_matches``) and the threshold-state codec of
 ``core.packing``."""
 
+import dataclasses
 import json
 import os
 import zipfile
@@ -253,3 +254,76 @@ def test_launch_state_round_trips(tmp_path):
     for key in srv:
         assert srv_back[key].dtype == srv[key].dtype
         assert torch.equal(srv_back[key], srv[key])
+
+
+ALL_ARCHS = ("internvl2-1b", "qwen2.5-32b", "granite-34b", "deepseek-67b",
+             "mistral-large-123b", "granite-moe-3b-a800m", "arctic-480b",
+             "mamba2-370m", "jamba-1.5-large-398b", "whisper-base")
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_layout_of_every_configuration_matches_the_reference(arch):
+    """The packed layout of each reduced configuration's tree (MoE
+    stacks, float32 Mamba leaves inside bf16 trees, the encoder) has the
+    reference's block table."""
+    jabs = jax.eval_shape(
+        lambda k: jtr.init_lm(k, jax_get_config(arch, reduced_variant=True)),
+        jax.random.PRNGKey(0))
+    tl = packing.PackedLayout.from_tree(
+        transformer.init_lm(None, get_config(arch, reduced_variant=True)))
+    assert packing.layout_to_meta(tl) == jpacking.layout_to_meta(
+        jpacking.PackedLayout.from_tree(jabs))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-370m",
+                                  "whisper-base", "jamba-1.5-large-398b"])
+def test_reference_checkpoint_of_every_family_restores(arch, tmp_path):
+    """Parameters, optimizer state and the packed server state saved by
+    the reference for a reduced MoE, Mamba, encoder-decoder and hybrid
+    model restore in the port bit for bit (bf16 trees with float32
+    routers and Mamba leaves included), and the port's restored
+    parameters carry the reference's loss."""
+    from repro.launch import steps as jsteps
+    from repro.optim import make_optimizer as jax_make_optimizer
+    jcfg = jax_get_config(arch, reduced_variant=True)
+    cfg = get_config(arch, reduced_variant=True)
+    params = jtr.init_lm(jax.random.PRNGKey(3), jcfg)
+    opt = jax_make_optimizer(jcfg.optimizer, 1e-3).init(params)
+    jl = jpacking.PackedLayout.from_tree(params)
+    rng = np.random.default_rng(4)
+    server = {"g": jnp.asarray(rng.normal(size=jl.d_packed), jnp.bfloat16),
+              "age": jnp.asarray(rng.integers(-1, 100, jl.d_packed),
+                                 jnp.int8),
+              "theta": jnp.asarray(rng.random(262).astype(np.float32))}
+    state = {"params": params, "opt": opt}
+    path = jck.save(str(tmp_path), state, step=7)
+    srv_path = jck.save_server_state(str(tmp_path), server, layout=jl,
+                                     step=7)
+    like = {"params": transformer.init_lm(None, cfg),
+            "opt": jax.tree.map(np.asarray, opt)}
+    back = ck.restore(path, like=like, device="cpu")
+    for (tpath, t), (jpath, j) in zip(
+            tree_util.leaves(back), jax.tree_util.tree_leaves_with_path(
+                state)):
+        assert str(t.dtype) == "torch." + str(np.asarray(j).dtype), tpath
+        if t.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(_words(t), _words(j))
+        else:
+            assert to_np(t).tobytes() == np.asarray(j).tobytes(), tpath
+    tl = steps.server_layout(back["params"])
+    srv, _ = ck.restore_server_state(srv_path, layout=tl, device="cpu")
+    _server_equal(srv, server)
+    toks, labels = (np.arange(16, dtype=np.int32).reshape(2, 8) % cfg.vocab,
+                    np.ones((2, 8), np.int32))
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "audio":
+        batch["frames"] = (rng.normal(size=(2, cfg.encoder_seq, cfg.d_model))
+                           * 0.1).astype(np.float32)
+    f32 = dict(compute_dtype="float32")
+    want, _ = jtr.loss_fn(params, dataclasses.replace(jcfg, **f32),
+                          {k: jnp.asarray(v) for k, v in batch.items()})
+    got, _ = transformer.loss_fn(back["params"],
+                                 dataclasses.replace(cfg, **f32),
+                                 {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

@@ -229,3 +229,26 @@ def test_chip_smoke_fails_without_a_card():
     assert out.returncode != 0
     assert "torch.cuda.is_available() is false" in out.stdout
     assert '"ok": true' not in out.stdout
+
+
+def test_serving_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+    """The new layer modules stand alone, and ``init_caches`` (the
+    serving path's allocation) follows the card-or-explicit-CPU rule;
+    ``cache_specs`` allocates nothing (``meta`` tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2, moe, transformer
+    mods = _port_modules()
+    for name in ("repro_torch.models.moe", "repro_torch.models.mamba2"):
+        assert name in mods
+    for mod in (moe, mamba2):
+        with open(mod.__file__) as f:
+            src = f.read()
+        assert "import jax" not in src and "from repro." not in src
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("whisper-base", reduced_variant=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_caches(cfg, 1, 8)
+    caches = transformer.init_caches(cfg, 1, 8, device="cpu")
+    assert caches[0]["attn"]["k"].device.type == "cpu"
+    assert caches[0]["cross"]["k"].shape[2] == cfg.encoder_seq
+    assert transformer.cache_specs(cfg, 1, 8)[0]["attn"]["k"].is_meta

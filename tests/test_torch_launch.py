@@ -30,6 +30,12 @@ False)`` on a 1×1 ``("data", "model")`` CPU mesh), on the reduced
   compute, within 1e-6 on ≥ 99.9% in float32.
 * The launcher's ``--ckpt-every`` / ``--resume`` continues one trajectory
   bit for bit, walking back past a corrupt and a torn checkpoint.
+* The other layer families (reduced ``granite-moe-3b-a800m``,
+  ``mamba2-370m``, ``whisper-base`` and ``jamba-1.5-large-398b``) through
+  the whole step in float32 compute, 2 steps, against the reference's
+  step run inside ``with MESH:`` (the MoE expert pin needs the mesh
+  context), and the launcher's ``--resume`` on the SSD and
+  encoder-decoder stacks.
 """
 
 import dataclasses
@@ -344,6 +350,79 @@ def test_whole_step_matches_the_reference(whole_step):
                                    _jbits(server["theta"])[3], rtol=0.02)
 
 
+FAMILIES = ("granite-moe-3b-a800m", "mamba2-370m", "whisper-base",
+            "jamba-1.5-large-398b")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_whole_step_of_every_family_matches_the_reference(arch):
+    """The MoE, Mamba-2, encoder-decoder and hybrid stacks through the
+    whole step (float32 compute, the default persisted server phase, the
+    configuration's optimizer: jamba's ``sgdm`` on bf16 parameters), 2
+    steps from the reference's initial state: the loss (with the MoE aux
+    term) within rtol 1e-5, ages equal on ≥ 99.9% of coordinates,
+    parameters within 2.2e-3 per step and within 1e-6 on ≥ 99.9% of them
+    (a bf16 parameter: within one bf16 ulp on ≥ 99.9%)."""
+    jcfg = dataclasses.replace(jax_get_config(arch, reduced_variant=True),
+                               compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, reduced_variant=True),
+                              compute_dtype="float32")
+    joac, toac = _oac_pair({})
+    jshape = JaxShape("custom", SEQ, BATCH, "train")
+    jbundle = jsteps.make_train_step(jcfg, jshape, MESH, n_micro=N_MICRO,
+                                     oac=joac, sequence_parallel=False)
+    bundle = steps.make_train_step(cfg, InputShape("custom", SEQ, BATCH,
+                                                   "train"),
+                                   n_micro=N_MICRO, oac=toac, device="cpu")
+    assert bundle.meta == jbundle.meta
+    specs = steps.train_input_specs(cfg, InputShape("custom", SEQ, BATCH,
+                                                    "train"), N_MICRO,
+                                    BATCH // N_MICRO)
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in specs.items()} == {
+        k: (v.shape, "torch." + str(v.dtype))
+        for k, v in jbundle.input_specs[3].items()}
+    params = jtr.init_lm(jax.random.PRNGKey(0), jcfg)
+    opt_state = jax_make_optimizer(jbundle.meta["optimizer"],
+                                   1e-3).init(params)
+    server = jsteps.init_server_state(params, mesh=MESH, cfg=jcfg, oac=joac)
+    tp, to, ts = _to_port(params), _to_port(opt_state), _to_port(server)
+    j_fn = jax.jit(jbundle.fn)
+    rng = np.random.default_rng(11)
+    for t in range(2):
+        jb = {}
+        for key, spec in jbundle.input_specs[3].items():
+            if key in ("tokens", "labels"):
+                continue
+            jb[key] = jnp.asarray((rng.normal(size=spec.shape) * 0.1)
+                                  .astype(np.float32))
+        toks, labels = lm_batch(t, BATCH, SEQ, cfg.vocab)
+        shape = (N_MICRO, BATCH // N_MICRO, SEQ)
+        jb["tokens"] = jnp.asarray(toks.reshape(shape))
+        jb["labels"] = jnp.asarray(labels.reshape(shape))
+        with MESH:
+            params, opt_state, server, j_loss = j_fn(params, opt_state,
+                                                     server, jb,
+                                                     jnp.int32(t))
+        tb = {k: steps.state_from_numpy(np.asarray(v), "cpu")
+              for k, v in jb.items()}
+        c0 = ops.FAIRK_UPDATE_CALLS
+        tp, to, ts, loss = bundle.fn(tp, to, ts, tb, t)
+        assert ops.FAIRK_UPDATE_CALLS - c0 == 1
+        np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
+        agree = float((_bits(ts["age"]) == _jbits(server["age"])).mean())
+        assert agree >= 0.999, (t, agree)
+        close = total = 0
+        for (path, x), j in zip(tree_util.leaves(tp),
+                                jax.tree_util.tree_leaves(params)):
+            diff = np.abs(_bits(x) - _jbits(j))
+            assert diff.max() <= 2.2e-3 * (t + 1), (t, path, diff.max())
+            tol = (1e-6 if x.dtype == torch.float32
+                   else 2.0 ** -8 * np.abs(_jbits(j)))
+            close += int((diff <= tol).sum())
+            total += diff.size
+        assert close / total >= 0.999, (t, close / total)
+
+
 def test_meta_and_argument_checks_match_the_reference():
     shape_t = InputShape("custom", SEQ, BATCH, "train")
     for kw in ({}, dict(one_bit=True, error_feedback=True),
@@ -473,6 +552,23 @@ def test_state_from_numpy_takes_bf16_as_words_or_extension():
         assert t["age"].dtype == torch.int8
 
 
+def test_state_from_numpy_keeps_float32_leaves_of_bf16_trees():
+    """jamba's bf16 tree holds float32 routers and Mamba scalars
+    (``a_log``, ``d_skip``, ``dt_bias``): each leaf keeps its dtype and
+    its bits."""
+    params = jtr.init_lm(jax.random.PRNGKey(0), jax_get_config(
+        "jamba-1.5-large-398b", reduced_variant=True))
+    tp = _to_port(params)
+    kinds = set()
+    for (path, t), j in zip(tree_util.leaves(tp),
+                            jax.tree_util.tree_leaves(params)):
+        _equal(t, j, str(path))
+        kinds.add((path[-2] if path[-1] == "w" else path[-1], str(t.dtype)))
+    for name in ("router", "a_log", "d_skip", "dt_bias"):
+        assert (name, "torch.float32") in kinds
+    assert ("wu", "torch.bfloat16") in kinds
+
+
 def _launch(argv, ckpt_dir):
     base = ["--arch", ARCH, "--batch", "2", "--seq", "16", "--device", "cpu",
             "--ckpt-dir", str(ckpt_dir), "--adaptive-km", "--ef"]
@@ -485,6 +581,27 @@ def test_cli_resume_continues_one_trajectory(tmp_path):
     assert first["losses"] == whole["losses"][:2]
     rest = _launch(["--steps", "2", "--resume"], tmp_path / "b")
     assert rest["start"] == 2 and rest["losses"] == whole["losses"][2:]
+    for key in ("params", "opt", "server"):
+        for (path, a), (_, b) in zip(tree_util.leaves(rest[key]),
+                                     tree_util.leaves(whole[key])):
+            assert torch.equal(a, b), (key, path)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "whisper-base"])
+def test_cli_resume_continues_one_trajectory_of_every_family(arch, tmp_path):
+    """The launcher on the SSD and the encoder-decoder stacks (seeded
+    normal frames feed whisper's encoder): 4 steps against 2 steps, a
+    checkpoint and ``--resume`` for 2 more, bit for bit."""
+    base = ["--arch", arch, "--batch", "2", "--seq", "16", "--device",
+            "cpu", "--client-chunk", "2"]
+    whole = train.main(base + ["--steps", "4", "--ckpt-dir",
+                               str(tmp_path / "a")])
+    train.main(base + ["--steps", "2", "--ckpt-every", "2", "--ckpt-dir",
+                       str(tmp_path / "b")])
+    rest = train.main(base + ["--steps", "2", "--resume", "--ckpt-dir",
+                              str(tmp_path / "b")])
+    assert rest["start"] == 2 and rest["losses"] == whole["losses"][2:]
+    assert all(np.isfinite(whole["losses"]))
     for key in ("params", "opt", "server"):
         for (path, a), (_, b) in zip(tree_util.leaves(rest[key]),
                                      tree_util.leaves(whole[key])):

@@ -1,9 +1,15 @@
 """The launch path's transformer LM against the JAX package's
 (``repro.models``): the layers, both MLPs and both attention forms on
-the same numpy inputs, then ``loss_fn`` and its gradients on carried
-weights for the reduced ``internvl2-1b`` (GQA, QKV bias, the patch
-prefix), ``qwen2.5-32b`` and ``granite-34b`` (MQA, LayerNorm, GeLU), in
-bf16 and in float32 compute.
+the same numpy inputs, then ``loss_fn`` (with the MoE aux loss) and its
+gradients on carried weights for the reduced variant of every
+configuration — ``internvl2-1b`` (GQA, QKV bias, the patch prefix),
+``qwen2.5-32b``, ``granite-34b`` (MQA, LayerNorm, GeLU), ``deepseek-67b``,
+``mistral-large-123b``, ``granite-moe-3b-a800m`` (MoE), ``arctic-480b``
+(MoE beside a dense branch, bf16 parameters), ``mamba2-370m`` (SSD),
+``jamba-1.5-large-398b`` (the 8-layer attention / Mamba / MoE
+super-block with its nested checkpoint, bf16 parameters with float32
+Mamba leaves) and ``whisper-base`` (the encoder-decoder over frames) —
+in bf16 and in float32 compute.
 
 Tolerances (the reference runs jitted, XLA on the CPU; the port eagerly):
 - float32 layers and attention: rtol 1e-5 / atol 1e-6 (reduction order,
@@ -13,9 +19,21 @@ Tolerances (the reference runs jitted, XLA on the CPU; the port eagerly):
 - bf16 layers: within 2 bf16 ulps relative (rtol 1.6e-2, the products are
   accumulated in another order before the one rounding);
 - the whole loss: float32 rtol 1e-5 and gradients within 1e-5 of each
-  leaf's largest magnitude; bf16 rtol 1e-3 and gradients within 5e-2 of
-  each leaf's largest magnitude (measured: 2.4e-2 at most) — the float32
-  run is the one that would show a real fault.
+  leaf's largest magnitude (5e-5 with Mamba layers: the SSD's cumsums of
+  exps, measured 2.4e-5 on ``a_log``; a bf16 parameter's gradient is
+  bf16: within 2^-8 of its largest magnitude, one bf16 ulp); bf16 rtol
+  1e-3 and gradients within 5e-2 of each leaf's largest magnitude
+  (measured: 3.4e-2 at most) — the float32 run is the one that would show
+  a real fault.  ``jamba-1.5-large-398b`` in bf16 compute: its 16
+  layers of bf16 parameters and activations reach 8 MoE routers, and a
+  rounding difference flips a near-tied routing choice of a token now and
+  then — in the port's run one token's logits move by 0.77 (and another's
+  by 0.2; the reference's own bf16 run moves one by 0.33 from its float32
+  run), which moves the expert gradients by up to 0.22 of their largest
+  magnitude.  So there, all but 2 of the 96 token rows of logits are
+  held within 0.1, and each gradient leaf in norm: ||g − g_ref|| within
+  0.15 ||g_ref|| (measured 0.096 at most, on a router; the reference's
+  own bf16-to-float32 distance is 0.02–0.03).
 """
 
 import dataclasses
@@ -150,7 +168,10 @@ def test_attention_forms(case, dtype):
     np.testing.assert_allclose(_np(got_c), _np(got), **tol)
 
 
-ARCHS = ("internvl2-1b", "qwen2.5-32b", "granite-34b")
+ARCHS = ("internvl2-1b", "qwen2.5-32b", "granite-34b", "deepseek-67b",
+         "mistral-large-123b", "granite-moe-3b-a800m", "arctic-480b",
+         "mamba2-370m", "jamba-1.5-large-398b", "whisper-base")
+DEEP_BF16 = ("jamba-1.5-large-398b",)
 SEQ = 48
 
 
@@ -161,7 +182,19 @@ def _batch(cfg, seed=3):
     if cfg.family == "vlm":
         batch["embeds"] = _rand(np.random.default_rng(seed), 2,
                                 cfg.n_patches, cfg.d_model, scale=0.1)
+    if cfg.family == "audio":
+        batch["frames"] = _rand(np.random.default_rng(seed), 2,
+                                cfg.encoder_seq, cfg.d_model, scale=0.1)
     return batch
+
+
+def _jax_grads(jcfg, params, nb):
+    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    for key in ("embeds", "frames"):
+        if key in jb:
+            jb[key] = jb[key].astype(jnp.dtype(jcfg.compute_dtype))
+    return jb, jax.jit(jax.value_and_grad(
+        lambda p, b: jtr.loss_fn(p, jcfg, b), has_aux=True))(params, jb)
 
 
 @pytest.mark.parametrize("compute", ["bfloat16", "float32"])
@@ -173,18 +206,17 @@ def test_loss_and_grads_on_carried_weights(arch, compute):
                                compute_dtype=compute)
     params = jtr.init_lm(jax.random.PRNGKey(1), jcfg)
     nb = _batch(jcfg)
-    jb = {k: jnp.asarray(v) for k, v in nb.items()}
-    if "embeds" in jb:
-        jb["embeds"] = jb["embeds"].astype(jnp.dtype(compute))
-    (j_loss, j_aux), j_grads = jax.jit(jax.value_and_grad(
-        lambda p, b: jtr.loss_fn(p, jcfg, b), has_aux=True))(params, jb)
-    j_logits, _ = jax.jit(lambda p, b: jtr.forward_train(
-        p, jcfg, b["tokens"], embeds=b.get("embeds")))(params, jb)
+    jb, ((j_loss, j_aux), j_grads) = _jax_grads(jcfg, params, nb)
+    j_logits, j_aux_f = jax.jit(lambda p, b: jtr.forward_train(
+        p, jcfg, b["tokens"], embeds=b.get("embeds"),
+        frames=b.get("frames")))(params, jb)
+    flips = compute == "bfloat16" and arch in DEEP_BF16
 
     tp = state_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     tb = {k: _t(v) for k, v in nb.items()}
-    if "embeds" in tb:
-        tb["embeds"] = tb["embeds"].to(getattr(torch, compute))
+    for key in ("embeds", "frames"):
+        if key in tb:
+            tb[key] = tb[key].to(getattr(torch, compute))
     leaves = tree_util.leaves(tp)
     assert [p for p, _ in leaves] == [
         tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
@@ -192,27 +224,51 @@ def test_loss_and_grads_on_carried_weights(arch, compute):
     xs = [leaf.requires_grad_(True) for _, leaf in leaves]
     tree = tree_util.unflatten([p for p, _ in leaves], xs)
     loss, aux = transformer.loss_fn(tree, tcfg, tb)
-    grads = torch.autograd.grad(loss, xs)
-    logits, _ = transformer.forward_train(tree, tcfg, tb["tokens"],
-                                          embeds=tb.get("embeds"))
+    grads = torch.autograd.grad(loss, xs, materialize_grads=True)
+    with torch.no_grad():
+        logits, aux_f = transformer.forward_train(
+            tree, tcfg, tb["tokens"], embeds=tb.get("embeds"),
+            frames=tb.get("frames"))
     assert logits.dtype == getattr(torch, compute)
-    assert float(aux["aux"]) == 0.0 == float(j_aux["aux"])
+    assert aux["aux"].dtype == torch.float32 and aux_f.shape == ()
+    if not tcfg.n_experts:
+        assert float(aux["aux"]) == 0.0 == float(j_aux["aux"])
+    mamba = any(tcfg.layer_kind(i) == "mamba"
+                for i in range(tcfg.scan_block))
     if compute == "float32":
-        loss_rtol, grad_tol = 1e-5, 1e-5
+        loss_rtol, grad_tol = 1e-5, (5e-5 if mamba else 1e-5)
         np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=1e-4,
                                    atol=1e-5)
+        np.testing.assert_allclose(float(aux["aux"].detach()),
+                                   float(j_aux["aux"]),
+                                   rtol=1e-5)
     else:
         loss_rtol, grad_tol = 1e-3, 5e-2
-        np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=0.05,
-                                   atol=0.05)
+        if flips:
+            rows = np.abs(_np(logits) - _np(j_logits)).max(-1)
+            assert (rows > 0.1).sum() <= 2, np.sort(rows.ravel())[-4:]
+        else:
+            np.testing.assert_allclose(_np(logits), _np(j_logits),
+                                       rtol=0.05, atol=0.05)
+        np.testing.assert_allclose(float(aux["aux"].detach()),
+                                   float(j_aux["aux"]),
+                                   rtol=2e-3)
+    np.testing.assert_allclose(float(aux_f), float(j_aux_f), rtol=2e-3)
     np.testing.assert_allclose(float(loss.detach()), float(j_loss),
                                rtol=loss_rtol)
-    for (path, _), g, jg in zip(leaves, grads,
-                                jax.tree_util.tree_leaves(j_grads)):
-        jg = np.asarray(jg)
-        assert g.shape == jg.shape and g.dtype == torch.float32
+    for (path, leaf), g, jg in zip(leaves, grads,
+                                   jax.tree_util.tree_leaves(j_grads)):
+        jg = np.asarray(jg, np.float32)
+        assert g.shape == jg.shape and g.dtype == leaf.dtype
+        if flips:
+            err = np.linalg.norm(_np(g) - jg)
+            assert err <= 0.15 * np.linalg.norm(jg), (path, err)
+            continue
+        atol = grad_tol * float(np.abs(jg).max())
+        if leaf.dtype == torch.bfloat16 and compute == "float32":
+            atol = 2.0 ** -8 * float(np.abs(jg).max())
         np.testing.assert_allclose(
-            _np(g), jg, rtol=0, atol=grad_tol * float(np.abs(jg).max()),
+            _np(g), jg, rtol=0, atol=atol,
             err_msg=f"{arch} {compute} grad {path}")
 
 
@@ -233,15 +289,11 @@ def test_init_lm_layout_matches_the_reference():
             assert str(t.dtype) == "torch." + str(j.dtype)
             assert m.is_meta
         assert len(tree_util.leaves(tp)) == len(jl)
-        assert isinstance(tp["blocks"], list) and len(tp["blocks"]) == 1
-
-
-@pytest.mark.parametrize("arch", ["mamba2-370m", "arctic-480b",
-                                  "whisper-base"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch, reduced_variant=True)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        transformer.init_lm_seeded(cfg, 0, "cpu")
+        assert [p for p, _ in tree_util.leaves(tp)] == [
+            tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+            for path, _ in jax.tree_util.tree_leaves_with_path(jabs)]
+        assert (isinstance(tp["blocks"], list)
+                and len(tp["blocks"]) == tcfg.scan_block)
 
 
 def test_onehot_embedding_and_tied_head():
