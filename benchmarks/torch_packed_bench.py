@@ -38,8 +38,10 @@ The dispatchers launch the CUDA kernels on the card; ``kernel_mode=
 "plain"`` runs every builder on the plain PyTorch versions.  Times are
 medians of single rounds (CUDA events on the card, the host clock on the
 CPU).  Writes ``benchmarks/artifacts/torch_packed_bench.json``.
-``--smoke`` runs a tiny tree on the CPU and asserts the structural
-counters (launches, tree copies, reads of g per round).
+``--smoke`` runs a tiny tree on the CPU, asserts the structural
+counters (launches, tree copies, reads of g per round) and writes them to
+``benchmarks/artifacts/torch_packed_bench_smoke.json`` under the
+reference gate's names (``tools/torch_check_bench_regression.py``).
 
   PYTHONPATH=src python -m benchmarks.torch_packed_bench [--full | --smoke]
       [--device cpu]
@@ -490,7 +492,24 @@ SMOKE_COUNTS = {
     "channel": (1, 1, 1, 1)}
 
 
-def smoke(device: DeviceLike = "cpu") -> dict:
+def gate_counters(res: dict) -> dict:
+    """The structural counters under the names of the reference's gate
+    (``tools/check_bench_regression.py``): reads of g, fused launches and
+    ``[packs, unpacks]`` per row."""
+    out = {"g_reads_persisted": res["counts_persisted"]["g_reads"],
+           "copies_persisted": [res["counts_persisted"]["packs"],
+                                res["counts_persisted"]["unpacks"]],
+           "fused_calls_packed": res["counts_packed"]["fused_calls"]}
+    for name in ("fused_stats", "adaptive", "async", "sanitize", "chaos",
+                 "channel"):
+        c = res[f"counts_{name}"]
+        out[f"g_reads_{name}"] = c["g_reads"]
+        out[f"copies_{name}"] = [c["packs"], c["unpacks"]]
+        out[f"fused_calls_{name}"] = c["fused_calls"]
+    return out
+
+
+def smoke(device: DeviceLike = None) -> dict:
     """The structural claims on a tiny tree (2, 32, 256): the packed round
     launches ONE fused update against one per leaf; a persisted round
     makes 1 pack and 1 unpack (the re-pack round 3 and 2); the fused-stats
@@ -505,6 +524,12 @@ def smoke(device: DeviceLike = "cpu") -> dict:
                     ("fused_calls", "packs", "unpacks", "g_reads"))
         assert got == want, (name, got, want)
     assert 0.0 < res["overlap_ratio"] < 1.0, res
+    res.update(gate_counters(res))
+    out_dir = os.path.join(os.path.dirname(__file__), "artifacts")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "torch_packed_bench_smoke.json"),
+              "w") as f:
+        json.dump(res, f, indent=1)
     print(json.dumps(res, indent=1))
     print(f"[torch_packed_bench --smoke] OK: 1 fused call vs "
           f"{res['n_leaves']} per leaf; persisted round 1 pack + 1 unpack; "
@@ -522,7 +547,7 @@ def main(argv=None) -> None:
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
     if args.smoke:
-        smoke(args.device or "cpu")
+        smoke(args.device)
         return
     rows, detail = run(fast=not args.full, device=args.device)
     for name, us, derived in rows:

@@ -163,7 +163,7 @@ def run(fast: bool = True, device: DeviceLike = None, repeats: int = 5):
     return rows, res
 
 
-def smoke(device: DeviceLike = "cpu") -> dict:
+def smoke(device: DeviceLike = None) -> dict:
     """The population round on a tiny tree (2, 32, 256) keeps 1 pack, 1
     unpack, 1 read of g and 1 fused launch; the 10^5 scan runs 32 rounds
     with finite throughput."""
@@ -189,7 +189,7 @@ def main(argv=None) -> None:
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
     if args.smoke:
-        smoke(args.device or "cpu")
+        smoke(args.device)
         return
     rows, _ = run(fast=not args.full, device=args.device)
     for name, us, derived in rows:

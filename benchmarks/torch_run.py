@@ -1,5 +1,7 @@
 """Run the paper's figures, Table I, the engine and packed server-phase
-benchmarks and the population benchmark through the PyTorch port.
+benchmarks, the population and client-phase benchmarks, the kernel
+micro-benchmarks and the two extensions (error feedback, FAIR-k-auto)
+through the PyTorch port.
 
 Prints ``name,us_per_call,derived`` CSV rows (stdout), in the format of
 ``benchmarks/run.py``, and writes the full detail payload to
@@ -20,10 +22,12 @@ import traceback
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from benchmarks import (torch_engine_bench,  # noqa: E402
-                        torch_fig3_aou, torch_fig4_convergence,
-                        torch_fig5_staleness, torch_fig6_km_ratio,
-                        torch_fig7_local_epochs, torch_fig9_prototype,
+from benchmarks import (torch_client_bench,  # noqa: E402
+                        torch_engine_bench, torch_ext_error_feedback,
+                        torch_ext_fairk_auto, torch_fig3_aou,
+                        torch_fig4_convergence, torch_fig5_staleness,
+                        torch_fig6_km_ratio, torch_fig7_local_epochs,
+                        torch_fig9_prototype, torch_kernels_bench,
                         torch_packed_bench, torch_population_bench,
                         torch_table1_lipschitz)
 
@@ -33,6 +37,8 @@ MODULES = {
     "fig7": torch_fig7_local_epochs, "table1": torch_table1_lipschitz,
     "fig9": torch_fig9_prototype, "engine": torch_engine_bench,
     "packed": torch_packed_bench, "population": torch_population_bench,
+    "client": torch_client_bench, "kernels": torch_kernels_bench,
+    "ext_ef": torch_ext_error_feedback, "ext_auto": torch_ext_fairk_auto,
 }
 
 

@@ -95,6 +95,11 @@ from repro_torch.models.cnn import ravel_params
 
 Tensor = torch.Tensor
 
+# how many streaming client folds ran (``repro.fl.trainer``'s counter): one
+# per ``clients_fold`` call, whatever the chunk count, so one round reads 1
+# (each client gradient is computed and reduced in a single pass)
+CLIENT_STREAM_PASSES = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
@@ -336,6 +341,8 @@ def make_fl_step(fl: FLConfig, unravel: Callable, loss_fn: Callable, d: int,
         one-bit uplink (``ops.vote_fold``, ``row`` the optional per-client
         vote weight).  ``ef_sum`` is ``Σ_n (ǧ_n + residual)`` under
         client-side EF, else None."""
+        global CLIENT_STREAM_PASSES
+        CLIENT_STREAM_PASSES += 1
         acc = torch.zeros(d if idx is None else idx.shape[0],
                           dtype=torch.float32, device=dev)
         ef_sum = (torch.zeros(d, dtype=torch.float32, device=dev)

@@ -77,10 +77,12 @@ def test_fig3_equals_the_jax_script():
 
 def test_registry_lists_the_seven_entries():
     # the seven figure and table entries, then the server-phase and
-    # population benchmarks
+    # population benchmarks, the client-phase and kernel benchmarks and
+    # the two extensions
     assert list(torch_run.MODULES) == ["fig3", "fig4", "fig5", "fig6",
                                        "fig7", "table1", "fig9", "engine",
-                                       "packed", "population"]
+                                       "packed", "population", "client",
+                                       "kernels", "ext_ef", "ext_auto"]
 
 
 def test_runner_runs_fig3_on_the_cpu():

@@ -26,6 +26,11 @@ BENCHMARKS = sorted(
     "benchmarks." + f[:-3] for f in os.listdir(os.path.join(ROOT,
                                                             "benchmarks"))
     if f.startswith("torch_") and f.endswith(".py"))
+# the port's examples and tools: files, not packages
+SCRIPTS = sorted(
+    os.path.join(folder, f) for folder in ("examples", "tools")
+    for f in os.listdir(os.path.join(ROOT, folder))
+    if f.startswith("torch_") and f.endswith(".py"))
 
 
 def test_every_port_module_imports_without_jax():
@@ -47,17 +52,30 @@ def test_every_port_module_imports_without_jax():
                  "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert name in mods
     assert len(mods) >= 52
-    assert len(BENCHMARKS) == 12
+    assert len(BENCHMARKS) == 17
     for name in ("benchmarks.torch_engine_bench",
                  "benchmarks.torch_packed_bench",
-                 "benchmarks.torch_population_bench"):
+                 "benchmarks.torch_population_bench",
+                 "benchmarks.torch_client_bench",
+                 "benchmarks.torch_kernels_bench",
+                 "benchmarks.torch_timing",
+                 "benchmarks.torch_ext_error_feedback",
+                 "benchmarks.torch_ext_fairk_auto"):
         assert name in BENCHMARKS
+    assert SCRIPTS == [os.path.join("examples", f"torch_{n}.py") for n in (
+        "aou_analysis", "fl_cifar_sim", "fl_prototype_onebit", "quickstart",
+        "serve_lm", "train_lm")] + [os.path.join("tools", f"torch_{n}.py")
+                                    for n in ("check_bench_regression",
+                                              "kernel_ab")]
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         f"for m in {mods + BENCHMARKS!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({SCRIPTS!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f's{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
         "or k.startswith('repro.') for k, v in sys.modules.items() "
         "if v is not None)\n"
@@ -69,9 +87,10 @@ def test_every_port_module_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("name", BENCHMARKS)
+@pytest.mark.parametrize("name", BENCHMARKS + SCRIPTS)
 def test_benchmark_sources_import_no_jax(name):
-    path = os.path.join(ROOT, *name.split(".")) + ".py"
+    path = (os.path.join(ROOT, name) if name.endswith(".py")
+            else os.path.join(ROOT, *name.split(".")) + ".py")
     with open(path) as f:
         src = f.read()
     assert "import jax" not in src and "from jax" not in src
@@ -132,12 +151,26 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             # the server-phase benchmarks are cut by repeats, the figures
             # by rounds
+            # the client-phase and kernel benchmarks by nothing
             mod.run(**({"repeats": 1}
                        if name in ("engine", "packed", "population")
+                       else {} if name in ("client", "kernels")
                        else {"rounds": 1}))
     from benchmarks import torch_packed_bench
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_packed_bench.bench_tree(2, 32, 256, repeats=1)
+    # the smoke runs too need a card or an explicit CPU
+    from benchmarks import torch_client_bench, torch_population_bench
+    for smoke in (torch_client_bench.main, torch_packed_bench.main,
+                  torch_population_bench.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            smoke(["--smoke"])
+    for build in (torch_client_bench.smoke,
+                  lambda: torch_client_bench.make_problem(2, 4),
+                  lambda: torch_client_bench.trace_metrics(
+                      torch_client_bench._fl(2, 1), 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
     from repro_torch.core import engine
     lay = packing.PackedLayout.from_tree({"a": torch.zeros(300)})
     for build in (lay.valid_mask, lay.init_age, lambda: lay.sample_ids(8)):
@@ -252,3 +285,19 @@ def test_serving_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     assert caches[0]["attn"]["k"].device.type == "cpu"
     assert caches[0]["cross"]["k"].shape[2] == cfg.encoder_seq
     assert transformer.cache_specs(cfg, 1, 8)[0]["attn"]["k"].is_meta
+
+
+@pytest.mark.parametrize("name", [
+    "quickstart", "fl_cifar_sim", "fl_prototype_onebit", "train_lm",
+    "serve_lm"])
+def test_examples_need_a_card_or_an_explicit_cpu(monkeypatch, name):
+    """Each example that runs on a device refuses to start without a card
+    unless given ``--device cpu`` (the Lemma 1 table is numpy)."""
+    import importlib.util
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(ROOT, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])

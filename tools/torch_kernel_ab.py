@@ -7,7 +7,8 @@ be compared on one card in one run.
 
 ``DIR`` is the root of a checkout whose ``src/repro_torch`` is measured
 (its kernels build into ``DIR/build``); the timing helpers come from this
-checkout's ``chip_smoke.py``.  Every measured call is first held against
+checkout's ``benchmarks/torch_timing.py``, the shapes from its
+``chip_smoke.py``.  Every measured call is first held against
 its plain version (bit for bit).  Measures, with CUDA-graph replay (device
 time) and eager calls (host time):
 
@@ -66,6 +67,7 @@ def one_bit_sites(cs, ops, dev, rng, put) -> None:
     checked; ``composed`` in a row says which form the tree ran."""
     import numpy as np
     import torch
+    from benchmarks import torch_timing as tt
     from repro_torch.core import quantize
     from repro_torch.core.engine import index_jitter
 
@@ -110,13 +112,13 @@ def one_bit_sites(cs, ops, dev, rng, put) -> None:
         acc = torch.as_tensor((rng.normal(size=width) * 7.0).astype(
             np.float32), device=dev)
         want = acc + votes(x if sel is None else x[:, sel])
-        cs._same(fold(acc.clone(), sel), want, name)
+        tt.same(fold(acc.clone(), sel), want, name)
         sites[name] = (lambda acc=acc, sel=sel: fold(acc, sel), n_bytes,
                        2 * c * width)
     for got, want, what in zip(detect_packed(), (sign_ref, s_ref, score_ref),
                                ("signs", "energy", "score")):
-        cs._same(got, want, f"packed detection {what}")
-    cs._same(detect_exact(), sign_ref[:k], "exact detection")
+        tt.same(got, want, f"packed detection {what}")
+    tt.same(detect_exact(), sign_ref[:k], "exact detection")
     sites[f"detect+score[{d}]"] = (detect_packed, 20 * d, 8 * d)
     sites[f"detect[{k}]"] = (detect_exact, 16 * k, 4 * k)
     for n, width in ((c, k), (c, d), (50, d)):
@@ -124,17 +126,17 @@ def one_bit_sites(cs, ops, dev, rng, put) -> None:
             np.float32), device=dev)
         e = votes(v)
         got = ops.sign_mv(v)
-        cs._same(got[1], e, "sign_mv energy")
-        cs._same(got[0], torch.where(e >= 0, 1.0, -1.0), "sign_mv signs")
+        tt.same(got[1], e, "sign_mv energy")
+        tt.same(got[0], torch.where(e >= 0, 1.0, -1.0), "sign_mv signs")
         sites[f"sign_mv[{n}x{width}]"] = (lambda v=v: ops.sign_mv(v),
                                           4 * n * width + 8 * width,
                                           2 * n * width)
     for name, (fn, n_bytes, n_ops) in sites.items():
-        ms, eager = cs._time_ms(fn)
+        ms, eager = tt.time_ms(fn)
         on_card = cs._device_ops(fn)
         put(name, composed=not fused and not name.startswith("sign_mv"),
             ms=ms, eager_ms=eager,
-            bound_ms=cs._bound_ms(n_bytes, n_ops)[0],
+            bound_ms=tt.bound_ms(n_bytes, n_ops)[0],
             n_device_ops=sum(on_card.values()), device_ops=_short(on_card))
 
 
@@ -144,6 +146,7 @@ def merge_sites(cs, ops, dev, rng, put) -> None:
     which form the tree ran."""
     import numpy as np
     import torch
+    from benchmarks import torch_timing as tt
     from repro_torch.core import aou, oac, selection
 
     fused = hasattr(ops, "aou_merge_by_indices")
@@ -154,12 +157,12 @@ def merge_sites(cs, ops, dev, rng, put) -> None:
         a.append(torch.as_tensor((rng.random(size) < 0.1).astype(
             np.float32), device=dev))
         keep = 1.0 - a[3]
-        cs._same(ops.aou_merge(*a)[0], a[3] * a[0] + keep * a[1],
+        tt.same(ops.aou_merge(*a)[0], a[3] * a[0] + keep * a[1],
                  "aou_merge g")
-        ms, eager = cs._time_ms(lambda: ops.aou_merge(*a),
+        ms, eager = tt.time_ms(lambda: ops.aou_merge(*a),
                                 blocks=50 if size == d else 10)
         put(f"aou_merge[{size}]", ms=ms, eager_ms=eager,
-            bound_ms=cs._bound_ms(24 * size, 7 * size)[0],
+            bound_ms=tt.bound_ms(24 * size, 7 * size)[0],
             n_device_ops=sum(cs._graph_ops(lambda: ops.aou_merge(*a))
                              .values()))
 
@@ -240,10 +243,10 @@ def merge_sites(cs, ops, dev, rng, put) -> None:
                                      torch.clamp(age + 1.0, max=120.0)),
                     mask, sel_count + mask)
         for a, b in zip(got, want):
-            cs._same(a, b, name)
-        ms, eager = cs._time_ms(fn)
+            tt.same(a, b, name)
+        ms, eager = tt.time_ms(fn)
         put(name, composed=not fused, ms=ms, eager_ms=eager,
-            bound_ms=cs._bound_ms(n_bytes, 8 * d)[0],
+            bound_ms=tt.bound_ms(n_bytes, 8 * d)[0],
             n_device_ops=sum(cs._graph_ops(fn).values()),
             profiler_ops=_short(cs._device_ops(fn)))
 
@@ -259,6 +262,7 @@ def main(argv) -> None:
     import numpy as np
     import torch
     import chip_smoke as cs
+    from benchmarks import torch_timing as tt
     from repro_torch.kernels import build, ops
 
     if not torch.cuda.is_available():
@@ -276,7 +280,7 @@ def main(argv) -> None:
             f"{k} {v}" for k, v in row.items()), flush=True)
 
     one = torch.zeros(1, device=dev)
-    put("launch_floor", ms=cs._time_ms(lambda: one.add_(0))[0])
+    put("launch_floor", ms=tt.time_ms(lambda: one.add_(0))[0])
 
     rng = np.random.default_rng(0)
     for d in (cs.D, cs.BIG):
@@ -297,13 +301,13 @@ def main(argv) -> None:
                                               residual=r, mode=mode)
             k_out, p_out = call("kernel"), call("plain")
             for i in range(3 if r is not None else 2):
-                cs._same(k_out[i], p_out[i], f"fairk {variant} out {i}")
+                tt.same(k_out[i], p_out[i], f"fairk {variant} out {i}")
             for key in ("n_sel", "n_sel_m", "mag_hist", "age_hist"):
-                cs._same(k_out[3][key], p_out[3][key], f"fairk {key}")
-            ms, eager = cs._time_ms(lambda: call("kernel"), blocks=blocks)
-            plain = cs._time_ms(lambda: call("plain"), blocks=blocks)[0]
+                tt.same(k_out[3][key], p_out[3][key], f"fairk {key}")
+            ms, eager = tt.time_ms(lambda: call("kernel"), blocks=blocks)
+            plain = tt.time_ms(lambda: call("plain"), blocks=blocks)[0]
             n_bytes = 4 * d * (5 if r is None else 7) + 4 * 258 + 8
-            bound, by = cs._bound_ms(n_bytes, (12 + (3 if r is not None
+            bound, by = tt.bound_ms(n_bytes, (12 + (3 if r is not None
                                                      else 0)) * d)
             put(f"fairk_update[{variant}][{d}]", ms=ms, eager_ms=eager,
                 plain_ms=plain, bound_ms=bound, bound_by=by,
@@ -317,19 +321,19 @@ def main(argv) -> None:
     for bs, m in cs.TOPK_CASES:
         kv, ki = ops.block_topk(xt, bs, m, mode="kernel")
         pv, pi = ops.block_topk(xt, bs, m, mode="plain")
-        cs._same(kv, pv, "block_topk values")
-        cs._same(ki, pi, "block_topk indices")
-        ms = cs._time_ms(lambda: ops.block_topk(xt, bs, m, mode="kernel"),
+        tt.same(kv, pv, "block_topk values")
+        tt.same(ki, pi, "block_topk indices")
+        ms = tt.time_ms(lambda: ops.block_topk(xt, bs, m, mode="kernel"),
                          blocks=10)[0]
-        lib = cs._time_ms(lambda: torch.topk(absx.view(-1, bs), m, dim=1),
+        lib = tt.time_ms(lambda: torch.topk(absx.view(-1, bs), m, dim=1),
                           blocks=10)[0]
         nb = cs.BIG // bs
         put(f"block_topk[{cs.BIG}/{bs}x{m}]", ms=ms, library_ms=lib,
-            bound_ms=cs._bound_ms(4 * cs.BIG + 8 * nb * m, 2 * cs.BIG)[0])
+            bound_ms=tt.bound_ms(4 * cs.BIG + 8 * nb * m, 2 * cs.BIG)[0])
     k = cs.BIG // 100
-    ms = cs._time_ms(lambda: ops.two_stage_topk(xt, k, mode="kernel"),
+    ms = tt.time_ms(lambda: ops.two_stage_topk(xt, k, mode="kernel"),
                      blocks=10)[0]
-    lib = cs._time_ms(lambda: torch.topk(xt.abs(), k), blocks=10)[0]
+    lib = tt.time_ms(lambda: torch.topk(xt.abs(), k), blocks=10)[0]
     put(f"two_stage_topk[{cs.BIG}, k {k}]", ms=ms, library_ms=lib)
     one_bit_sites(cs, ops, dev, rng, put)
     merge_sites(cs, ops, dev, rng, put)
