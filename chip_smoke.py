@@ -160,19 +160,43 @@ failure):
    table), the quickstart's fairk run for 10 rounds with the kernels
    and with the plain versions identical, 0 host syncs in a warm
    quickstart round and a warm decode step;
-19. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+19. the multi-rank layer (``launch.mesh``, the engine's ``sharded``
+   backend and ``reduce_axes``, ``make_fl_oac_step``): on a NCCL process
+   group of one rank, a (1, 1) ``("data", "model")`` mesh, (a) the FL-OAC
+   step on ``mamba2-370m`` at full width and depth (d = 368,387,584, 89,939
+   blocks of 4,096, kb = 8,994; seq 1,024, one row), 3 rounds each of
+   FAIR-k, ``baseline``, ``one_bit`` and ``adaptive_km`` — finite losses,
+   exactly kb blocks at age 0 and none above ``AGE_CAP`` after each
+   round, 0 host syncs in a warm round, no kernel launched (the
+   reference's step reaches none), the bytes handed to ``all_reduce``
+   counted per round (FAIR-k 147,357,700 and ``baseline``
+   1,473,560,580, the loss's 4 included; FAIR-k at most 0.2 of
+   ``baseline``), ms per round (CUDA events, median after the first)
+   and the busy share of one profiled FAIR-k round; (b) the sharded engine at
+   d = 10^8 with ``exact_theta`` equal to the threshold backend and to
+   its plain version (1 ``aou_merge`` launch), 5 warm ``fused_stats``
+   rounds after 60 of cold start with 0 syncs and ``n_selected`` within
+   20% of k, and the packed engine with ``reduce_axes=("data",
+   "model")`` on the ``--full`` tree equal to the packed engine without
+   (fused and legacy routes, 2 rounds, 1 ``fairk_update`` each); (c) two
+   spawned gloo ranks on the one card: 2 FAIR-k rounds of the same
+   full-width step, ``w``, ``g_prev`` and ages equal bit for bit across
+   the ranks, and the sharded engine at 2^24 across them equal to one
+   rank's threshold backend (correctness only: NCCL refuses two ranks on
+   one device);
+20. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-20. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+21. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-21. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+22. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-16, 18) runs with every launch count set to 0 just before
-it and read just after; a kernel that none of them launched fails the
-run.
+Each path (4-16, 18, 19 (b)) runs with every launch count set to 0 just
+before it and read just after; a kernel that none of them launched fails
+the run.
 The serving path (17) launches none of the five kernels: its counts must
 stay 0.
 
@@ -3200,6 +3224,440 @@ def entry_points_phase(dev):
     return launches, summary
 
 
+# --------------------------------------------------------------------------
+# the multi-rank layer: the process group, the mesh, the sharded engine and
+# the FL-OAC step at mamba2-370m's full width
+# --------------------------------------------------------------------------
+
+FL_OAC_ARCH = "mamba2-370m"
+FL_OAC_D, FL_OAC_NB, FL_OAC_KB = 368_387_584, 89_939, 8_994
+FL_OAC_SEQ = 1024
+FL_OAC_ROUNDS = 3
+FL_OAC_VARIANTS = {"fairk": {}, "baseline": {"baseline": True},
+                   "one_bit": {"one_bit": True},
+                   "adaptive_km": {"adaptive_km": True}}
+WARMUP_ROUNDS = 60                  # the sharded engine's cold start
+WARM_CHECKED = 5                    # then warm rounds checked one by one
+GLOO_RANKS, GLOO_ROUNDS = 2, 2      # (c): two gloo ranks on the one card
+GLOO_ENGINE_D = 2**24
+DIST_TIMEOUT_S = 600
+
+
+class _AllReduceBytes:
+    """Counts the bytes handed to ``torch.distributed.all_reduce`` while
+    installed (a wrapper around the library call; the port keeps no
+    counter of its own)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self._orig = dist.all_reduce
+
+        def counting(t, *args, **kwargs):
+            self.n += t.numel() * t.element_size()
+            return self._orig(t, *args, **kwargs)
+        dist.all_reduce = counting
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce = self._orig
+
+
+def _fl_oac_inputs(cfg, dev, my: int = 0, n_rows: int = 1):
+    """The FL-OAC step's replicated start (seeded weights, zero ``g_prev``
+    and ages, the controller vector) and round t's batch rows of rank
+    ``my`` (``lm_batch``)."""
+    import torch
+    from repro_torch.core import controller
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    w = steps.ravel_params(tr.init_lm_seeded(cfg, 0, dev))
+    state = {"w": w, "g": torch.zeros_like(w),
+             "age": torch.zeros(FL_OAC_NB, device=dev),
+             "ctrl": controller.controller_state_to_vec(
+                 controller.init_controller_state(0.75, dev))}
+
+    def batch(t):
+        toks, labels = lm_batch(t, n_rows, FL_OAC_SEQ, cfg.vocab)
+        return {"tokens": torch.from_numpy(toks[my:my + 1]).to(dev),
+                "labels": torch.from_numpy(labels[my:my + 1]).to(dev)}
+    return state, batch
+
+
+def _fl_oac_round(bundle, state, batch, t, adaptive):
+    """One FL-OAC round on ``state`` (updated in place of its entries)."""
+    if adaptive:
+        w, g, a, c, loss = bundle.fn(state["w"], state["g"], state["age"],
+                                     state["ctrl"], batch, t)
+        state["ctrl"] = c
+    else:
+        w, g, a, loss = bundle.fn(state["w"], state["g"], state["age"],
+                                  batch, t)
+    state.update(w=w, g=g, age=a)
+    return loss
+
+
+def _fl_oac_phase(dev, mesh):
+    """(a): 3 rounds of each variant at full width on the world of one;
+    the checks and timings of the phase."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import AGE_CAP
+    from repro_torch.launch import steps
+
+    cfg = get_config(FL_OAC_ARCH)
+    out = {}
+    for name, kw in FL_OAC_VARIANTS.items():
+        bundle = steps.make_fl_oac_step(cfg, mesh, seq_len=FL_OAC_SEQ, **kw)
+        meta = bundle.meta
+        check((meta["d"], meta["blocks"], meta["kb"], meta["n_clients"])
+              == (FL_OAC_D, FL_OAC_NB, FL_OAC_KB, 1),
+              f"fl_oac {name}: meta {meta}")
+        state, batch = _fl_oac_inputs(cfg, dev)
+        adaptive = bool(kw.get("adaptive_km"))
+        ms, losses, sent = [], [], []
+        reset_counters()
+        for t in range(FL_OAC_ROUNDS):
+            b = batch(t)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            with _AllReduceBytes() as counted:
+                a.record()
+                loss = _fl_oac_round(bundle, state, b, t, adaptive)
+                z.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(z))
+            sent.append(counted.n)
+            losses.append(float(loss))
+            age = state["age"]
+            fresh = int((age == 0.0).sum())
+            check(fresh == FL_OAC_KB, f"fl_oac {name} round {t}: {fresh} "
+                  f"blocks at age 0, expected {FL_OAC_KB}")
+            check(float(age.max()) <= AGE_CAP,
+                  f"fl_oac {name} round {t}: an age above {AGE_CAP}")
+        launched = read_counters()
+        check(all(n == 0 for n in launched.values()),
+              f"fl_oac {name}: the step launched kernels {launched} (the "
+              "reference's step reaches none)")
+        _finite(losses, f"fl_oac {name} losses")
+        check(bool(torch.isfinite(state["w"]).all()),
+              f"fl_oac {name}: non-finite weights")
+        check(len(set(sent)) == 1, f"fl_oac {name}: bytes per round {sent}")
+        # the batch is uploaded before: its host-to-device copy is the
+        # caller's, not the step's
+        t_next = FL_OAC_ROUNDS
+        b_next = batch(t_next)
+        syncs = _syncs(lambda: _fl_oac_round(bundle, dict(state), b_next,
+                                             t_next, adaptive))
+        check(syncs == 0, f"fl_oac {name}: {syncs} host syncs in a warm "
+              "round")
+        steady = statistics.median(ms[1:])
+        out[name] = {"round_ms": ms, "steady_ms": steady, "losses": losses,
+                     "bytes_all_reduced": sent[0], "syncs": syncs}
+        if name == "fairk":
+            # one profiled round: the variants share the gradient, which
+            # holds nearly all of the device time
+            prof = _profile_round(
+                lambda: _fl_oac_round(bundle, dict(state), b_next, t_next,
+                                      adaptive),
+                label=f"one FL-OAC {name} round")
+            out[name].update(device_ms=prof["device_ms"],
+                             busy_share=prof["device_ms"] / steady,
+                             top=prof["top"])
+        print(f"fl_oac {name}: d {FL_OAC_D}, kb {FL_OAC_KB} of "
+              f"{FL_OAC_NB} blocks; rounds {', '.join(f'{x:.1f}' for x in ms)}"
+              f" ms (steady {steady:.1f}); {sent[0]} bytes all-reduced per "
+              f"round; losses {', '.join(f'{x:.4f}' for x in losses)}; 0 "
+              f"syncs" + (f"; busy share {out[name]['busy_share']:.3f}"
+                          if "busy_share" in out[name] else ""),
+              flush=True)
+        del state, bundle
+        torch.cuda.empty_cache()
+    want = {"fairk": FL_OAC_KB * 4096 * 4 + 4,
+            "baseline": FL_OAC_NB * 4096 * 4 + 4}
+    for name, n in want.items():
+        check(out[name]["bytes_all_reduced"] == n,
+              f"fl_oac {name}: {out[name]['bytes_all_reduced']} bytes "
+              f"all-reduced, expected {n}")
+    ratio = (out["fairk"]["bytes_all_reduced"]
+             / out["baseline"]["bytes_all_reduced"])
+    check(ratio <= 0.2, f"fl_oac: FAIR-k all-reduces {ratio:.4f} of "
+          "baseline's bytes")
+    out["fairk_over_baseline_bytes"] = ratio
+    return out
+
+
+def _sharded_engine_phase(dev, mesh):
+    """(b): the sharded engine at 10^8 against the threshold backend and
+    its plain version; warm fused rounds; the packed engine with
+    ``reduce_axes`` on the ``--full`` tree against the packed engine
+    without.  Returns (launches of the runs with the kernels, summary)."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.core.engine import EngineConfig, SelectionEngine
+
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn):
+        reset_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        for key, n in read_counters().items():
+            launches[key] += n
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    d = ENGINE_BIG
+    g = torch.randn(d, generator=gen, device=dev)
+    g_prev = torch.randn(d, generator=gen, device=dev)
+    age = torch.randint(0, 40, (d,), generator=gen, device=dev).to(
+        torch.float32)
+    common = dict(policy="fairk", rho=0.1, k_m_frac=0.75, exact_theta=True)
+    sharded = SelectionEngine(EngineConfig(backend="sharded", **common), d,
+                              mesh=mesh)
+    check(sharded.n_local == d, f"sharded: n_local {sharded.n_local}")
+    got = counted(lambda: sharded.select_and_merge(g, g_prev, age))
+    check(launches["aou_merge"] == 1,
+          f"sharded engine: launches {launches}, expected 1 aou_merge")
+    thr = SelectionEngine(EngineConfig(backend="threshold", **common), d)
+    want = thr.select_and_merge(g, g_prev, age)
+    _same(got[0], want[0], "sharded vs threshold g_t at 1e8")
+    _same(got[1], want[1], "sharded vs threshold age at 1e8")
+    check(float(got[2]["n_selected"]) == float(want[2]["n_selected"]),
+          "sharded vs threshold: n_selected differs")
+    plain = SelectionEngine(EngineConfig(backend="sharded",
+                                         kernel_mode="plain", **common), d,
+                            mesh=mesh)
+    _same_out(got, plain.select_and_merge(g, g_prev, age),
+              "sharded kernel vs plain at 1e8")
+    from benchmarks.torch_packed_bench import timed_med
+    ms_1e8 = timed_med(lambda: sharded.select_and_merge(g, g_prev, age),
+                       3)[0] / 1e3
+    del got, want, thr, plain
+    # warm fused rounds: the thresholds from last round's summed statistics
+    warm = SelectionEngine(EngineConfig(
+        backend="sharded", policy="fairk", rho=0.1, k_m_frac=0.75,
+        fused_stats=True, warm_start=True), d, mesh=mesh)
+    k = warm.budgets()[0]
+    st = {"gp": torch.zeros(d, device=dev), "age": torch.zeros(d, device=dev),
+          "ts": packing.init_threshold_state(dev), "n": []}
+
+    def warm_round():
+        gw = torch.randn(d, generator=gen, device=dev)
+        st["gp"], st["age"], stats = warm.select_and_merge(
+            gw, st["gp"], st["age"], tstate=st["ts"])
+        st["ts"] = stats["tstate"]
+        st["n"].append(stats["n_selected"])
+
+    for _ in range(WARMUP_ROUNDS):
+        warm_round()
+    before = dict(launches)
+    syncs = []
+    for _ in range(WARM_CHECKED):
+        reset_counters()
+        syncs.append(_syncs(warm_round))      # two rounds, one watched
+        for key, n in read_counters().items():
+            launches[key] += n
+    check(all(s == 0 for s in syncs),
+          f"sharded warm rounds: host syncs {syncs}")
+    check(launches["aou_merge"] - before["aou_merge"] == 2 * WARM_CHECKED,
+          "sharded warm rounds: one aou_merge launch per round expected")
+    n_sel = [float(x) for x in st["n"][WARMUP_ROUNDS:]]
+    check(all(abs(x - k) <= 0.2 * k for x in n_sel),
+          f"sharded warm rounds: n_selected {n_sel}, k {k}")
+    del g, g_prev, age, st
+    torch.cuda.empty_cache()
+    # the packed engine with reduce_axes on the --full tree
+    tree, _, _, lay = full_tree(dev)
+    buf = tree_buffers(dev)
+    routes = {}
+    for route, kw in (("fused", dict(fused_stats=True, warm_start=True)),
+                      ("legacy", dict(fused_stats=False, warm_start=True))):
+        engines = {axes: SelectionEngine(EngineConfig(
+            backend="packed", policy="fairk", rho=0.1, k_m_frac=0.75,
+            reduce_axes=axes, **kw), lay.d_packed, mesh=mesh, layout=lay)
+            for axes in ((), ("data", "model"))}
+        outs = {}
+        for axes, eng in engines.items():
+            gp, ag, ts, seq = buf["g_prev"], buf["age"], None, []
+            for r in range(2):
+                g_r = buf["g"] if r == 0 else buf["g"] * 0.5
+                fn = (lambda: eng.select_and_merge(g_r, gp, ag, tstate=ts))
+                before = launches["fairk_update"]
+                o = counted(fn) if axes else fn()
+                if axes:
+                    check(launches["fairk_update"] - before == 1,
+                          f"packed reduce_axes {route}: one fairk_update "
+                          "launch per round expected")
+                gp, ag, ts = o[0], o[1], o[2]["tstate"]
+                seq.append(o)
+            outs[axes] = seq
+        _same_out(outs[("data", "model")], outs[()],
+                  f"packed {route} with reduce_axes vs without")
+        routes[route] = float(outs[()][-1][2]["n_selected"])
+        del outs
+    print(f"sharded engine: at d = {d} equal to the threshold backend and "
+          f"to its plain version (1 aou_merge launch, {ms_1e8:.3f} ms per "
+          f"call); {WARM_CHECKED} warm fused rounds after {WARMUP_ROUNDS}: "
+          f"0 syncs, n_selected {', '.join(f'{x:.0f}' for x in n_sel)} "
+          f"(k {k}); packed with reduce_axes on the {TREE_D_PACKED}-"
+          f"coordinate tree equal to packed (fused and legacy routes, 2 "
+          f"rounds each)", flush=True)
+    return launches, {"ms_1e8": ms_1e8, "warm_n_selected": n_sel, "k": k,
+                      "warm_syncs": syncs, "packed_reduce": routes}
+
+
+def _gloo_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """(c) one rank: 2 FAIR-k rounds of the full-width FL-OAC step and the
+    sharded engine at 2^24, every rank on ``cuda:0`` under gloo."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import EngineConfig, SelectionEngine
+    from repro_torch.device import set_numerics
+    from repro_torch.core import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    set_numerics(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    result = {}
+    try:
+        mesh = mesh_lib.make_mesh((world, 1), ("data", "model"), "cuda")
+        my = collectives.axis_index(mesh)
+        cfg = get_config(FL_OAC_ARCH)
+        bundle = steps.make_fl_oac_step(cfg, mesh, seq_len=FL_OAC_SEQ)
+        state, batch = _fl_oac_inputs(cfg, dev, my, world)
+        losses = []
+        for t in range(GLOO_ROUNDS):
+            losses.append(float(_fl_oac_round(bundle, state, batch(t), t,
+                                              False)))
+        for key in ("w", "g", "age"):
+            # rank 0's state, held against every rank's own
+            theirs = state[key].clone()
+            dist.broadcast(theirs, src=0)
+            result[f"fl_oac_{key}_equal"] = bool(torch.equal(theirs,
+                                                             state[key]))
+        result["losses"] = losses
+        result["fresh_blocks"] = int((state["age"] == 0.0).sum())
+        del state, bundle
+        # the sharded engine across the ranks against one rank's threshold
+        d = GLOO_ENGINE_D
+        gen = torch.Generator(device=dev).manual_seed(31)
+        g = torch.randn(d, generator=gen, device=dev)
+        gp = torch.randn(d, generator=gen, device=dev)
+        age = torch.randint(0, 8, (d,), generator=gen, device=dev).to(
+            torch.float32)
+        common = dict(policy="fairk", rho=0.1, k_m_frac=0.75,
+                      exact_theta=True)
+        sharded = SelectionEngine(EngineConfig(backend="sharded", **common),
+                                  d, mesh=mesh)
+        n = sharded.n_local
+        part = slice(my * n, (my + 1) * n)
+        g_t, a_n, stats = sharded.select_and_merge(g[part], gp[part],
+                                                   age[part])
+        g_all = collectives.all_gather_flat(g_t.contiguous(), mesh)
+        a_all = collectives.all_gather_flat(a_n.contiguous(), mesh)
+        thr = SelectionEngine(EngineConfig(backend="threshold", **common), d)
+        w_g, w_a, w_stats = thr.select_and_merge(g, gp, age)
+        result["engine_g_equal"] = bool(torch.equal(g_all, w_g))
+        result["engine_age_equal"] = bool(torch.equal(a_all, w_a))
+        result["engine_n_equal"] = (float(stats["n_selected"])
+                                    == float(w_stats["n_selected"]))
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank_{rank}.json").write_text(json.dumps(result))
+
+
+def _gloo_phase():
+    """(c): ``GLOO_RANKS`` spawned processes, gloo, both on the one card.
+    Correctness only: no speed is claimed."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    tmp = ROOT / "chiprun_out" / "gloo"      # the store and the results
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank,
+                         args=(r, GLOO_RANKS, str(tmp / "store"), str(tmp)))
+             for r in range(GLOO_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=DIST_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * GLOO_RANKS, f"gloo ranks exited {codes}")
+    results = [json.loads((tmp / f"rank_{r}.json").read_text())
+               for r in range(GLOO_RANKS)]
+    seconds = time.perf_counter() - t0
+    for r, res in enumerate(results):
+        for key, ok in res.items():
+            if key.endswith("_equal"):
+                check(ok, f"gloo rank {r}: {key} is false")
+        _finite(res["losses"], f"gloo rank {r} losses")
+        check(res["fresh_blocks"] == FL_OAC_KB,
+              f"gloo rank {r}: {res['fresh_blocks']} fresh blocks")
+    check(results[0]["losses"] == results[1]["losses"],
+          "gloo ranks: mean losses differ")
+    print(f"gloo: {GLOO_RANKS} ranks on the one card, {GLOO_ROUNDS} FL-OAC "
+          f"rounds at full width — w, g_prev and ages equal bit for bit "
+          f"across the ranks; the sharded engine at d = {GLOO_ENGINE_D} "
+          f"across them equals one rank's threshold backend; "
+          f"{seconds:.1f} s (correctness only)", flush=True)
+    return {"seconds": seconds, "losses": results[0]["losses"]}
+
+
+def distributed_phase(dev):
+    """The multi-rank layer: (a) the FL-OAC step and (b) the sharded engine
+    and ``reduce_axes`` on a NCCL process group of one rank (a (1, 1)
+    ``("data", "model")`` mesh), then (c) two gloo ranks on the one card.
+    Returns (launches of (b)'s kernel runs, summary)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    store = ROOT / "chiprun_out" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+        fl_oac = _fl_oac_phase(dev, mesh)
+        launches, engine = _sharded_engine_phase(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gloo = _gloo_phase()
+    seconds = time.perf_counter() - t0
+    print(f"distributed phase: {seconds:.1f} s", flush=True)
+    return launches, {"fl_oac": fl_oac, "engine": engine, "gloo": gloo,
+                      "seconds": seconds}
+
+
 def main(argv) -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found: run chip_smoke.py from the root of "
@@ -3256,6 +3714,7 @@ def main(argv) -> None:
     by_path["families"], families_summary = families_phase(dev)
     serve_summary = serve_phase(dev)
     by_path["entry_points"], entry_summary = entry_points_phase(dev)
+    by_path["distributed"], distributed_summary = distributed_phase(dev)
     launches = {key: sum(p[key] for p in by_path.values())
                 for key in KERNELS}
     for key, n in launches.items():
@@ -3320,6 +3779,7 @@ def main(argv) -> None:
          "engine_1e8": engine_big_summary, "launch": launch_summary,
          "families": families_summary, "serve": serve_summary,
          "entry_points": entry_summary,
+         "distributed": distributed_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))

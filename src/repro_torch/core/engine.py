@@ -29,19 +29,35 @@ A traced split (``select_and_merge(k_m_frac=tensor)``, the adaptive
 controller's live ``k_m_frac``) keeps ``k`` static and moves ``k_M =
 traced_km(k, k_m_frac)`` as a 0-d device tensor; no backend reads it back
 to the host.  ``age_lag`` (async rounds) records the delivery lag on the
-selected coordinates.  The sharded backend belongs to the launch path and
-raises ``NotImplementedError``.
+selected coordinates.
+
+* ``sharded``: the vector is sharded across every axis of a mesh
+  (``launch.mesh``, collectives from ``core.collectives``;
+  ``SelectionEngine(cfg, d, mesh=...)``, d divisible by
+  the mesh's size).  Each rank passes its own shard — coordinates
+  ``[my·n, (my+1)·n)`` with ``n = d / size`` and ``my`` its row-major mesh
+  index — and gets its shards of ``g_t``, ``age'``, the residual and
+  ``sel_mask`` back; the counts and histograms are summed across the mesh
+  (``all_reduce`` on the device).  Thresholds come from the carried
+  statistics (``fused_stats`` + ``warm_start`` with a ``tstate``), from the
+  whole vector (``global_thresholds`` or ``exact_theta``: the shards are
+  gathered first), or else from each shard's own sampled quantiles; the
+  mask is ``threshold_mask`` with the jitter at global ids, the merge one
+  mask-form ``aou_merge`` launch.
+* ``reduce_axes`` (packed): the bootstrapped thresholds, the counts and
+  the histograms are averaged over those mesh axes (``pmean``), so every
+  shard of a sharded model carries one threshold state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import oac, packing, selection
+from repro_torch.core import collectives, oac, packing, selection
 from repro_torch.kernels import ops, ref
 
 Tensor = torch.Tensor
@@ -51,8 +67,6 @@ POLICIES = selection.POLICIES
 # FAIR-k-family policies expressible as (θ_M, θ_A) thresholds
 THRESHOLD_POLICIES = ("fairk", "topk", "roundrobin")
 AGE_CAP = packing.AGE_CAP
-
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item {item})"
 
 
 def jitter_from_ids(ids: Tensor) -> Tensor:
@@ -296,6 +310,20 @@ def mask_to_indices(mask: Tensor, k: int) -> Tensor:
     return out[:k]
 
 
+def threshold_mask(g: Tensor, age: Tensor, theta_m, theta_a,
+                   index_offset: int = 0) -> Tuple[Tensor, Tensor]:
+    """Dense float32 ``(mask, mask_m)`` of the two-stage threshold rule:
+    ``|g| >= θ_M``, else ``age + jitter >= θ_A`` — the fused kernel's
+    in-register mask.  On a shard, ``index_offset`` is the shard's global
+    start, so the jitter is the unsharded selection's."""
+    mask_m = g.to(torch.float32).abs() >= theta_m
+    age_eff = age.to(torch.float32) + index_jitter(g.shape[0], index_offset,
+                                                   device=g.device)
+    mask_a = (age_eff >= theta_a) & ~mask_m
+    return ((mask_m | mask_a).to(torch.float32),
+            mask_m.to(torch.float32))
+
+
 def eff_score(g: Tensor, residual: Optional[Tensor]) -> Tensor:
     """The error-feedback fold ``score = g + residual`` in float32."""
     g32 = g.to(torch.float32)
@@ -352,11 +380,13 @@ def budgets_for(cfg: EngineConfig, d_budget: int) -> Tuple[int, int, int]:
 
 
 class SelectionEngine:
-    """``select_and_merge`` on the exact, threshold and packed backends.
-    ``layout`` (packed only) is a ``packing.PackedLayout``; the budgets
-    count its ``d_valid`` real coordinates."""
+    """``select_and_merge`` on the exact, threshold, sharded and packed
+    backends.  ``mesh`` (a ``DeviceMesh``: the sharded backend, and
+    ``reduce_axes``) names the ranks; ``layout`` (packed only) is a
+    ``packing.PackedLayout``, and the budgets count its ``d_valid`` real
+    coordinates."""
 
-    def __init__(self, cfg: EngineConfig, d: int,
+    def __init__(self, cfg: EngineConfig, d: int, mesh=None,
                  layout: Optional[packing.PackedLayout] = None):
         if cfg.backend not in BACKENDS:
             raise ValueError(f"unknown backend {cfg.backend!r}; choose from "
@@ -369,12 +399,22 @@ class SelectionEngine:
                 f"policy {cfg.policy!r} needs index arithmetic — only "
                 f"{THRESHOLD_POLICIES} run on the {cfg.backend!r} backend")
         if cfg.backend == "sharded":
-            raise NotImplementedError("backend 'sharded' is "
-                                      + _NOT_PORTED.format(item="11d"))
+            if mesh is None:
+                raise ValueError("sharded backend needs a mesh")
+            n_dev = collectives.mesh_size(mesh)
+            if d % n_dev:
+                raise ValueError(f"d={d} not divisible by {n_dev} devices")
         if cfg.reduce_axes:
-            raise NotImplementedError(
-                "reduce_axes (the sharded launch path) is "
-                + _NOT_PORTED.format(item="11d"))
+            # the reference binds the names inside its shard_map and fails
+            # at trace time; here the mesh resolves them when built
+            if mesh is None:
+                raise ValueError(f"reduce_axes {cfg.reduce_axes} names mesh "
+                                 "axes — pass the mesh")
+            unknown = set(cfg.reduce_axes) - set(collectives.axis_names(mesh))
+            if unknown:
+                raise ValueError(f"reduce_axes {sorted(unknown)} are not "
+                                 f"axes of the mesh "
+                                 f"{collectives.axis_names(mesh)}")
         if cfg.backend == "packed":
             if layout is None:
                 raise ValueError("packed backend needs a PackedLayout")
@@ -383,7 +423,11 @@ class SelectionEngine:
                                  f"{layout.d_packed}")
         self.cfg = cfg
         self.d = d
+        self.mesh = mesh
         self.layout = layout
+        # the length of the vector one rank passes (its shard when sharded)
+        self.n_local = (d // collectives.mesh_size(mesh)
+                        if cfg.backend == "sharded" else d)
         # budgets target the real coordinates (pads are dead weight)
         self.d_budget = layout.d_valid if layout is not None else d
         self._ids: Dict[torch.device, Tensor] = {}
@@ -472,8 +516,10 @@ class SelectionEngine:
                          ) -> Tuple[Tensor, Tensor, Dict[str, Any]]:
         """One server phase: select on ``g``, merge fresh values over stale
         ``g_prev`` (Eq. 8), advance the age (Eq. 10).  Returns f32
-        ``(g_t, age', stats)``; on the packed backend ``stats["tstate"]``
-        is the successor threshold state.
+        ``(g_t, age', stats)``; on the packed backend (and the sharded one
+        with ``fused_stats``) ``stats["tstate"]`` is the successor
+        threshold state.  On the sharded backend every vector argument and
+        result is this rank's shard.
 
         ``noise``: the standard-normal (d,) draw of the channel noise
         (JAX draws it from the round's key inside the engine); with
@@ -483,11 +529,12 @@ class SelectionEngine:
         the selection half of the same key).  ``residual``: the
         error-feedback accumulator, successor in ``stats["residual"]``.
         ``fresh``: transmitted values when they differ from the score
-        (the one-bit majority-vote signs).  ``sanitize`` keeps non-finite
-        scores out of both stages; ``erase`` (> 0) demotes coordinates to
-        NaN first, and needs ``sanitize``.  ``tstate`` (packed only) is
-        the carried threshold state (None: bootstrap from the sampled
-        quantiles).  ``age_lag`` (async rounds, an int >= 0): the selected
+        (the one-bit majority-vote signs; not on the sharded backend).
+        ``sanitize`` keeps non-finite scores out of both stages; ``erase``
+        (> 0) demotes coordinates to NaN first, and needs ``sanitize``.
+        ``tstate`` (packed, and sharded with ``fused_stats`` and
+        ``warm_start``) is the carried threshold state (None: bootstrap
+        from the sampled quantiles).  ``age_lag`` (async rounds, an int >= 0): the selected
         coordinates' post-update age is ``age_lag`` instead of 0 and the
         age histogram shifts with it; counts and noise use the selection
         before the shift, returned as ``stats["sel_mask"]``.  The exact
@@ -502,8 +549,8 @@ class SelectionEngine:
             raise ValueError(
                 f"traced k_m_frac adapts the FAIR-k split only — policy "
                 f"{self.cfg.policy!r} pins or ignores it")
-        if tuple(g.shape) != (self.d,):
-            raise ValueError(f"expected shape ({self.d},), got "
+        if tuple(g.shape) != (self.n_local,):
+            raise ValueError(f"expected shape ({self.n_local},), got "
                              f"{tuple(g.shape)}")
         if self.cfg.noise_std > 0.0 and noise is None:
             raise ValueError("noise_std > 0 needs a noise draw (identical "
@@ -527,6 +574,10 @@ class SelectionEngine:
         if self.cfg.backend == "threshold":
             return self._threshold_update(g, g_prev, age, noise, residual,
                                           fresh, sanitize, k_m_frac, age_lag)
+        if self.cfg.backend == "sharded":
+            return self._sharded_update(g, g_prev, age, noise, tstate,
+                                        residual, fresh, sanitize, k_m_frac,
+                                        age_lag)
         return self._packed_update(g, g_prev, age, noise, tstate, residual,
                                    fresh, sanitize, k_m_frac, age_lag)
 
@@ -655,18 +706,6 @@ class SelectionEngine:
             n_sel = kstats["n_sel"]
             counts = {key: kstats[key]
                       for key in ("n_sel_m", "mag_hist", "age_hist")}
-            if sanitize and tstate is not None:
-                # a fully erased round emits empty histograms; substitute
-                # the truth (nothing refreshed: ages advance one bin,
-                # magnitudes unobserved) so the next round does not read
-                # them as the cold-start full-refresh signal
-                keep = ((counts["age_hist"].sum() <= 0.0)
-                        & (tstate["init"] > 0.0))
-                counts["mag_hist"] = torch.where(keep, tstate["mag_hist"],
-                                                 counts["mag_hist"])
-                counts["age_hist"] = torch.where(
-                    keep, packing.advance_age_hist(tstate["age_hist"]),
-                    counts["age_hist"])
         else:
             g_t, age_next, res_next = ops.fairk_ef_update(
                 g, g_prev, age, theta_m, theta_a, residual=residual,
@@ -679,6 +718,25 @@ class SelectionEngine:
                 packing.G_READS += 1
                 counts["n_sel_m"] = (
                     sel * (eff_score(g, residual).abs() >= theta_m)).sum()
+        if cfg.reduce_axes and cfg.backend == "packed":
+            # the per-shard mean keeps the counts comparable to the local
+            # budgets and the carried state equal on every shard; the
+            # counts are integers, so one collective for all is exact
+            n_sel, *vals = self._all_reduce([n_sel, *counts.values()],
+                                            cfg.reduce_axes, mean=True)
+            counts = dict(zip(counts, vals))
+        if cfg.fused_stats and sanitize and tstate is not None:
+            # a fully erased round emits empty histograms; substitute the
+            # truth (nothing refreshed: ages advance one bin, magnitudes
+            # unobserved) so the next round does not read them as the
+            # cold-start full-refresh signal
+            keep = ((counts["age_hist"].sum() <= 0.0)
+                    & (tstate["init"] > 0.0))
+            counts["mag_hist"] = torch.where(keep, tstate["mag_hist"],
+                                             counts["mag_hist"])
+            counts["age_hist"] = torch.where(
+                keep, packing.advance_age_hist(tstate["age_hist"]),
+                counts["age_hist"])
         g_t = self._add_noise(g_t, age_next, noise)
         stats = {"theta_m": theta_m, "theta_a": theta_a,
                  "n_selected": n_sel, "k": self.budgets()[0], **counts}
@@ -692,6 +750,18 @@ class SelectionEngine:
         if res_next is not None:
             stats["residual"] = res_next
         return g_t, age_next, stats
+
+    # -- collectives ---------------------------------------------------------
+
+    def _all_reduce(self, parts: List[Tensor], axes, mean: bool = False
+                    ) -> List[Tensor]:
+        """Each float32 tensor of ``parts`` summed (``mean``: averaged)
+        over the mesh ``axes``, all in one collective (new tensors)."""
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        flat = (collectives.pmean if mean else collectives.psum)(flat, self.mesh,
+                                                           axes)
+        return [f.reshape(p.shape) for f, p in zip(
+            flat.split([p.numel() for p in parts]), parts)]
 
     def _stats_thresholds(self, tstate, k_m_frac=None
                           ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -771,6 +841,9 @@ class SelectionEngine:
             g, age, rho=rho, k_m_frac=km_frac, sample_cap=cfg.sample_cap,
             sample_ids=self.sample_ids(g.device), residual=residual,
             sanitize=sanitize)
+        if cfg.reduce_axes:
+            # one (θ_M, θ_A) for every shard of the model
+            tm, ta = self._all_reduce([tm, ta], cfg.reduce_axes, mean=True)
         if not (cfg.warm_start and tstate is not None):
             return tm, ta, streak
         pred_tm, pred_ta = packing.warm_corrected_thresholds(
@@ -814,6 +887,109 @@ class SelectionEngine:
             "age_hist": carried("age_hist", packing.STATS_AGE_BINS)}
         return g_t, age_next, stats
 
+    def _sharded_update(self, g, g_prev, age, noise, tstate, residual=None,
+                        fresh=None, sanitize=False, k_m_frac=None,
+                        age_lag=None):
+        """The sharded backend on this rank's shard: thresholds (carried,
+        global or per shard), the global-id mask, one mask-form
+        ``aou_merge`` launch, the residual, and the counts and histograms
+        summed across the mesh.  ``noise`` is this shard's draw."""
+        cfg = self.cfg
+        if fresh is not None:
+            raise ValueError("the sharded backend has no decoupled one-bit "
+                             "fresh path — route one_bit through the "
+                             "exact/threshold/packed backends")
+        k, _, _ = self.budgets()
+        rho, km_frac = self._rho_parts()
+        dev = g.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        # warm rounds decide from the carried (replicated) statistics
+        # alone, so every shard applies one (θ_M, θ_A)
+        warm = cfg.fused_stats and cfg.warm_start and tstate is not None
+        use_global = cfg.global_thresholds or cfg.exact_theta
+        streak = zero
+        if warm:
+            theta_m, theta_a, streak = self._stats_thresholds(tstate,
+                                                              k_m_frac)
+        elif use_global:
+            def whole(x):
+                return (None if x is None
+                        else collectives.all_gather_flat(x, self.mesh))
+            theta_m, theta_a = self.thresholds(
+                whole(g), whole(age), residual=whole(residual),
+                k_m_frac=k_m_frac, sanitize=sanitize)
+        score = eff_score(g, residual)
+        fin = None
+        if sanitize:
+            # local degradation, no extra collective: the cleaned score
+            # keeps 0 · NaN out of the merge, the finite AND keeps corrupt
+            # coordinates unselected
+            fin = torch.isfinite(score)
+            score = torch.where(fin, score, 0.0)
+        if warm or use_global:
+            tm_l, ta_l = theta_m, theta_a
+        else:
+            # each shard's own sampled quantiles (jitter at local ids)
+            kmf = (km_frac if k_m_frac is None
+                   else km_frac_of(self._km_traced(k_m_frac), k))
+            tm_l, ta_l = sampled_thresholds(score, age, rho=rho,
+                                            k_m_frac=kmf,
+                                            sample_cap=cfg.sample_cap)
+        # the jitter hashes global ids: the unsharded backends' mask
+        mask, mask_m = threshold_mask(
+            score, age, tm_l, ta_l,
+            index_offset=collectives.axis_index(self.mesh) * self.n_local)
+        if fin is not None:
+            finf = fin.to(torch.float32)
+            mask = mask * finf
+            mask_m = mask_m * finf
+        g_t, age_next = masked_merge(self._noisy(score, noise), g_prev, age,
+                                     mask, mode=cfg.kernel_mode)
+        if age_lag is not None:
+            # the shard's ages record the lag before the histograms bin
+            # them, so the summed partials come out shifted
+            age_next = packing.shift_selected_age(age_next, age_lag)
+        parts = [mask.sum()]
+        if cfg.fused_stats:
+            stride = packing.hist_stride(self.d)
+            # per-shard partials sum to the unsharded sample only when the
+            # shard length is a stride multiple; else stride 1 (counts stay
+            # exact, only the sample density changes)
+            if self.n_local % stride:
+                stride = 1
+            valid = age >= 0.0
+            if fin is not None:
+                valid = valid & fin
+            parts += [mask_m.sum(), *ref.strided_hists_ref(
+                score, age_next, valid, stride)]
+        parts = self._all_reduce(parts, collectives.axis_names(self.mesh))
+        n_sel = parts[0]
+        stats: Dict[str, Any] = {"n_selected": n_sel, "k": k}
+        if age_lag is not None:
+            stats["sel_mask"] = mask
+        if warm or use_global:
+            stats.update(theta_m=theta_m, theta_a=theta_a)
+        if cfg.fused_stats:
+            n_sel_m, mh, ah = parts[1:]
+            stats.update(n_sel_m=n_sel_m, mag_hist=mh, age_hist=ah)
+            # a per-shard bootstrap has no global θ to carry: zeros, the
+            # reference's placeholders
+            tm_c, ta_c = ((theta_m, theta_a) if (warm or use_global)
+                          else (zero, zero))
+            stats["tstate"] = {
+                "theta_m": tm_c, "theta_a": ta_c, "n_sel_m": n_sel_m,
+                "n_sel": n_sel,
+                "init": torch.ones((), dtype=torch.float32, device=dev),
+                "streak": streak, "mag_hist": mh, "age_hist": ah}
+        if residual is not None:
+            res_next = score - mask * score
+            if fin is not None:
+                # sanitized-out coordinates keep their old residual
+                res_next = torch.where(fin, res_next,
+                                       residual.to(torch.float32))
+            stats["residual"] = res_next
+        return g_t, age_next, stats
+
     def select_and_merge_tree(self, g_tree, g_prev_tree, age_tree, *,
                               noise: Optional[Tensor] = None,
                               tstate: Optional[Dict[str, Tensor]] = None,
@@ -839,7 +1015,7 @@ class SelectionEngine:
 
 
 def make_engine(policy: str = "fairk", backend: str = "exact", *,
-                d: Optional[int] = None,
+                d: Optional[int] = None, mesh=None,
                 layout: Optional[packing.PackedLayout] = None,
                 **cfg_kw) -> SelectionEngine:
     """Engine from a policy and backend name; ``d`` may be omitted when
@@ -849,4 +1025,5 @@ def make_engine(policy: str = "fairk", backend: str = "exact", *,
             raise ValueError("make_engine needs d (or a layout)")
         d = layout.d_packed
     return SelectionEngine(EngineConfig(policy=policy, backend=backend,
-                                        **cfg_kw), d, layout=layout)
+                                        **cfg_kw), d, mesh=mesh,
+                           layout=layout)

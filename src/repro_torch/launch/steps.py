@@ -19,11 +19,20 @@ bundles: ``fn(params, caches, batch)`` fills the caches from a prompt and
 ``fn(params, caches, token, pos)`` decodes one token, both updating the
 caches in place (``models.transformer.prefill`` / ``decode_step``).
 
-One card is one shard: the reference's ``shard_map``, the mesh and the
-data-axis reduction are gone, and ``n_clients`` is 1.  The reference's
-``sequence_parallel`` flag is a sharding hint with no effect on one card,
-and so is the expert axis it pins MoE tensors to; both are left out until
-the mesh is ported (ROADMAP item 11d), and so is ``make_fl_oac_step``.
+The train step runs on one card, one shard: the reference's
+``shard_map``, the data-axis reduction and its ``reduce_axes`` are gone,
+and ``n_clients`` is 1.  The reference's ``sequence_parallel`` flag is a
+sharding hint with no effect on one card, and so is the expert axis it
+pins MoE tensors to; both wait for the sharded train step (ROADMAP item
+11e).
+
+``make_fl_oac_step(cfg, mesh, ...)`` is the paper's own regime across the
+ranks of a mesh (``launch.mesh``): every rank is one OAC-FL client with a
+full replica of the flat float32 weights, FAIR-k picks blocks of
+``block`` coordinates by the L2 norm of ``g_prev`` and by block age, and
+only the selected blocks ride the ``all_reduce`` (ρ·d values instead of
+d; ``baseline`` sends them all).  ``abstract_params(cfg)`` is the LM's
+parameter tree as ``meta`` tensors.
 
 The step updates ``params``, ``opt_state`` and ``server`` in place under
 ``torch.no_grad()`` (the reference donates them), so a full-width model
@@ -48,13 +57,15 @@ from repro_torch import tree as tree_util
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import channel as chan
 from repro_torch.core import controller as budget
-from repro_torch.core import faults, packing
+from repro_torch.core import collectives, faults, packing
 from repro_torch.core import population as pop_mod
-from repro_torch.core.engine import (EngineConfig, SelectionEngine,
-                                     index_jitter, sampled_thresholds)
+from repro_torch.core.engine import (AGE_CAP, EngineConfig,
+                                     SelectionEngine, fair_k_masks_dynamic,
+                                     index_jitter, mask_to_indices,
+                                     sampled_thresholds, traced_km)
 from repro_torch.core.oac import reciprocal
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as tr
 from repro_torch.optim import make_optimizer
 
@@ -67,7 +78,10 @@ TAG_CSI = 0xC51
 TAG_FADE = 0xFADE
 TAG_CHURN = 0x509
 TAG_LEAF = 0x1EAF
+TAG_FL_OAC = 0xF10AC      # the FL-OAC step: index 0 the fading, 1 the noise
 POPULATION_SEED = 0x509
+RAYLEIGH_SCALE = 1.0 / 1.2533141373155003    # E[h] = 1
+ONE_BIT_MAX_CLIENTS = 2048   # vote sums stay exact integers in float16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +139,19 @@ def _batch_parts(shape: InputShape, n_micro: Optional[int]
         raise ValueError(f"global batch {gb} not divisible by n_micro "
                          f"{n_micro}")
     return n_micro, gb // n_micro, n_shards
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The LM's parameter tree as ``meta`` tensors: the shapes and dtypes
+    of ``models.transformer.init_lm``, no memory."""
+    return tr.init_lm(None, cfg)
+
+
+def ravel_params(params: Any) -> Tensor:
+    """The parameter tree as one flat float32 vector in tree order (the
+    reference's ``ravel_pytree``)."""
+    return torch.cat([p.reshape(-1).to(torch.float32)
+                      for _, p in tree_util.leaves(params)])
 
 
 def _text_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -694,9 +721,170 @@ def _per_leaf_phase(oac: OacServerConfig, kernel_mode, dev):
     return phase
 
 
+# ---------------------------------------------------------------------------
+# FL-OAC step: the paper's regime at its own scale (clients = ranks)
+# ---------------------------------------------------------------------------
+
+def fl_oac_draws(seed: int, n_clients: int, kb: int, block: int, device
+                 ) -> Dict[str, Tensor]:
+    """Round ``seed``'s draws of the FL-OAC step, equal on every rank:
+    ``h`` (n_clients,) Rayleigh fading of scale ``RAYLEIGH_SCALE`` (one
+    per client) and ``z`` (kb, block) standard normals of the receiver
+    noise, from the named streams ``(seed, TAG_FL_OAC, 0 | 1)``."""
+    u = torch.rand(n_clients, generator=_stream(seed, TAG_FL_OAC, device, 0),
+                   device=device)
+    h = RAYLEIGH_SCALE * torch.sqrt(-2.0 * torch.log1p(-u))
+    z = torch.randn(kb, block, generator=_stream(seed, TAG_FL_OAC, device, 1),
+                    device=device)
+    return {"h": h, "z": z}
+
+
+def make_fl_oac_step(cfg: ModelConfig, mesh, *, seq_len: int = 1024,
+                     local_batch: int = 1, rho: float = 0.1,
+                     k_m_frac: float = 0.75, block: int = 4096,
+                     noise_std: float = 1.0, baseline: bool = False,
+                     one_bit: bool = False,
+                     adaptive_km: bool = False) -> StepBundle:
+    """Every rank of ``mesh`` is one OAC-FL client with a full model
+    replica (``repro.launch.steps.make_fl_oac_step``).
+
+    ``fn(w, g_prev, age_b, batch, seed, draws=None) -> (w', g_prev',
+    age_b', loss)`` — with ``adaptive_km`` ``fn(w, g_prev, age_b, ctrl,
+    batch, seed, draws=None) -> (w', g_prev', age_b', ctrl', loss)`` —
+    takes the replicated flat float32 weights ``w`` and ``g_prev`` (d,),
+    the block ages ``age_b`` (nb,) float32, the controller vector
+    ``ctrl``, and this rank's ``batch`` of ``tokens`` / ``labels``
+    (local_batch, seq_len).  The local gradient is the LM's loss on views
+    of ``w`` split, reshaped and cast to each leaf (the reference's
+    ``unravel``), taken per leaf and laid out flat, padded to ``nb``
+    blocks.  FAIR-k runs on the block scores ``Σ g_prev²`` and the block
+    ages (rank form, the split ``traced_km(kb, k_m_frac)``), identically
+    on every rank; then the uplink: FAIR-k all-reduces ``h[my]·g[idx]``
+    (kb, block), ``baseline`` all of ``h[my]·g`` and gathers ``idx``,
+    ``one_bit`` sums int8 votes over ``model`` and float16 counts (exact
+    integers up to ``ONE_BIT_MAX_CLIENTS``; neither gloo nor NCCL reduces
+    int16) over the other axes and takes the sign.  The result is scaled by
+    the float32 ``1/n_clients``, gets the noise ``noise_std/n_clients·z``,
+    is scattered into ``g_prev``'s blocks, and the block ages advance as
+    ``min((age + 1).at[idx].set(0), AGE_CAP)``; ``w' = w − 0.01·g_prev'``
+    and ``loss`` is the mean over the ranks.  With ``adaptive_km`` the
+    block-age histogram drives ``BudgetController.update``.  ``draws``
+    replaces any of ``fl_oac_draws``'s (the tests hand over the
+    reference's).  No host sync: the selection's indices come from
+    ``mask_to_indices``, the collectives run on the device."""
+    axes = collectives.axis_names(mesh)
+    n_clients = collectives.axis_size(mesh, axes)
+    rest = tuple(a for a in axes if a != "model")
+    if one_bit and n_clients > ONE_BIT_MAX_CLIENTS:
+        raise ValueError(f"one_bit sums votes in float16, exact for at "
+                         f"most {ONE_BIT_MAX_CLIENTS} clients; the mesh has "
+                         f"{n_clients}")
+    bctrl = budget.BudgetController(rho=rho) if adaptive_km else None
+    leaves = tree_util.leaves(abstract_params(cfg))
+    paths = [path for path, _ in leaves]
+    sizes = [leaf.numel() for _, leaf in leaves]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    d = offsets[-1]
+    d_pad = -(-d // block) * block
+    nb = d_pad // block
+    kb = max(1, int(round(rho * nb)))
+    # the static split as the reference's traced_km rounds it in float32
+    km_static = int(np.round(np.float32(min(max(k_m_frac, 0.0), 1.0))
+                             * np.float32(kb)))
+    inv_n = reciprocal(n_clients)
+
+    def local_grad(w_flat: Tensor, batch: Dict[str, Tensor]
+                   ) -> Tuple[Tensor, Tensor]:
+        """(loss, the flat float32 gradient padded to nb·block)."""
+        xs = [w_flat[offsets[i]:offsets[i + 1]].view(leaf.shape)
+              .to(leaf.dtype).detach().requires_grad_(True)
+              for i, (_, leaf) in enumerate(leaves)]
+        with torch.enable_grad():
+            loss = tr.loss_fn(tree_util.unflatten(paths, xs), cfg, batch)[0]
+            grads = torch.autograd.grad(loss, xs, materialize_grads=True)
+        gb = torch.zeros(d_pad, dtype=torch.float32, device=w_flat.device)
+        torch.cat([g.reshape(-1).to(torch.float32) for g in grads],
+                  out=gb[:d])
+        return loss.detach(), gb.view(nb, block)
+
+    def core(w_flat, g_prev, age_b, ctrl_vec, batch, seed, draws):
+        dev = w_flat.device
+        for key in ("tokens", "labels"):
+            if tuple(batch[key].shape) != (local_batch, seq_len):
+                raise ValueError(f"batch[{key!r}] has shape "
+                                 f"{tuple(batch[key].shape)}, expected "
+                                 f"{(local_batch, seq_len)}")
+        drawn = dict(draws or {})
+        if not {"h", "z"} <= set(drawn):
+            drawn = {**fl_oac_draws(int(seed), n_clients, kb, block, dev),
+                     **drawn}
+        loss, gb_local = local_grad(w_flat, batch)
+        with torch.no_grad():
+            # -- shared selection (replicated inputs: equal on every rank)
+            cstate = None
+            km = km_static
+            if adaptive_km:
+                cstate = budget.controller_state_from_vec(ctrl_vec)
+                km = traced_km(kb, cstate["k_m_frac"])
+            gp = torch.zeros(d_pad, dtype=torch.float32, device=dev)
+            gp[:d] = g_prev
+            gp = gp.view(nb, block)
+            score = (gp * gp).sum(dim=1)
+            mask_sel, _ = fair_k_masks_dynamic(score, age_b, kb, km)
+            idx = mask_to_indices(mask_sel, kb)
+            # -- OAC uplink: only the selected blocks ride the channel
+            h = drawn["h"][collectives.axis_index(mesh)]
+            if baseline:
+                agg = collectives.psum(h * gb_local, mesh, axes)
+                fresh = agg[idx] * inv_n
+            elif one_bit:
+                votes = torch.where(gb_local[idx] >= 0.0, 1, -1).to(
+                    torch.int8)
+                votes = collectives.psum(votes, mesh, ("model",)).to(
+                    torch.float16)
+                votes = collectives.psum(votes, mesh, rest)
+                fresh = torch.where(votes >= 0.0, 1.0, -1.0)
+            else:
+                fresh = collectives.psum(h * gb_local[idx], mesh, axes) * inv_n
+            fresh = fresh + (noise_std / n_clients) * drawn["z"]
+            # -- Eq. (8)-(10) at block granularity, ages clipped at AGE_CAP
+            g_new = gp.index_copy_(0, idx, fresh)
+            age_next = torch.clamp((age_b + 1.0).index_fill_(0, idx, 0.0),
+                                   max=AGE_CAP)
+            ctrl_next = None
+            if adaptive_km:
+                _, age_hist = ref.strided_hists_ref(
+                    score, age_next,
+                    torch.ones(nb, dtype=torch.bool, device=dev),
+                    packing.hist_stride(nb))
+                ctrl_next = budget.controller_state_to_vec(
+                    bctrl.update(cstate, age_hist))
+            g_flat = g_new.reshape(-1)[:d]
+            w_next = w_flat - 0.01 * g_flat.to(w_flat.dtype)
+            loss_mean = collectives.pmean(loss.clone(), mesh, axes)
+        return (w_next, g_flat.to(g_prev.dtype), age_next, ctrl_next,
+                loss_mean)
+
+    if adaptive_km:
+        def fn(w_flat, g_prev, age_b, ctrl_vec, batch, seed, draws=None):
+            return core(w_flat, g_prev, age_b, ctrl_vec, batch, seed, draws)
+    else:
+        def fn(w_flat, g_prev, age_b, batch, seed, draws=None):
+            w, g, a, _, loss = core(w_flat, g_prev, age_b, None, batch, seed,
+                                    draws)
+            return w, g, a, loss
+
+    meta = {"kind": "fl_oac", "d": d, "blocks": nb, "kb": kb,
+            "n_clients": n_clients, "rho": rho, "baseline": baseline,
+            "one_bit": one_bit, "adaptive_km": adaptive_km,
+            "scans": {"layers": cfg.n_scan_blocks}}
+    return StepBundle(fn, meta)
+
+
 __all__ = ["OacServerConfig", "StepBundle", "make_train_step",
-           "make_prefill_step", "make_serve_step", "train_input_specs",
-           "init_server_state", "server_layout", "state_from_numpy",
-           "server_draws", "leaf_draws", "fairk_threshold_masks",
-           "TAG_NOISE", "TAG_FADING", "TAG_CSI", "TAG_FADE", "TAG_CHURN",
-           "TAG_LEAF"]
+           "make_prefill_step", "make_serve_step", "make_fl_oac_step",
+           "abstract_params", "ravel_params", "fl_oac_draws",
+           "train_input_specs", "init_server_state", "server_layout",
+           "state_from_numpy", "server_draws", "leaf_draws",
+           "fairk_threshold_masks", "TAG_NOISE", "TAG_FADING", "TAG_CSI",
+           "TAG_FADE", "TAG_CHURN", "TAG_LEAF", "TAG_FL_OAC"]

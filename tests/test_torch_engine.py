@@ -264,18 +264,29 @@ def test_exact_fairk_staleness_follows_lemma1():
                               mean_rtol=0.1)
 
 
+class _Mesh3:
+    """A stand-in for a three-rank ``DeviceMesh``: the engine reads only
+    the axis names and sizes before it refuses d = 16."""
+    mesh_dim_names = ("data",)
+    shape = (3,)
+
+
 def test_engine_rejects_what_is_not_ported():
     lay = packing.PackedLayout.from_tree(torch.zeros(16), lane=1)
     z = torch.zeros(16)
     exact = engine.SelectionEngine(engine.EngineConfig(backend="exact"), 16)
     g_t, age, stats = exact.select_and_merge(z, z, z)
     assert float(stats["n_selected"]) == exact.budgets()[0]
-    # the sharded launch path is not ported (ROADMAP Queue 1 item 11)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 11"):
+    # the sharded backend needs a mesh whose size divides d (the
+    # reference's errors); reduce_axes names mesh axes: the reference
+    # fails at trace time on the unbound name, the port when the engine
+    # is built (tests/test_torch_sharded.py runs both with a mesh)
+    with pytest.raises(ValueError, match="sharded backend needs a mesh"):
         engine.SelectionEngine(engine.EngineConfig(backend="sharded"), 16)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 11"):
+    with pytest.raises(ValueError, match="not divisible by 3 devices"):
+        engine.SelectionEngine(engine.EngineConfig(backend="sharded"), 16,
+                               mesh=_Mesh3())
+    with pytest.raises(ValueError, match="pass the mesh"):
         engine.SelectionEngine(engine.EngineConfig(
             backend="packed", reduce_axes=("data",)), 16, layout=lay)
     with pytest.raises(ValueError, match="PackedLayout"):

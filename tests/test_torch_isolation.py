@@ -49,7 +49,8 @@ def test_every_port_module_imports_without_jax():
                  "repro_torch.optim.optimizers",
                  "repro_torch.optim.schedule", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.io", "repro_torch.launch",
-                 "repro_torch.launch.steps", "repro_torch.launch.train"):
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.launch.mesh"):
         assert name in mods
     assert len(mods) >= 52
     assert len(BENCHMARKS) == 17
