@@ -184,17 +184,36 @@ failure):
    the ranks, and the sharded engine at 2^24 across them equal to one
    rank's threshold backend (correctness only: NCCL refuses two ranks on
    one device);
-20. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+20. the shardings and the sharded steps (``launch.sharding``, the sharded
+   ``make_train_step`` / ``make_prefill_step`` / ``make_serve_step``):
+   (a) on a NCCL process group of one rank, a (1, 1) mesh,
+   ``internvl2-1b`` at full width and depth (629,663,872 parameters,
+   batch 4 as two microbatches) through the sharded train step, routes
+   (i) fused stats and (ii) one-bit + EF, 3 steps each, under
+   deterministic algorithms — parameters, optimizer state, server state
+   and losses equal to the single-card step's bit for bit on the same
+   batches and draws, 3 ``fairk_update`` launches per route and 3
+   ``sign_mv`` on (ii), the kernel and plain update phases identical, 0
+   host syncs in a warm step, step ms (median after the first), peak
+   bytes and, on (i), the busy share of one profiled step; (b) four
+   spawned gloo ranks on the one card as a (2, 2) mesh: reduced
+   ``qwen2.5-32b`` (sequence parallel) and ``granite-moe-3b-a800m`` (the
+   expert pin) 3 steps each, the kernel run equal to the plain run on
+   every rank, losses equal across ranks and finite; prefill and 8
+   decoded tokens of reduced ``qwen2.5-32b``, ``mamba2-370m`` and
+   ``granite-moe-3b-a800m`` within 0.05 / 0.05 / 0.5 of the
+   single-process decode (correctness only);
+21. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-21. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+22. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-22. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+23. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-16, 18, 19 (b)) runs with every launch count set to 0 just
+Each path (4-16, 18, 19 (b), 20 (a)) runs with every launch count set to 0 just
 before it and read just after; a kernel that none of them launched fails
 the run.
 The serving path (17) launches none of the five kernels: its counts must
@@ -3658,6 +3677,427 @@ def distributed_phase(dev):
                       "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# the shardings and the sharded steps
+# --------------------------------------------------------------------------
+
+SHARDED_STEPS = 3                # (a): sharded steps per route, timed
+SHARDED_REF_STEPS = 2            # (a): single-card steps it is held to
+SHARDED_RANKS, SHARDED_MESH = 4, (2, 2)   # (b): gloo ranks on the one card
+SHARDED_SEQ, SHARDED_BATCH = 64, 8        # (b): reduced train shapes
+SHARDED_PROMPT, SHARDED_NEW, SHARDED_CAP = 16, 8, 64
+# (b)'s decode against the single-process decode: the reference test's
+# tolerances (tests/test_sharded.py::test_decode_parity_sharded_vs_single)
+SHARDED_SERVE_TOL = {"qwen2.5-32b": 0.05, "mamba2-370m": 0.05,
+                     "granite-moe-3b-a800m": 0.5}
+
+
+def _sharded_full_width(dev, mesh, name, oac, profile):
+    """(a) one route: ``SHARDED_REF_STEPS`` steps of the single-card step,
+    then ``SHARDED_STEPS`` of the sharded step on the (1, 1) mesh from the
+    same seeded state, batches and draws, with the launch counts set to 0
+    just before the sharded steps and read just after; after
+    ``SHARDED_REF_STEPS`` steps the two equal bit for bit (deterministic
+    algorithms: the embedding's backward otherwise adds with atomics),
+    and the last sharded step is timed only; then the sharded update
+    phase through the kernels
+    against the plain versions, 0 host syncs in a warm sharded step, and
+    with ``profile`` one sharded step profiled."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_config(LAUNCH_ARCH)
+    shape = InputShape("custom", LAUNCH_SEQ + cfg.n_patches, LAUNCH_BATCH,
+                       "train")
+
+    def batch(t):
+        return train.make_batch(cfg, 0, t, LAUNCH_BATCH, LAUNCH_SEQ,
+                                LAUNCH_MICRO, dev)
+
+    def start(bundle, sharded):
+        params = transformer.init_lm_seeded(cfg, 0, dev)
+        opt = make_optimizer(bundle.meta["optimizer"], bundle.meta["lr"])
+        server = (steps.init_server_state(steps.abstract_params(cfg), mesh,
+                                          cfg, oac, local=True, device=dev)
+                  if sharded else steps.init_server_state(params, oac=oac))
+        return params, opt.init(params), server
+
+    single = steps.make_train_step(cfg, shape, n_micro=LAUNCH_MICRO,
+                                   oac=oac, device=dev)
+    sharded = steps.make_train_step(cfg, shape, mesh, n_micro=LAUNCH_MICRO,
+                                    oac=oac, device=dev)
+    check(sharded.meta["mesh_shape"] == (1, 1),
+          f"sharded: mesh {sharded.meta['mesh_shape']}")
+    check(sharded.layout.d_packed == LAUNCH_D,
+          f"sharded: {sharded.layout.d_packed} packed coordinates")
+    n_params = sum(x.numel() for _, x in tree_util.leaves(
+        steps.abstract_params(cfg)))
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref_state = start(single, False)
+        ref_losses = []
+        for t in range(SHARDED_REF_STEPS):
+            *_, loss = single.fn(*ref_state, batch(t), t)
+            ref_losses.append(loss)
+        state = start(sharded, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms, losses = [], []
+        reset_counters()
+        for t in range(SHARDED_STEPS):
+            b = batch(t)
+            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            *_, loss = sharded.fn(*state, b, t)
+            e.record()
+            torch.cuda.synchronize()
+            step_ms.append(a.elapsed_time(e))
+            losses.append(loss)
+            if t + 1 == SHARDED_REF_STEPS:
+                for x, y in zip(losses, ref_losses):
+                    _same(x, y, f"sharded {name} loss")
+                for what, a_, b_ in zip(("params", "opt", "server"),
+                                        state, ref_state):
+                    _states_bits_equal(a_, b_, f"sharded {name} {what} vs "
+                                       "single-card")
+        got = read_counters()
+        # freed after the timed steps: a step that follows a release
+        # would time the allocator's growth
+        del ref_state
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = dict.fromkeys(KERNELS, 0)
+        want["fairk_update"] = SHARDED_STEPS
+        want["sign_mv"] = SHARDED_STEPS if oac.one_bit else 0
+        check(got == want, f"sharded {name}: launches {got}, expected "
+              f"{want}")
+        check(all(math.isfinite(float(x)) for x in losses),
+              f"sharded {name}: losses {losses}")
+        # the update phase through the kernels and the plain versions
+        t = SHARDED_STEPS
+        b = batch(t)
+        _, grads = sharded.grads_fn(state[0], b)
+        copy = _clone_state(state)
+        sharded.update(*state, grads, t)
+        plain = steps.make_train_step(cfg, shape, mesh, n_micro=LAUNCH_MICRO,
+                                      oac=oac, kernel_mode="plain",
+                                      device=dev)
+        plain.update(*copy, grads, t)
+        _states_same(state, copy, f"sharded {name} kernel vs plain")
+        del copy, grads
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t += 1
+    b = batch(t)
+    warm_syncs = _syncs(lambda: sharded.fn(*state, b, t))
+    check(warm_syncs == 0, f"sharded {name}: {warm_syncs} host syncs in a "
+          "warm step")
+    steady = statistics.median(step_ms[1:])
+    row = {"parameters": n_params, "d_packed": sharded.layout.d_packed,
+           "losses": [float(x) for x in losses], "step_ms": step_ms,
+           "steady_ms": steady, "peak_bytes": peak, "launches": got,
+           "warm_syncs": warm_syncs, "vs_single": "identical",
+           "kernel_vs_plain": "identical"}
+    if profile:
+        t += 2
+        b = batch(t)
+        row["profile"] = _profile_round(
+            lambda: sharded.fn(*state, b, t), top=8,
+            label=f"one sharded step of {name}")
+        row["busy_share"] = row["profile"]["device_ms"] / steady
+    print(f"sharded (a) {name}: {n_params} parameters on a (1, 1) NCCL "
+          f"mesh, {SHARDED_STEPS} steps, the first {SHARDED_REF_STEPS} "
+          f"equal to the single-card step bit for bit (parameters, "
+          f"optimizer and server state, losses "
+          f"{[round(x, 4) for x in row['losses']]}); launches {got}; "
+          f"kernel and plain update phases identical; steady step "
+          f"{steady:.1f} ms (deterministic algorithms; CUDA events, steps "
+          f"{[round(x, 1) for x in step_ms]}); peak allocated "
+          f"{peak / 1e9:.2f} GB; 0 host syncs in a warm step"
+          + (f"; one step profiled: device "
+             f"{row['profile']['device_ms']:.1f} ms, busy share "
+             f"{row['busy_share']:.3f}" if profile else ""), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return row, got
+
+
+def _states_bits_equal(a, b, what) -> None:
+    """Every leaf of ``a`` equal to ``b``'s bit for bit, through integer
+    views: no temporary larger than one boolean per element, so that a
+    step timed after the comparison does not meet an allocator that
+    ``_same``'s copies of 2.5 GB vectors have filled."""
+    import torch
+    from repro_torch import tree as tree_util
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    la, lb = tree_util.leaves(a), tree_util.leaves(b)
+    check(len(la) == len(lb), f"{what}: {len(la)} vs {len(lb)} leaves")
+    for (path, x), (_, y) in zip(la, lb):
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"{what} {path}: {x.dtype} {tuple(x.shape)} vs {y.dtype} "
+              f"{tuple(y.shape)}")
+        if x.is_floating_point():
+            x, y = (v.view(ints[v.element_size()]) for v in (x, y))
+        check(bool(torch.equal(x, y)), f"{what} {path}: not bit for bit")
+
+
+def _stage_gloo_through_host() -> None:
+    """gloo reduces CUDA tensors only with ``all_reduce`` (sum) and gathers
+    them only as lists: in this process, route the tensor
+    ``all_gather_into_tensor`` / ``reduce_scatter_tensor`` and a non-sum
+    ``all_reduce`` of a CUDA tensor through host copies (the (b) ranks'
+    rig; on NCCL the port runs them where the tensor lies)."""
+    import torch.distributed as dist
+    gather, scatter, reduce = (dist.all_gather_into_tensor,
+                               dist.reduce_scatter_tensor, dist.all_reduce)
+
+    def via_host(fn):
+        def call(out, x, *args, **kw):
+            if not x.is_cuda:
+                return fn(out, x, *args, **kw)
+            h = out.cpu()
+            fn(h, x.cpu(), *args, **kw)
+            out.copy_(h)
+        return call
+
+    def all_reduce(x, op=dist.ReduceOp.SUM, *args, **kw):
+        if not x.is_cuda or op == dist.ReduceOp.SUM:
+            return reduce(x, op, *args, **kw)
+        h = x.cpu()
+        reduce(h, op, *args, **kw)
+        x.copy_(h)
+
+    dist.all_gather_into_tensor = via_host(gather)
+    dist.reduce_scatter_tensor = via_host(scatter)
+    dist.all_reduce = all_reduce
+
+
+def _sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """(b) one rank of a (2, 2) mesh of gloo ranks on ``cuda:0``: the
+    sharded train step on reduced ``qwen2.5-32b`` (sequence parallel) and
+    ``granite-moe-3b-a800m`` (the expert pin), kernel run against plain
+    run; prefill and decode against the single-process decode."""
+    import dataclasses
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import collectives
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.device import set_numerics
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import make_optimizer
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    set_numerics(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    _stage_gloo_through_host()
+    result = {}
+    t0 = time.time()
+    try:
+        mesh = mesh_lib.make_mesh(SHARDED_MESH, ("data", "model"), "cuda")
+        shape = InputShape("t", SHARDED_SEQ, SHARDED_BATCH, "train")
+        torch.use_deterministic_algorithms(True)
+        for arch in ("qwen2.5-32b", "granite-moe-3b-a800m"):
+            cfg = get_config(arch, reduced_variant=True)
+            finals = []
+            for mode in ("kernel", "plain"):
+                bundle = steps.make_train_step(
+                    cfg, shape, mesh, n_micro=2, oac=steps.OacServerConfig(),
+                    kernel_mode=None if mode == "kernel" else "plain",
+                    device=dev)
+                params = sharding.local_tree(tr.init_lm_seeded(cfg, 0, dev),
+                                             bundle.in_specs[0], mesh)
+                opt_state = make_optimizer(cfg.optimizer, 1e-3).init(params)
+                server = steps.init_server_state(
+                    steps.abstract_params(cfg), mesh, cfg,
+                    steps.OacServerConfig(), local=True, device=dev)
+                losses = []
+                for t in range(SHARDED_STEPS):
+                    toks, labels = lm_batch(t, SHARDED_BATCH, SHARDED_SEQ,
+                                            cfg.vocab)
+                    b = {"tokens": torch.from_numpy(toks).reshape(
+                            2, SHARDED_BATCH // 2, SHARDED_SEQ).to(dev),
+                         "labels": torch.from_numpy(labels).reshape(
+                            2, SHARDED_BATCH // 2, SHARDED_SEQ).to(dev)}
+                    *_, loss = bundle.fn(params, opt_state, server, b, t)
+                    losses.append(float(loss))
+                finals.append((params, opt_state, server, losses, bundle))
+            (p1, o1, s1, l1, b1), (p2, o2, s2, l2, _) = finals
+            same = l1 == l2 and all(
+                bool(torch.equal(x, y)) for ta, tb in ((p1, p2), (o1, o2),
+                                                       (s1, s2))
+                for (_, x), (_, y) in zip(tree_util.leaves(ta),
+                                          tree_util.leaves(tb)))
+            result[arch] = {"losses": l1, "kernel_vs_plain_equal": same,
+                            "pin": b1.meta["expert_shard_axis"],
+                            "sp": b1.meta["sequence_parallel"]}
+        torch.use_deterministic_algorithms(False)
+        result["train_seconds"] = time.time() - t0
+        t1 = time.time()
+        for arch, tol in SHARDED_SERVE_TOL.items():
+            cfg = get_config(arch, reduced_variant=True)
+            gb = SHARDED_BATCH
+            params = tr.init_lm_seeded(cfg, 0, dev)
+            gen = torch.Generator().manual_seed(1)
+            prompt = torch.randint(0, cfg.vocab, (gb, SHARDED_PROMPT),
+                                   generator=gen, dtype=torch.int32).to(dev)
+            toks = torch.randint(0, cfg.vocab, (gb, SHARDED_NEW),
+                                 generator=gen, dtype=torch.int32).to(dev)
+            caches = tr.init_caches(cfg, gb, SHARDED_CAP, device=dev)
+            single = [tr.prefill(params, cfg, prompt, caches)[0]]
+            for t in range(SHARDED_NEW):
+                single.append(tr.decode_step(params, cfg, toks[:, t:t + 1],
+                                             SHARDED_PROMPT + t, caches)[0])
+            pre = steps.make_prefill_step(
+                cfg, InputShape("p", SHARDED_CAP, gb, "prefill"), mesh)
+            srv = steps.make_serve_step(
+                cfg, InputShape("d", SHARDED_CAP, gb, "decode"), mesh)
+            local = sharding.local_tree(params, srv.in_specs[0], mesh)
+            mine = steps.init_sharded_caches(cfg, mesh, gb, SHARDED_CAP,
+                                             device=dev)
+            got = [pre.fn(local, mine, {"tokens": prompt})[0]]
+            for t in range(SHARDED_NEW):
+                got.append(srv.fn(local, mine, toks[:, t:t + 1],
+                                  torch.tensor(SHARDED_PROMPT + t,
+                                               dtype=torch.int32,
+                                               device=dev))[0])
+            n = gb // collectives.axis_size(mesh, ("data",))
+            r0 = collectives.axis_index(mesh, ("data",)) * n
+            err = max(float((a[r0:r0 + n].float() - b.float()).abs().max())
+                      for a, b in zip(single, got))
+            result[f"serve {arch}"] = {"max_err": err, "tol": tol,
+                                       "finite": all(bool(torch.isfinite(
+                                           x).all()) for x in got)}
+        result["serve_seconds"] = time.time() - t1
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank_{rank}.json").write_text(json.dumps(result))
+
+
+def _sharded_gloo_phase():
+    """(b): ``SHARDED_RANKS`` spawned gloo processes on the one card, a
+    (2, 2) mesh.  Correctness only: no speed is claimed."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    tmp = ROOT / "chiprun_out" / "sharded_gloo"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, SHARDED_RANKS, str(tmp / "store"),
+                               str(tmp)))
+             for r in range(SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=DIST_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * SHARDED_RANKS, f"sharded gloo ranks exited {codes}")
+    results = [json.loads((tmp / f"rank_{r}.json").read_text())
+               for r in range(SHARDED_RANKS)]
+    seconds = time.perf_counter() - t0
+    for r, res in enumerate(results):
+        for arch in ("qwen2.5-32b", "granite-moe-3b-a800m"):
+            row = res[arch]
+            check(row["kernel_vs_plain_equal"],
+                  f"sharded gloo rank {r} {arch}: kernel run differs from "
+                  "the plain run")
+            _finite(row["losses"], f"sharded gloo rank {r} {arch} losses")
+            check(row["losses"] == results[0][arch]["losses"],
+                  f"sharded gloo rank {r} {arch}: losses differ across "
+                  "ranks")
+        check(res["qwen2.5-32b"]["sp"], "sharded gloo: qwen2.5 without "
+              "sequence parallelism")
+        check(res["granite-moe-3b-a800m"]["pin"] == "model",
+              "sharded gloo: granite-moe without the expert pin")
+        for arch, tol in SHARDED_SERVE_TOL.items():
+            row = res[f"serve {arch}"]
+            check(row["finite"] and row["max_err"] < tol,
+                  f"sharded gloo rank {r} serve {arch}: {row['max_err']} "
+                  f"from the single-process decode (tolerance {tol})")
+    print(f"sharded (b): {SHARDED_RANKS} gloo ranks on the one card, a "
+          f"{SHARDED_MESH} mesh — reduced qwen2.5-32b (sequence parallel) "
+          f"and granite-moe-3b-a800m (the expert pin) {SHARDED_STEPS} steps "
+          f"each, kernel run equal to plain on every rank, losses equal "
+          f"across ranks ({results[0]['qwen2.5-32b']['losses']}, "
+          f"{results[0]['granite-moe-3b-a800m']['losses']}); prefill + "
+          f"{SHARDED_NEW} tokens within "
+          + ", ".join(f"{results[0]['serve ' + a]['max_err']:.4f} of "
+                      f"{t} ({a})" for a, t in SHARDED_SERVE_TOL.items())
+          + f" of the single-process decode; train "
+          f"{results[0]['train_seconds']:.1f} s, serve "
+          f"{results[0]['serve_seconds']:.1f} s, {seconds:.1f} s in all "
+          "(correctness only)", flush=True)
+    return {"seconds": seconds, "ranks": results}
+
+
+def sharded_phase(dev):
+    """The sharded steps: (a) ``internvl2-1b`` at full width through the
+    sharded ``make_train_step`` on a NCCL process group of one rank (a
+    (1, 1) mesh), routes (i) fused stats and (ii) one-bit + EF, each equal
+    to the single-card step bit for bit; (b) four gloo ranks on the one
+    card as a (2, 2) mesh at reduced width.  Returns (launches of (a),
+    summary)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import OacServerConfig
+
+    t0 = time.perf_counter()
+    store = ROOT / "chiprun_out" / "sharded_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+        for name, oac in (("fused", OacServerConfig(rho=0.1)),
+                          ("one_bit_ef", OacServerConfig(
+                              rho=0.1, one_bit=True, error_feedback=True,
+                              noise_std=0.5))):
+            row, got = _sharded_full_width(dev, mesh, name, oac,
+                                           profile=name == "fused")
+            summary[name] = row
+            for key in launches:
+                launches[key] += got[key]
+    finally:
+        dist.destroy_process_group()
+    summary["full_width_seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary["gloo"] = _sharded_gloo_phase()
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"sharded phase: {summary['seconds']:.1f} s ((a) "
+          f"{summary['full_width_seconds']:.1f} s, (b) "
+          f"{summary['gloo']['seconds']:.1f} s)", flush=True)
+    return launches, summary
+
+
 def main(argv) -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found: run chip_smoke.py from the root of "
@@ -3715,6 +4155,7 @@ def main(argv) -> None:
     serve_summary = serve_phase(dev)
     by_path["entry_points"], entry_summary = entry_points_phase(dev)
     by_path["distributed"], distributed_summary = distributed_phase(dev)
+    by_path["sharded"], sharded_summary = sharded_phase(dev)
     launches = {key: sum(p[key] for p in by_path.values())
                 for key in KERNELS}
     for key, n in launches.items():
@@ -3779,7 +4220,7 @@ def main(argv) -> None:
          "engine_1e8": engine_big_summary, "launch": launch_summary,
          "families": families_summary, "serve": serve_summary,
          "entry_points": entry_summary,
-         "distributed": distributed_summary,
+         "distributed": distributed_summary, "sharded": sharded_summary,
          "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))

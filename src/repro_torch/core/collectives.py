@@ -12,12 +12,20 @@ size (``oac.reciprocal``, the compiled reference's form), and
 reference's ``my = my * mesh.shape[ax] + axis_index(ax)``).  Every
 collective runs on the tensor's device and reads nothing back to the
 host.
+
+Along one dimension of a tensor sharded in row-major blocks over some
+axes (``launch.sharding``): ``all_gather_dim`` rebuilds the dimension from
+every rank's block, ``reduce_scatter_dim`` sums the ranks' whole tensors
+and leaves each its block, ``pmax`` is the elementwise maximum.  These
+three skip the axes of one rank, so a mesh of one rank runs none of them.
 """
 
 from __future__ import annotations
 
 from math import prod
 from typing import Sequence, Tuple
+
+import warnings
 
 import torch
 import torch.distributed as dist
@@ -100,5 +108,63 @@ def all_gather_flat(x: Tensor, mesh) -> Tensor:
     return parts.reshape(-1)
 
 
+def _quiet(fn, *args, **kw):
+    # the tensor forms of all_gather / reduce_scatter warn of a rename in
+    # newer releases; the old names are what every release accepts
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return fn(*args, **kw)
+
+
+def spread(mesh, axes: Sequence[str]) -> Tuple[str, ...]:
+    """``axes`` without those of one rank, over which nothing moves."""
+    return tuple(a for a in axes if axis_size(mesh, (a,)) > 1)
+
+
+def all_gather_dim(x: Tensor, mesh, axes: Sequence[str], dim: int
+                   ) -> Tensor:
+    """``x`` (this rank's block of dimension ``dim``, split over ``axes`` in
+    row-major order) -> the whole dimension, on every rank along ``axes``:
+    one ``all_gather`` per axis of more than one rank, innermost first
+    (``x`` itself when there is none)."""
+    for a in reversed(spread(mesh, axes)):
+        n = axis_size(mesh, (a,))
+        xt = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
+                          dtype=xt.dtype, device=xt.device)
+        _quiet(dist.all_gather_into_tensor, out, xt,
+               group=mesh.get_group(a))
+        x = out.movedim(0, dim).contiguous()
+    return x
+
+
+def reduce_scatter_dim(x: Tensor, mesh, axes: Sequence[str], dim: int
+                       ) -> Tensor:
+    """The sum of ``x`` over the ranks along ``axes``, of which each keeps
+    its row-major block of dimension ``dim``: one ``reduce_scatter`` per
+    axis of more than one rank, outermost first (``x`` itself when there
+    is none)."""
+    for a in spread(mesh, axes):
+        n = axis_size(mesh, (a,))
+        xt = x.movedim(dim, 0).contiguous()
+        if xt.shape[0] % n:
+            raise ValueError(f"dimension {dim} ({xt.shape[0]}) does not "
+                             f"divide the {n} ranks of axis {a!r}")
+        out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                          dtype=xt.dtype, device=xt.device)
+        _quiet(dist.reduce_scatter_tensor, out, xt, group=mesh.get_group(a))
+        x = out.movedim(0, dim).contiguous()
+    return x
+
+
+def pmax(x: Tensor, mesh, axes: Sequence[str]) -> Tensor:
+    """The elementwise maximum of ``x`` over the ranks along ``axes``, in
+    place; returns ``x``."""
+    for a in spread(mesh, axes):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    return x
+
+
 __all__ = ["axis_names", "axis_size", "mesh_size", "axis_index", "psum",
-           "pmean", "all_gather_flat"]
+           "pmean", "all_gather_flat", "spread", "all_gather_dim",
+           "reduce_scatter_dim", "pmax"]

@@ -67,6 +67,28 @@ def make_test_mesh(data: int = 2, model: int = 4,
     return make_mesh((data, model), ("data", "model"), device_type)
 
 
+class AbstractMesh:
+    """A mesh's axis names and sizes without ranks (the reference's
+    ``jax.sharding.AbstractMesh``): enough for the spec functions of
+    ``launch.sharding`` and for ``local_shard`` at a given coordinate."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        self.shape = tuple(int(s) for s in shape)
+        self.mesh_dim_names = tuple(axes)
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.mesh_dim_names} differ in length")
+
+    def size(self) -> int:
+        return prod(self.shape)
+
+    def get_coordinate(self):
+        return None
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape}, {self.mesh_dim_names})"
+
+
 def batch_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
     """The axes across which the global batch (the FL clients) is
     sharded: every axis but ``model``."""
@@ -78,6 +100,6 @@ def fsdp_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
     return batch_axes(mesh)
 
 
-__all__ = ["make_mesh", "make_production_mesh", "make_test_mesh",
+__all__ = ["AbstractMesh", "make_mesh", "make_production_mesh", "make_test_mesh",
            "batch_axes", "fsdp_axes", "axis_size", "PRODUCTION_SHAPE",
            "PRODUCTION_AXES", "MULTI_POD_SHAPE", "MULTI_POD_AXES"]

@@ -19,12 +19,26 @@ bundles: ``fn(params, caches, batch)`` fills the caches from a prompt and
 ``fn(params, caches, token, pos)`` decodes one token, both updating the
 caches in place (``models.transformer.prefill`` / ``decode_step``).
 
-The train step runs on one card, one shard: the reference's
-``shard_map``, the data-axis reduction and its ``reduce_axes`` are gone,
-and ``n_clients`` is 1.  The reference's ``sequence_parallel`` flag is a
-sharding hint with no effect on one card, and so is the expert axis it
-pins MoE tensors to; both wait for the sharded train step (ROADMAP item
-11e).
+Without a mesh the train step runs on one card, one shard: no
+collective, and ``n_clients`` is 1.  With a mesh (``launch.mesh``, the
+third argument of ``make_train_step``, ``make_prefill_step`` and
+``make_serve_step``) each rank holds its blocks of the parameters, the
+optimizer state and the server state by ``launch.sharding``'s specs
+(``state_from_numpy(..., mesh=, specs=)`` cuts them from global trees;
+``init_server_state(..., local=True)`` makes the rank's server state),
+runs its batch rows through the model with each block's weights
+gathered inside the checkpointed block function (``models.parallel``),
+averages the float32 gradients over the batch axes (a reduce-scatter
+along the dimension the batch axes split, else an all-reduce), keeps its
+blocks, and runs the reference's per-shard server phase on them: one
+``fairk_update`` over its ``d_packed`` with ``reduce_axes`` = every mesh
+axis and ``n_clients`` the number of batch shards, then the optimizer in
+place.  ``sequence_parallel`` keeps the residual between blocks as the
+rank's slice of the sequence over ``model``; ``_with_expert_axis`` pins
+the experts to ``model`` (each rank runs its ``E/M`` experts).  The
+sharded prefill and serve steps keep the caches by ``cache_pspecs``.
+A bundle built on a mesh carries the reference's ``in_shardings`` and
+``out_shardings`` as spec trees (``in_specs`` / ``out_specs``).
 
 ``make_fl_oac_step(cfg, mesh, ...)`` is the paper's own regime across the
 ranks of a mesh (``launch.mesh``): every rank is one OAC-FL client with a
@@ -66,7 +80,11 @@ from repro_torch.core.engine import (AGE_CAP, EngineConfig,
 from repro_torch.core.oac import reciprocal
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.launch.sharding import P
 from repro_torch.models import transformer as tr
+from repro_torch.models.parallel import Parallel, gather_param
 from repro_torch.optim import make_optimizer
 
 Tensor = torch.Tensor
@@ -82,6 +100,9 @@ TAG_FL_OAC = 0xF10AC      # the FL-OAC step: index 0 the fading, 1 the noise
 POPULATION_SEED = 0x509
 RAYLEIGH_SCALE = 1.0 / 1.2533141373155003    # E[h] = 1
 ONE_BIT_MAX_CLIENTS = 2048   # vote sums stay exact integers in float16
+# the mesh a single-card train step lays its shardings on: one rank and
+# no process group, so nothing is gathered or reduced
+_ONE_RANK = AbstractMesh((1, 1), ("data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,22 +144,24 @@ class StepBundle:
     grads_fn: Optional[Callable] = None
     update: Optional[Callable] = None
     layout: Optional[packing.PackedLayout] = None
+    in_specs: Any = None
+    out_specs: Any = None
 
 
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
 
-def _batch_parts(shape: InputShape, n_micro: Optional[int]
-                 ) -> Tuple[int, int, int]:
-    n_shards = 1
+def _batch_parts(shape: InputShape, n_micro: Optional[int], n_shards: int
+                 ) -> Tuple[int, int]:
+    """(microbatches, microbatch rows) of the global batch."""
     gb = shape.global_batch
     if n_micro is None:
         n_micro = max(1, gb // n_shards)
     if gb % n_micro:
         raise ValueError(f"global batch {gb} not divisible by n_micro "
                          f"{n_micro}")
-    return n_micro, gb // n_micro, n_shards
+    return n_micro, gb // n_micro
 
 
 def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
@@ -179,10 +202,39 @@ def train_input_specs(cfg: ModelConfig, shape: InputShape, n_micro: int,
     return specs
 
 
-def server_layout(params: Any) -> packing.PackedLayout:
-    """The packed layout of the persisted server state (one shard: the
-    whole tree)."""
-    return packing.PackedLayout.from_tree(params)
+def _meta_tree(params: Any, specs: Any = None, mesh=None) -> Any:
+    """``params`` as ``meta`` tensors, each the rank's block shape under
+    ``specs`` when a mesh is given."""
+    pairs = tree_util.leaves(params)
+    spec_l = (sharding.spec_leaves(specs) if mesh is not None
+              else [P()] * len(pairs))
+    return tree_util.unflatten(
+        [pa for pa, _ in pairs],
+        [torch.empty(sharding.local_shape(x.shape, sp, mesh)
+                     if mesh is not None else tuple(x.shape),
+                     dtype=x.dtype, device="meta")
+         for (_, x), sp in zip(pairs, spec_l)])
+
+
+def server_layout(params: Any, p_specs: Any = None, mesh=None
+                  ) -> packing.PackedLayout:
+    """The packed layout of the persisted server state: one shard, the
+    whole tree; on a mesh the rank's ``PackedLayout`` built from the local
+    block shapes (what ``PackedLayout.from_tree(local grads)`` builds)."""
+    if mesh is None:
+        return packing.PackedLayout.from_tree(params)
+    return packing.PackedLayout.from_tree(_meta_tree(params, p_specs, mesh))
+
+
+def _with_expert_axis(cfg: ModelConfig, mesh) -> ModelConfig:
+    """Pin the experts to the ``model`` axis when E divides it and each
+    rank holds at least two experts."""
+    model_n = collectives.axis_size(mesh, ("model",))
+    if (cfg.n_experts and not cfg.expert_shard_axis
+            and cfg.n_experts % model_n == 0
+            and cfg.n_experts >= 2 * model_n):
+        return dataclasses.replace(cfg, expert_shard_axis="model")
+    return cfg
 
 
 def fairk_threshold_masks(g_flat: Tensor, age_flat: Tensor,
@@ -226,15 +278,25 @@ def _leaf_server_update(g: Tensor, g_prev: Tensor, age: Tensor,
             age_next.to(torch.int8).reshape(shape))
 
 
-def init_server_state(params: Any,
-                      oac: Optional[OacServerConfig] = OacServerConfig()
+def init_server_state(params: Any, mesh=None, cfg: ModelConfig = None,
+                      oac: Optional[OacServerConfig] = OacServerConfig(), *,
+                      local: bool = False, device: DeviceLike = None
                       ) -> Dict[str, Any]:
     """The server state ``make_train_step`` expects, on the parameters'
-    device.  Packed (the default): flat ``g`` (d,) bf16, ``age`` (d,) int8
-    with ``PAD_AGE`` in the pads and the ``theta`` vector, plus ``res``,
-    ``ctrl``, ``shadow`` / ``pending`` and ``fad`` as configured.  Per
-    leaf (``oac`` None or ``packed=False``): trees of bf16 ``g`` and int8
-    ``age``, and ``theta``."""
+    device (``device`` when they are ``meta`` tensors).  Packed (the
+    default): flat ``g`` (d,) bf16, ``age`` (d,) int8 with ``PAD_AGE`` in
+    the pads and the ``theta`` vector, plus ``res``, ``ctrl``, ``shadow`` /
+    ``pending`` and ``fad`` as configured.  Per leaf (``oac`` None or
+    ``packed=False``): trees of bf16 ``g`` and int8 ``age``, and ``theta``.
+
+    On a mesh (``params`` the global tree, ``cfg`` its configuration) the
+    packed buffers are the reference's global ones, ``n × d_packed`` with
+    ``d_packed`` the per-shard layout's and ``age`` tiled per shard;
+    ``local=True`` gives this rank's block of each instead, which is what
+    the sharded step takes."""
+    if mesh is not None:
+        return _init_sharded_server_state(params, mesh, cfg, oac, local,
+                                          device)
     dev = tree_util.leaves(params)[0][1].device
     theta = torch.zeros(packing.THRESHOLD_STATE_SIZE, dtype=torch.float32,
                         device=dev)
@@ -264,21 +326,105 @@ def init_server_state(params: Any,
     return state
 
 
-def state_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+def _init_sharded_server_state(params, mesh, cfg, oac, local, device):
+    dev = tree_util.leaves(params)[0][1].device
+    dev = resolve_device(device) if dev.type == "meta" else dev
+    p_specs = sharding.param_pspecs(params, cfg, mesh)
+    theta = torch.zeros(packing.THRESHOLD_STATE_SIZE, dtype=torch.float32,
+                        device=dev)
+    if oac is None or not oac.packed:
+        tree = _meta_tree(params, p_specs, mesh) if local else params
+        return {"g": tree_util.tree_map(
+                    lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
+                                          device=dev), tree),
+                "age": tree_util.tree_map(
+                    lambda p: torch.zeros(p.shape, dtype=torch.int8,
+                                          device=dev), tree),
+                "theta": theta}
+    lay = server_layout(params, p_specs, mesh)
+    n = 1 if local else collectives.mesh_size(mesh)
+    d = n * lay.d_packed
+    state = {"g": torch.zeros(d, dtype=torch.bfloat16, device=dev),
+             "age": lay.init_age(torch.int8, dev).repeat(n), "theta": theta}
+    if oac.error_feedback:
+        state["res"] = torch.zeros(d, dtype=torch.float32, device=dev)
+    if oac.adaptive_km:
+        state["ctrl"] = budget.controller_state_to_vec(
+            budget.init_controller_state(oac.k_m_frac, dev))
+    if oac.async_agg:
+        state["shadow"] = torch.zeros(d, dtype=torch.bfloat16, device=dev)
+        state["pending"] = torch.zeros(d, dtype=torch.bfloat16, device=dev)
+    if oac.wireless is not None:
+        # the cold start is a function of the GLOBAL block count
+        n_all = collectives.mesh_size(mesh)
+        fad = chan.init_block_fading(
+            n_all * chan.n_blocks(lay.d_packed, oac.wireless), dev)
+        vec = P(collectives.axis_names(mesh))
+        state["fad"] = (sharding.local_shard(fad, vec, mesh).clone()
+                        if local else fad)
+    return state
+
+
+def abstract_server_state(params_abs: Any, mesh=None, p_specs: Any = None,
+                          oac: Optional[OacServerConfig] = None
+                          ) -> Dict[str, Any]:
+    """The global server state's shapes and dtypes as ``meta`` tensors."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    theta = meta((packing.THRESHOLD_STATE_SIZE,), torch.float32)
+    if oac is not None and oac.packed:
+        lay = server_layout(params_abs, p_specs, mesh)
+        n = collectives.mesh_size(mesh) if mesh is not None else 1
+        d = n * lay.d_packed
+        state = {"g": meta((d,), torch.bfloat16),
+                 "age": meta((d,), torch.int8), "theta": theta}
+        if oac.error_feedback:
+            state["res"] = meta((d,), torch.float32)
+        if oac.adaptive_km:
+            state["ctrl"] = meta((budget.CONTROLLER_STATE_SIZE,),
+                                 torch.float32)
+        if oac.async_agg:
+            state["shadow"] = meta((d,), torch.bfloat16)
+            state["pending"] = meta((d,), torch.bfloat16)
+        if oac.wireless is not None:
+            state["fad"] = meta(
+                (2 * n * chan.n_blocks(lay.d_packed, oac.wireless),),
+                torch.float32)
+        return state
+    return {"g": tree_util.tree_map(lambda p: meta(p.shape, torch.bfloat16),
+                                    params_abs),
+            "age": tree_util.tree_map(lambda p: meta(p.shape, torch.int8),
+                                      params_abs),
+            "theta": theta}
+
+
+def state_from_numpy(tree: Any, device: DeviceLike = None, mesh=None,
+                     specs: Any = None) -> Any:
     """A tree of numpy arrays (the reference's params, optimizer state or
     server state through ``np.asarray``) -> the same tree of tensors on
     ``device``.  A bfloat16 leaf arrives as its ``uint16`` view (or a
     numpy ``bfloat16`` extension array) and becomes a bf16 tensor; other
-    dtypes are kept."""
+    dtypes are kept.  With ``mesh`` and ``specs`` (a spec tree matching
+    ``tree``) each leaf becomes this rank's block (``local_shard``)."""
     dev = resolve_device(device)
 
-    def leaf(a):
+    def leaf(a, spec=None):
         a = np.asarray(a)
+        if spec is not None:
+            a = a[sharding.local_slices(a.shape, spec, mesh)]
         if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
             words = np.ascontiguousarray(a).view(np.int16).copy()
             return torch.from_numpy(words).view(torch.bfloat16).to(dev)
         return torch.from_numpy(np.array(a)).to(dev)
-    return tree_util.tree_map(leaf, tree)
+    if mesh is None:
+        return tree_util.tree_map(leaf, tree)
+    pairs = tree_util.leaves(tree)
+    specs_l = sharding.spec_leaves(specs)
+    if len(specs_l) != len(pairs):
+        raise ValueError(f"{len(pairs)} leaves and {len(specs_l)} specs")
+    return tree_util.unflatten([pa for pa, _ in pairs],
+                               [leaf(a, sp) for (_, a), sp
+                                in zip(pairs, specs_l)])
 
 
 def _stream(seed: int, tag: int, device, index: int = 0) -> torch.Generator:
@@ -286,53 +432,61 @@ def _stream(seed: int, tag: int, device, index: int = 0) -> torch.Generator:
     return pop_mod.round_generator(seed, tag, index, device)
 
 
-def server_draws(oac: OacServerConfig, seed: int, layout, device
-                 ) -> Dict[str, Any]:
+def server_draws(oac: OacServerConfig, seed: int, layout, device,
+                 shard: int = 0) -> Dict[str, Any]:
     """The packed server phase's draws for step ``seed``: ``noise`` (d,)
     standard normals (the channel noise; with ``one_bit`` the vote noise),
     ``fad_w`` (nb, 2) and ``csi`` (nb,) normals of the wireless round,
     ``fade_u`` and ``churn_u`` block uniforms, and ``pop`` the stateless
-    population round's statistics — each as the configuration needs it."""
+    population round's statistics — each as the configuration needs it.
+    On a mesh every stream but the population's carries the rank's
+    row-major ``shard`` index (the reference folds it into its key), so
+    the draws are independent across shards; the population round is the
+    same on every shard."""
     d = layout.d_packed
     wireless = oac.wireless
     draws: Dict[str, Any] = {}
     if oac.noise_std > 0.0:
         draws["noise"] = torch.randn(
-            d, generator=_stream(seed, TAG_NOISE, device),
+            d, generator=_stream(seed, TAG_NOISE, device, shard),
             device=device)
     if wireless is not None:
         nb = chan.n_blocks(d, wireless)
         draws["fad_w"] = torch.randn(
-            nb, 2, generator=_stream(seed, TAG_FADING, device),
+            nb, 2, generator=_stream(seed, TAG_FADING, device, shard),
             device=device)
         if wireless.csi_err > 0.0:
             draws["csi"] = torch.randn(
-                nb, generator=_stream(seed, TAG_CSI, device),
+                nb, generator=_stream(seed, TAG_CSI, device, shard),
                 device=device)
     if oac.fade > 0.0:
         draws["fade_u"] = torch.rand(
             -(-d // oac.fade_block),
-            generator=_stream(seed, TAG_FADE, device), device=device)
+            generator=_stream(seed, TAG_FADE, device, shard), device=device)
     if oac.population is not None:
         pc = oac.population
         draws["pop"] = pop_mod.stateless_round(POPULATION_SEED, int(seed),
                                                pc, device)
         draws["churn_u"] = torch.rand(
             -(-d // pc.erase_block),
-            generator=_stream(seed, TAG_CHURN, device), device=device)
+            generator=_stream(seed, TAG_CHURN, device, shard), device=device)
     return draws
 
 
-def leaf_draws(oac: OacServerConfig, seed: int, params: Any, device
-               ) -> Dict[str, Any]:
+def leaf_draws(oac: OacServerConfig, seed: int, params: Any, device,
+               shard: int = 0) -> Dict[str, Any]:
     """The per-leaf server phase's draws: ``leaf_noise``, one (size,)
-    standard-normal vector per leaf in flattening order."""
+    standard-normal vector per leaf in flattening order (stream index
+    ``shard · n_leaves + i`` on a mesh)."""
     if oac.noise_std <= 0.0:
         return {}
+    leaves = tree_util.leaves(params)
+    base = shard * len(leaves)
     return {"leaf_noise": [
         torch.randn(leaf.numel(), generator=_stream(seed, TAG_LEAF, device,
-                                                      i), device=device)
-        for i, (_, leaf) in enumerate(tree_util.leaves(params))]}
+                                                      base + i),
+                    device=device)
+        for i, (_, leaf) in enumerate(leaves)]}
 
 
 def _check_oac(oac: Optional[OacServerConfig]) -> None:
@@ -420,71 +574,188 @@ def _meta(cfg, shape, oac, n_micro, mb, client_chunk, opt_name, lr,
 # train step
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg: ModelConfig, shape: InputShape, *,
+def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
                     n_micro: Optional[int] = None,
                     client_chunk: Optional[int] = None,
                     oac: Optional[OacServerConfig] = OacServerConfig(),
                     opt_name: Optional[str] = None, lr=1e-3,
+                    sequence_parallel: bool = True,
                     gather_dtype: Optional[str] = None,
                     kernel_mode: Optional[str] = None,
                     device: DeviceLike = None) -> StepBundle:
     """The train step of ``cfg`` at ``shape`` on ``device`` (the card
     unless asked otherwise), with the reference's argument checks and
     ``meta`` keys.  ``kernel_mode`` ("plain") runs the server phase on the
-    kernels' plain versions."""
+    kernels' plain versions.
+
+    ``fn(params, opt_state, server, batch, seed, draws=None)`` updates the
+    three trees in place and returns them with the loss; ``draws``
+    replaces the step's draws (``server_draws``).  Without ``mesh`` it
+    takes the whole trees and runs on one card, as the same step on a
+    mesh of one rank and no process group (``_ONE_RANK``), over which
+    nothing is gathered or reduced.  On a mesh
+    (the reference's FSDP×TP step) it takes the rank's blocks of
+    ``params`` and ``opt_state`` (``param_pspecs`` / ``opt_pspecs``), the
+    rank's server state (``init_server_state(..., local=True)``) and the
+    GLOBAL ``batch`` (n_micro, mb, ...), of which the rank runs its rows
+    (its row-major block over the batch axes when they divide ``mb``,
+    else every row); the loss is the global mean, equal on every rank.
+    ``sequence_parallel`` slices the residual over ``model`` when it has
+    more than one rank."""
+    grid = _ONE_RANK if mesh is None else mesh
+    if mesh is not None:
+        cfg = _with_expert_axis(cfg, mesh)
     dev = resolve_device(device)
-    n_micro, mb, n_shards = _batch_parts(shape, n_micro)
+    b_axes = sharding.batch_axes(grid)
+    n_shards = collectives.axis_size(grid, b_axes)
+    n_micro, mb = _batch_parts(shape, n_micro, n_shards)
     if client_chunk is not None and (
             client_chunk < 1 or n_micro % client_chunk):
         raise ValueError(
             f"client_chunk must divide n_micro ({n_micro}), got "
             f"{client_chunk}")
+    rows = collectives.spread(grid, b_axes) if mb % n_shards == 0 else ()
     opt = make_optimizer(opt_name or cfg.optimizer, lr)
     _check_oac(oac)
     meta = _meta(cfg, shape, oac, n_micro, mb, client_chunk, opt_name, lr,
                  gather_dtype)
     gdt = getattr(torch, gather_dtype) if gather_dtype else None
     inv_micro = reciprocal(n_micro)
+    inv_shards = reciprocal(n_shards)
+
+    params_abs = abstract_params(cfg)
+    p_specs = sharding.param_pspecs(params_abs, cfg, grid)
+    pairs = tree_util.leaves(params_abs)
+    paths = [pa for pa, _ in pairs]
+    pinned = cfg.expert_shard_axis == "model"
+    plan = _gather_plan(params_abs, p_specs, pinned, grid)
+    # the gathered dims of each leaf, counted in the whole (stacked) leaf;
+    # the accumulators have the leaves' gathered shapes (a pinned expert
+    # leaf keeps the rank's experts)
+    gathered = [[(d + (stack is not None), axes) for d, axes in pl]
+                for stack, pl in plan]
+    acc_shapes = []
+    for (_, x), spec, gl in zip(pairs, sharding.spec_leaves(p_specs),
+                                gathered):
+        dims = list(sharding.local_shape(x.shape, spec, grid))
+        for d, axes in gl:
+            dims[d] *= collectives.axis_size(grid, axes)
+        acc_shapes.append(tuple(dims))
+    seq_sp = _text_len(cfg, shape.seq_len) + (cfg.n_patches or 0)
+    model = collectives.spread(grid, ("model",))
+    seq = (model if sequence_parallel
+           and seq_sp % collectives.axis_size(grid, ("model",)) == 0 else ())
+    experts = model if pinned else ()
+    loss_axes = collectives.spread(grid, collectives.axis_names(grid))
+    if mesh is not None:
+        meta.update(mesh_shape=tuple(mesh.shape),
+                    mesh_axes=collectives.axis_names(mesh),
+                    rows_sharded=bool(rows), sequence_parallel=bool(seq),
+                    expert_shard_axis=cfg.expert_shard_axis)
+
+    def my_rows(x):
+        if not rows:
+            return x
+        n = x.shape[0] // n_shards
+        r0 = collectives.axis_index(grid, rows) * n
+        return x[r0:r0 + n]
+
+    def reduce_grad(g, k):
+        """The float32 mean over the batch axes of the rank's gathered
+        gradient, cut to the rank's block: a reduce-scatter along the
+        dimension the batch axes split, else an all-reduce."""
+        split = [d for d, axes in gathered[k] if axes == rows]
+        done = None
+        if rows and split:
+            done = split[0]
+            g = collectives.reduce_scatter_dim(g, grid, rows, done)
+            g = g * inv_shards
+        elif rows:
+            g = collectives.pmean(g, grid, rows)
+        for d, axes in gathered[k]:
+            if d != done:
+                size = g.shape[d] // collectives.axis_size(grid, axes)
+                g = g.narrow(d, sharding.block_index(grid, axes) * size,
+                             size)
+        return g
 
     def grads_fn(params, batch):
-        """Mean loss and gradients over the microbatches (float32
-        accumulators; a chunk's gradients are summed before they join)."""
-        leaves = tree_util.leaves(params)
-        paths = [pa for pa, _ in leaves]
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for _, p in leaves]
+        """The global mean loss and the rank's blocks of the mean
+        gradients over the microbatches and the batch axes (float32
+        accumulators; a gathered block's gradient is added as the
+        backward pass leaves it; a chunk's gradients are summed before
+        they join)."""
+        local = [p for _, p in tree_util.leaves(params)]
+        acc = [torch.zeros(sh, dtype=torch.float32, device=p.device)
+               for sh, p in zip(acc_shapes, local)]
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
         chunk = client_chunk or 1
         for c0 in range(0, n_micro, chunk):
-            loss_c, g_c = None, None
+            sinks = (acc if chunk == 1 else
+                     [torch.zeros_like(a) for a in acc])
+            loss_c = None
             for i in range(c0, c0 + chunk):
-                mbatch = {k: v[i] for k, v in batch.items()}
+                mbatch = {k: my_rows(v[i]) for k, v in batch.items()}
                 with torch.enable_grad():
                     xs = [(p.detach().to(gdt) if gdt is not None
                            and p.dim() > 1 else p.detach())
-                          .requires_grad_(True) for _, p in leaves]
-                    loss, _ = tr.loss_fn(tree_util.unflatten(paths, xs),
-                                         cfg, mbatch)
-                    gs = torch.autograd.grad(loss, xs,
-                                             materialize_grads=True)
-                gs = [g.to(torch.float32) for g in gs]
-                loss = loss.detach()
-                if loss_c is None:
-                    loss_c, g_c = loss, gs
-                else:
-                    loss_c = loss_c + loss
-                    g_c = [a + b for a, b in zip(g_c, gs)]
+                          .requires_grad_(True) for p in local]
+                    whole = [x if plan[k][0] is not None
+                             else gather_param(x, grid, plan[k][1], sinks[k])
+                             for k, x in enumerate(xs)]
+                    par = Parallel(grid, rows=rows, seq=seq, experts=experts,
+                                   gather=_block_gather(grid, paths, plan,
+                                                        sinks))
+                    loss, _ = tr.loss_fn(tree_util.unflatten(paths, whole),
+                                         cfg, mbatch, par=par)
+                    gs = torch.autograd.grad(loss, xs, allow_unused=True)
+                # a leaf gathered over no axis gets its gradient here; the
+                # others have added theirs into ``sinks`` block by block
+                for sink, g in zip(sinks, gs):
+                    if g is not None:
+                        sink.add_(g.to(torch.float32))
                 del gs
+                loss = loss.detach()
+                loss_c = loss if loss_c is None else loss_c + loss
             loss_acc = loss_acc + loss_c
-            for a, g in zip(acc, g_c):
-                a.add_(g)
-            del g_c
-        loss = loss_acc * inv_micro
-        grads = [(a.mul_(inv_micro)).to(p.dtype)
-                 for a, (_, p) in zip(acc, leaves)]
+            if chunk > 1:
+                for a, g in zip(acc, sinks):
+                    a.add_(g)
+                del sinks
+        # the mean over every rank: the model ranks of one row agree
+        # unless a replicated leaf's copies have drifted apart (noise,
+        # fades and the channel draw per shard), and then every rank
+        # still reports the same loss
+        loss = collectives.pmean(loss_acc * inv_micro, grid, loss_axes)
+        grads = [reduce_grad(a.mul_(inv_micro), k).to(p.dtype)
+                 for k, (a, p) in enumerate(zip(acc, local))]
+        del acc
         return loss, tree_util.unflatten(paths, grads)
 
-    layout = None
+    layout = (server_layout(params_abs, p_specs, mesh)
+              if oac is not None and oac.packed else None)
+    update, fn = _update_and_step(oac, n_shards, layout, opt, grads_fn,
+                                  kernel_mode, dev, mesh)
+    if mesh is None:
+        return StepBundle(fn, meta, grads_fn, update, layout)
+    o_specs = sharding.opt_pspecs(opt.init(params_abs), p_specs)
+    srv_specs = sharding.server_pspecs(
+        p_specs, mesh=mesh, packed=(oac is not None and oac.packed),
+        error_feedback=(oac is not None and oac.error_feedback),
+        adaptive_km=(oac is not None and oac.adaptive_km),
+        async_agg=(oac is not None and oac.async_agg),
+        wireless=(oac is not None and oac.wireless is not None))
+    b_specs = _batch_specs(cfg, mb, mesh, micro=True)
+    return StepBundle(fn, meta, grads_fn, update, layout,
+                      in_specs=(p_specs, o_specs, srv_specs, b_specs, P()),
+                      out_specs=(p_specs, o_specs, srv_specs, P()))
+
+
+def _update_and_step(oac, n_shards, layout, opt, grads_fn, kernel_mode, dev,
+                     mesh=None):
+    """A train step's ``update`` (the server phase with ``n_clients`` the
+    batch shards, then the optimizer, in place) and ``fn`` (``grads_fn``,
+    then ``update``).  On a mesh the server phase is the rank's."""
     if oac is None:
         def server_fn(server, grads, seed, draws):
             return grads, None
@@ -504,10 +775,12 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, *,
                         if oac.wireless is not None else 0.0)))
             if oac.adaptive_km else None)
         if oac.packed:
-            layout = server_layout(tr.init_lm(None, cfg))
-            server_fn = _packed_phase(oac, layout, bctrl, kernel_mode, dev)
+            server_fn = _packed_phase(oac, layout, bctrl, kernel_mode, dev,
+                                      mesh)
         else:
-            server_fn = _per_leaf_phase(oac, kernel_mode, dev)
+            server_fn = _per_leaf_phase(
+                oac, kernel_mode, dev,
+                collectives.axis_index(mesh) if mesh is not None else 0)
 
     def update(params, opt_state, server, grads, seed, draws=None):
         """The server phase and the optimizer, in place."""
@@ -525,7 +798,143 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, *,
         update(params, opt_state, server, grads, seed, draws)
         return params, opt_state, server, loss
 
-    return StepBundle(fn, meta, grads_fn, update, layout)
+    return update, fn
+
+
+# ---------------------------------------------------------------------------
+# the shardings of the train and serving steps
+# ---------------------------------------------------------------------------
+
+def _is_expert(path_s: str, ndim: int) -> bool:
+    return "/ffn/" in path_s and ndim == 4 and "router" not in path_s
+
+
+def _gather_plan(params_abs: Any, p_specs: Any, pinned: bool, mesh
+                 ) -> list:
+    """Per leaf (in ``tree.leaves`` order): (stack name or None, the
+    ``(dim, axes)`` pairs to gather over, axes of one rank left out).  A
+    stacked leaf is gathered per block, so its dims count from the block;
+    a pinned expert leaf keeps its experts split over ``model``."""
+    plan = []
+    for (path, leaf), spec in zip(tree_util.leaves(params_abs),
+                                  sharding.spec_leaves(p_specs)):
+        s = sharding.path_str(path)
+        stack = path[0] if path[0] in ("blocks", "enc_blocks") else None
+        entries = list(tuple(spec))
+        if stack is not None:
+            entries = entries[1:]
+        pairs = []
+        for dim, entry in enumerate(entries):
+            axes = collectives.spread(mesh, sharding.entry_axes(entry))
+            if pinned and dim == 0 and _is_expert(s, leaf.dim()):
+                axes = tuple(a for a in axes if a != "model")
+            if axes:
+                pairs.append((dim, axes))
+        plan.append((stack, pairs))
+    return plan
+
+
+def _block_gather(mesh, paths, plan, sinks):
+    """``Parallel.gather``: block ``i`` of stack ``stack`` gathered, each
+    gathered leaf's gradient into ``sinks[k][i]`` (None: no gradient)."""
+    index = {pa: k for k, pa in enumerate(paths)}
+
+    def gather(tree, stack, i):
+        pairs = tree_util.leaves(tree)
+        out = []
+        for path, x in pairs:
+            k = index[(stack,) + tuple(path)]
+            entries = plan[k][1]
+            sink = (sinks[k][i] if sinks is not None and entries
+                    else None)
+            out.append(gather_param(x, mesh, entries, sink))
+        return tree_util.unflatten([pa for pa, _ in pairs], out)
+    return gather
+
+
+def _batch_specs(cfg: ModelConfig, gb: int, mesh, micro: bool) -> Dict:
+    def mk(extra):
+        return sharding.batch_pspec(gb, mesh, extra_dims=extra,
+                                    leading_micro=micro)
+    specs = {"tokens": mk(1), "labels": mk(1)}
+    if cfg.family == "vlm":
+        specs["embeds"] = mk(2)
+    if cfg.family == "audio":
+        specs["frames"] = mk(2)
+    return specs
+
+
+def _sharded_serving(cfg: ModelConfig, mesh, gb: int, cache_abs: Any):
+    """(cfg with the expert pin, param specs, cache specs, the leaves'
+    gather plan, the ``Parallel``) of a sharded serving step; a batch of
+    one splits the caches' capacity over ``data`` too (``shard_capacity``).
+    """
+    cfg = _with_expert_axis(cfg, mesh)
+    params_abs = abstract_params(cfg)
+    p_specs = sharding.param_pspecs(params_abs, cfg, mesh)
+    c_specs = sharding.cache_pspecs(cache_abs, cfg, mesh,
+                                    shard_capacity=gb == 1)
+    plan = _gather_plan(params_abs, p_specs,
+                        cfg.expert_shard_axis == "model", mesh)
+    found: Dict[str, Tuple[str, ...]] = {}
+    for path, spec in zip([pa for pa, _ in tree_util.leaves(cache_abs)],
+                          sharding.spec_leaves(c_specs)):
+        s = sharding.path_str(path)
+        for key, suffix, dim in (("kv", "attn/k", 2), ("cross", "cross/k", 2),
+                                 ("ssm", "mamba/ssm", 2),
+                                 ("conv", "mamba/conv_x", 3)):
+            if s.endswith(suffix):
+                found.setdefault(key, sharding.entry_axes(tuple(spec)[dim]))
+    b_axes = sharding.batch_axes(mesh)
+    rows = (b_axes if gb % collectives.axis_size(mesh, b_axes) == 0
+            else ())
+    paths = [pa for pa, _ in tree_util.leaves(params_abs)]
+    par = Parallel(mesh, rows=rows,
+                   gather=_block_gather(mesh, paths, plan, None),
+                   experts=(("model",) if cfg.expert_shard_axis == "model"
+                            else ()),
+                   kv=found.get("kv", ()), cross=found.get("cross", ()),
+                   ssm=found.get("ssm", ()), conv=found.get("conv", ()))
+    return cfg, p_specs, c_specs, plan, par
+
+
+def _serving_params(params: Any, mesh, plan) -> Any:
+    """The rank's parameter blocks -> the tree the model runs on: the
+    unstacked leaves gathered whole, the stacks left to ``par.gather``
+    (block by block)."""
+    pairs = tree_util.leaves(params)
+    paths = [pa for pa, _ in pairs]
+    return tree_util.unflatten(
+        paths, [x if plan[k][0] is not None
+                else gather_param(x, mesh, plan[k][1], None)
+                for k, (_, x) in enumerate(pairs)])
+
+
+def init_sharded_caches(cfg: ModelConfig, mesh, batch: int, capacity: int,
+                        ring: bool = False, dtype=None,
+                        device: DeviceLike = None):
+    """The rank's blocks of empty caches (``cache_pspecs``, the capacity
+    over ``data`` too for a batch of one), on ``device``: ``k`` / ``v``
+    and the SSM carries cut by the specs, ``pos``, ``idx`` and ``ring``
+    whole."""
+    dev = resolve_device(device)
+    cfg = _with_expert_axis(cfg, mesh)
+    cache_abs = tr.cache_specs(cfg, batch, capacity, dtype=dtype, ring=ring)
+    c_specs = sharding.cache_pspecs(cache_abs, cfg, mesh,
+                                    shard_capacity=batch == 1)
+    pairs = tree_util.leaves(cache_abs)
+    out = []
+    for (path, x), spec in zip(pairs, sharding.spec_leaves(c_specs)):
+        shape = sharding.local_shape(x.shape, spec, mesh)
+        name = path[-1]
+        if name == "pos":
+            out.append(torch.full(shape, -1, dtype=x.dtype, device=dev))
+        elif name == "ring":
+            out.append(torch.full(shape, bool(ring), dtype=x.dtype,
+                                  device=dev))
+        else:
+            out.append(torch.zeros(shape, dtype=x.dtype, device=dev))
+    return tree_util.unflatten([pa for pa, _ in pairs], out)
 
 
 # ---------------------------------------------------------------------------
@@ -540,10 +949,19 @@ def _serve_capacity(cfg: ModelConfig, shape: InputShape) -> Tuple[int, bool]:
     return shape.seq_len, False
 
 
-def make_prefill_step(cfg: ModelConfig, shape: InputShape) -> StepBundle:
+def make_prefill_step(cfg: ModelConfig, shape: InputShape, mesh=None
+                      ) -> StepBundle:
     """``fn(params, caches, batch) -> (last logits (B, 1, V), caches)``:
     the prompt (``tokens``, and ``embeds`` / ``frames`` for a VLM or an
-    encoder-decoder) through the stack, the caches filled in place."""
+    encoder-decoder) through the stack, the caches filled in place.  On a
+    mesh ``params`` and ``caches`` are the rank's blocks
+    (``init_sharded_caches``), ``batch`` is global, and the logits are the
+    rank's rows.  A batch of one fills caches laid out for the batch-one
+    serve step (the capacity over ``data`` too), to which the reference
+    reshards between its two steps."""
+    if mesh is not None:
+        return _sharded_prefill_step(cfg, shape, mesh)
+
     def prefill_step(params, caches, batch):
         return tr.prefill(params, cfg, batch["tokens"], caches,
                           embeds=batch.get("embeds"),
@@ -555,11 +973,16 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape) -> StepBundle:
     return StepBundle(prefill_step, meta)
 
 
-def make_serve_step(cfg: ModelConfig, shape: InputShape) -> StepBundle:
+def make_serve_step(cfg: ModelConfig, shape: InputShape, mesh=None
+                    ) -> StepBundle:
     """``fn(params, caches, token (B, 1), pos) -> (logits (B, 1, V),
     caches)``: one decoded token, the caches updated in place.  ``meta``
     holds the cache ``capacity`` and ``ring`` the step expects
-    (``models.transformer.init_caches``)."""
+    (``models.transformer.init_caches``).  On a mesh as
+    ``make_prefill_step``, with the capacity split over ``data`` too for
+    a batch of one (``shard_capacity``)."""
+    if mesh is not None:
+        return _sharded_serve_step(cfg, shape, mesh)
     capacity, ring = _serve_capacity(cfg, shape)
     window = cfg.sliding_window if ring else 0
 
@@ -570,6 +993,58 @@ def make_serve_step(cfg: ModelConfig, shape: InputShape) -> StepBundle:
             "global_batch": shape.global_batch, "capacity": capacity,
             "ring": ring, "scans": {"layers": cfg.n_scan_blocks}}
     return StepBundle(serve_step, meta)
+
+
+def _sharded_prefill_step(cfg: ModelConfig, shape: InputShape, mesh
+                          ) -> StepBundle:
+    gb = shape.global_batch
+    cache_abs = tr.cache_specs(cfg, gb, shape.seq_len)
+    cfg, p_specs, c_specs, plan, par = _sharded_serving(cfg, mesh, gb,
+                                                        cache_abs)
+
+    def prefill_step(params, caches, batch):
+        full = _serving_params(params, mesh, plan)
+        mine = {k: par.my_rows(v) for k, v in batch.items()}
+        return tr.prefill(full, cfg, mine["tokens"], caches,
+                          embeds=mine.get("embeds"),
+                          frames=mine.get("frames"), par=par)
+
+    b_specs = {"tokens": sharding.batch_pspec(gb, mesh, 1, False)}
+    if cfg.family == "vlm":
+        b_specs["embeds"] = sharding.batch_pspec(gb, mesh, 2, False)
+    if cfg.family == "audio":
+        b_specs["frames"] = sharding.batch_pspec(gb, mesh, 2, False)
+    logits = P(par.rows or None, None, None)
+    meta = {"kind": "prefill", "seq_len": shape.seq_len,
+            "global_batch": gb, "scans": {"layers": cfg.n_scan_blocks},
+            "rows_sharded": bool(par.rows)}
+    return StepBundle(prefill_step, meta, in_specs=(p_specs, c_specs,
+                                                    b_specs),
+                      out_specs=(logits, c_specs))
+
+
+def _sharded_serve_step(cfg: ModelConfig, shape: InputShape, mesh
+                        ) -> StepBundle:
+    gb = shape.global_batch
+    capacity, ring = _serve_capacity(cfg, shape)
+    cache_abs = tr.cache_specs(cfg, gb, capacity, ring=ring)
+    cfg, p_specs, c_specs, plan, par = _sharded_serving(cfg, mesh, gb,
+                                                        cache_abs)
+    window = cfg.sliding_window if ring else 0
+
+    def serve_step(params, caches, token, pos):
+        full = _serving_params(params, mesh, plan)
+        return tr.decode_step(full, cfg, par.my_rows(token), pos, caches,
+                              window=window, par=par)
+
+    tok = P(par.rows or None, None)
+    meta = {"kind": "decode", "seq_len": shape.seq_len, "global_batch": gb,
+            "capacity": capacity, "ring": ring,
+            "shard_capacity": gb == 1, "rows_sharded": bool(par.rows),
+            "scans": {"layers": cfg.n_scan_blocks}}
+    return StepBundle(serve_step, meta,
+                      in_specs=(p_specs, c_specs, tok, P()),
+                      out_specs=(P(par.rows or None, None, None), c_specs))
 
 
 def _assign(server: Dict[str, Any], new: Dict[str, Any]) -> None:
@@ -590,23 +1065,29 @@ def _assign(server: Dict[str, Any], new: Dict[str, Any]) -> None:
 
 
 def _packed_phase(oac: OacServerConfig, layout: packing.PackedLayout,
-                  bctrl, kernel_mode, dev):
+                  bctrl, kernel_mode, dev, mesh=None):
     """ONE fused FAIR-k pass over the packed tree against the persisted
-    flat buffers (``_packed_server_phase`` of the reference)."""
+    flat buffers (``_packed_server_phase`` of the reference).  On a mesh
+    the tree is the rank's blocks, the thresholds, counts and histograms
+    are averaged over every axis (``reduce_axes``) and the draws carry the
+    rank's shard index."""
     d = layout.d_packed
+    axes = collectives.axis_names(mesh) if mesh is not None else ()
+    shard = collectives.axis_index(mesh) if mesh is not None else 0
     eng = SelectionEngine(
         EngineConfig(policy="fairk", backend="packed", rho=oac.rho,
                      k_m_frac=oac.k_m_frac, sample_cap=oac.sample_cap,
                      noise_std=(0.0 if oac.one_bit else oac.noise_std),
                      n_clients=oac.n_clients, warm_start=oac.warm_start,
-                     fused_stats=oac.fused_stats, kernel_mode=kernel_mode),
-        d, layout=layout)
+                     fused_stats=oac.fused_stats, kernel_mode=kernel_mode,
+                     reduce_axes=axes),
+        d, layout=layout, mesh=mesh)
     fcfg = faults.FaultConfig(fade=oac.fade, fade_block=oac.fade_block)
     jitter: Dict[torch.device, Tensor] = {}
 
     def phase(server, grads, seed, draws):
         device = server["g"].device
-        drawn = server_draws(oac, seed, layout, device)
+        drawn = server_draws(oac, seed, layout, device, shard)
         drawn.update(draws or {})
         tstate = packing.threshold_state_from_vec(server["theta"])
         cstate = kmf = None
@@ -690,9 +1171,10 @@ def _packed_phase(oac: OacServerConfig, layout: packing.PackedLayout,
     return phase
 
 
-def _per_leaf_phase(oac: OacServerConfig, kernel_mode, dev):
+def _per_leaf_phase(oac: OacServerConfig, kernel_mode, dev, shard: int = 0):
     """The historical per-leaf loop: one threshold engine (a quantile
-    estimation and a fused launch) per parameter leaf."""
+    estimation and a fused launch) per parameter leaf (on a mesh, per
+    local block: the reference's loop inside ``shard_map``)."""
     engines: Dict[int, SelectionEngine] = {}
 
     def phase(server, grads, seed, draws):
@@ -701,7 +1183,7 @@ def _per_leaf_phase(oac: OacServerConfig, kernel_mode, dev):
         gps = [x for _, x in tree_util.leaves(server["g"])]
         ages = [x for _, x in tree_util.leaves(server["age"])]
         device = server["theta"].device
-        drawn = leaf_draws(oac, seed, grads, device)
+        drawn = leaf_draws(oac, seed, grads, device, shard)
         drawn.update(draws or {})
         noises = drawn.get("leaf_noise", [None] * len(gps))
         g_t, new_gp, new_age = [], [], []
@@ -882,6 +1364,7 @@ def make_fl_oac_step(cfg: ModelConfig, mesh, *, seq_len: int = 1024,
 
 
 __all__ = ["OacServerConfig", "StepBundle", "make_train_step",
+           "abstract_server_state", "init_sharded_caches",
            "make_prefill_step", "make_serve_step", "make_fl_oac_step",
            "abstract_params", "ravel_params", "fl_oac_draws",
            "train_input_specs", "init_server_state", "server_layout",

@@ -6,6 +6,8 @@ the launch path's train step on one card.
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
       --full --steps 3 --seq 256       # full width and depth
   ... --device cpu                     # on the CPU (reduced configs)
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train ...
+                                       # the sharded step across ranks
 
 The flags are the reference's.  ``--ckpt-every N`` saves the persisted
 packed server state (``checkpoint.save_server_state``) and the
@@ -15,6 +17,14 @@ restores the newest checkpoint of ``--ckpt-dir`` that passes its
 checksums (walking back past corrupt or torn ones) and continues at the
 following step.  The step updates the parameters, the optimizer state
 and the server state in place.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank joins the process group
+(NCCL on the cards, one per local rank; gloo with ``--device cpu``), the
+reference's ``(1, N)`` ``("data", "model")`` mesh is built over the ranks,
+and the sharded train step runs: each rank holds its blocks of the
+parameters, the optimizer state and the server state.  ``--ckpt-every``
+writes the reference's global layout — the ranks' blocks gathered, rank 0
+writing — and ``--resume`` cuts each rank's blocks back out of it.
 """
 
 from __future__ import annotations
@@ -27,15 +37,20 @@ import zipfile
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint
 from repro_torch import tree as tree_util
+from repro_torch.core import collectives
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.data.tokens import lm_batch
 from repro_torch.device import resolve_device, set_numerics
-from repro_torch.launch.steps import (OacServerConfig, init_server_state,
-                                      make_train_step, server_layout)
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
+from repro_torch.launch.steps import (OacServerConfig, abstract_params,
+                                      init_server_state, make_train_step,
+                                      server_layout)
 from repro_torch.models import transformer as tr
 from repro_torch.optim import make_optimizer
 
@@ -160,9 +175,41 @@ def make_batch(cfg, seed: int, t: int, batch: int, seq: int, n_micro: int,
     return {k: v.to(device) for k, v in out.items()}
 
 
-def _resume(args, layout, params, opt_state, server):
+def _join(args):
+    """(mesh, device): under ``torchrun`` the process group and the
+    ``(1, N)`` mesh over its ranks, else (None, the requested device)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return None, resolve_device(args.device)
+    if args.device == "cpu":
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    if not dist.is_initialized():
+        dist.init_process_group(backend)
+    return mesh_lib.make_mesh((1, world), ("data", "model"), dev.type), dev
+
+
+def _whole(tree: Any, specs: Any, mesh) -> Any:
+    """A tree of the ranks' blocks -> the global tree, on every rank."""
+    pairs = tree_util.leaves(tree)
+    out = []
+    for (_, x), spec in zip(pairs, sharding.spec_leaves(specs)):
+        for dim, entry in enumerate(tuple(spec)):
+            axes = sharding.entry_axes(entry)
+            if axes:
+                x = collectives.all_gather_dim(x, mesh, axes, dim)
+        out.append(x)
+    return tree_util.unflatten([pa for pa, _ in pairs], out)
+
+
+def _resume(args, layout, params, opt_state, server, shard=None):
     """(params, opt_state, server, start) from the newest checkpoint that
-    passes validation, walking back past corrupt or torn ones."""
+    passes validation, walking back past corrupt or torn ones.  ``shard``
+    (mesh, param / optimizer / server specs, the global server state's
+    shapes) cuts the rank's blocks out of a global checkpoint."""
     candidates = checkpoint.server_steps(args.ckpt_dir)
     if not candidates:
         print(f"[train] --resume: no server checkpoint under "
@@ -190,7 +237,15 @@ def _resume(args, layout, params, opt_state, server):
             continue
         # a field-set mismatch raises: a wrong flag is not fixed by
         # falling back
-        srv = checkpoint.migrate_server_state(srv, like=server)
+        if shard is not None:
+            mesh, p_specs, o_specs, s_specs, whole_like = shard
+            srv = checkpoint.migrate_server_state(srv, like=whole_like)
+            srv = sharding.local_tree(srv, s_specs, mesh)
+            tree = {"params": sharding.local_tree(tree["params"], p_specs,
+                                                  mesh),
+                    "opt": sharding.local_tree(tree["opt"], o_specs, mesh)}
+        else:
+            srv = checkpoint.migrate_server_state(srv, like=server)
         print(f"[train] resumed server + params/opt state from step {last} "
               f"({args.ckpt_dir})", flush=True)
         return tree["params"], tree["opt"], srv, last
@@ -204,7 +259,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the launcher; returns the final ``params``, ``opt``,
     ``server``, the per-step ``losses`` and the first step ``start``."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    mesh, dev = _join(args)
     set_numerics(dev)
     cfg = get_config(args.arch, reduced_variant=args.reduced)
     shape = InputShape("custom", args.seq, args.batch, "train")
@@ -213,24 +268,38 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.batch % n_micro:
         raise ValueError(f"--client-chunk {args.client_chunk} must divide "
                          f"--batch {args.batch}")
-    bundle = make_train_step(cfg, shape, n_micro=n_micro,
+    bundle = make_train_step(cfg, shape, mesh, n_micro=n_micro,
                              client_chunk=(args.client_chunk or None),
                              oac=oac, lr=1e-3, device=dev)
     params = tr.init_lm_seeded(cfg, args.seed, dev)
+    n_params = sum(leaf.numel() for _, leaf in tree_util.leaves(params))
     opt = make_optimizer(bundle.meta["optimizer"], bundle.meta["lr"])
-    opt_state = opt.init(params)
-    server = init_server_state(params, oac=oac)
+    shard = None
+    if mesh is None:
+        opt_state = opt.init(params)
+        server = init_server_state(params, oac=oac)
+    else:
+        p_specs, o_specs, s_specs = bundle.in_specs[:3]
+        params = sharding.local_tree(params, p_specs, mesh)
+        opt_state = opt.init(params)
+        server = init_server_state(abstract_params(cfg), mesh, cfg, oac,
+                                   local=True, device=dev)
 
     ckpt_on = args.ckpt_every > 0 or args.resume
     if ckpt_on and (oac is None or not oac.packed):
         raise ValueError("--ckpt-every/--resume checkpoint the PACKED "
                          "server buffers — they need --oac and are "
                          "incompatible with --per-leaf-server")
-    layout = server_layout(params) if ckpt_on else None
+    layout = ((server_layout(params) if mesh is None else bundle.layout)
+              if ckpt_on else None)
+    if ckpt_on and mesh is not None:
+        shard = (mesh, p_specs, o_specs, s_specs,
+                 init_server_state(abstract_params(cfg), mesh, cfg, oac,
+                                   device=dev))
     start = 0
     if args.resume:
         params, opt_state, server, start = _resume(args, layout, params,
-                                                   opt_state, server)
+                                                   opt_state, server, shard)
 
     stop = {"sig": False}
 
@@ -240,15 +309,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     previous = signal.signal(signal.SIGTERM, _on_term)
 
     def save(step):
-        path = checkpoint.save_server_state(args.ckpt_dir, server,
+        srv, tree = server, {"params": params, "opt": opt_state}
+        if mesh is not None:
+            srv = _whole(server, s_specs, mesh)
+            tree = {"params": _whole(params, p_specs, mesh),
+                    "opt": _whole(opt_state, o_specs, mesh)}
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return
+        path = checkpoint.save_server_state(args.ckpt_dir, srv,
                                             layout=layout, step=step)
-        checkpoint.save(args.ckpt_dir, {"params": params, "opt": opt_state},
-                        step=step)
+        checkpoint.save(args.ckpt_dir, tree, step=step)
+        if mesh is not None:
+            dist.barrier()
         print(f"  [ckpt] saved {path} (+ step_{step:08d}.npz)", flush=True)
 
-    n_params = sum(leaf.numel() for _, leaf in tree_util.leaves(params))
+    where = (f"on {dev}" if mesh is None else
+             f"on {dev}, rank {dist.get_rank()} of a {tuple(mesh.shape)} "
+             "mesh")
     print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M parameters, "
-          f"{args.steps} steps, oac={'on' if oac else 'off'}, on {dev}",
+          f"{args.steps} steps, oac={'on' if oac else 'off'}, {where}",
           flush=True)
     losses = []
     try:

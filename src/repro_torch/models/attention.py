@@ -16,6 +16,17 @@ returns a new one): a decoded token's slot is computed on the device
 (``where(ring, idx % cap, min(idx, cap - 1))``: once full, a non-ring
 cache overwrites its last slot) and written with ``index_copy_``, so a
 step makes no host sync.
+
+On a mesh (``mesh`` and ``axes`` given) a cache's capacity may be split
+over ``axes``: the rank holds slots ``[c0, c0 + L)`` of ``k`` / ``v``
+(``c0`` its row-major index over ``axes`` times ``L``) and the whole
+``pos``, ``idx`` and ``ring``.  ``cache_write`` writes the slot only on
+the rank that owns it (a select on the device, no sync), ``cache_fill``
+fills the rank's slots, and ``decode_attend`` attends over the rank's
+slots and combines the ranks' partial softmaxes by their log-sum-exp: a
+``max`` of the scores and a sum of their exponentials over ``axes`` give
+each rank its slots of the one-card softmax, and a sum adds the ranks'
+weighted values.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.models.layers import dense_init
 
 Tensor = torch.Tensor
@@ -162,16 +174,33 @@ def cache_spec(batch: int, capacity: int, n_kv: int, head_dim: int, dtype,
                       device="meta")
 
 
+def _first_slot(cache: Dict, mesh, axes) -> int:
+    """The global index of the rank's first capacity slot."""
+    if not axes:
+        return 0
+    return collectives.axis_index(mesh, axes) * cache["k"].shape[1]
+
+
 def cache_write(cache: Dict, k_new: Tensor, v_new: Tensor,
-                position: Tensor) -> Dict:
+                position: Tensor, mesh=None, axes=()) -> Dict:
     """Append one decode step in place (k_new / v_new: (B, 1, KV, hd),
     roped already; ``position`` a 0-d tensor)."""
-    cap = cache["k"].shape[1]
+    cap = cache["pos"].shape[0]
     slot = torch.where(cache["ring"], cache["idx"] % cap,
                        torch.clamp(cache["idx"], max=cap - 1))
     slot = slot.reshape(1).to(torch.int64)
-    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    if axes:
+        n_loc = cache["k"].shape[1]
+        local = slot - _first_slot(cache, mesh, axes)
+        mine = (local >= 0) & (local < n_loc)
+        local = torch.clamp(local, 0, n_loc - 1)
+        for name, new in (("k", k_new), ("v", v_new)):
+            old = cache[name].index_select(1, local)
+            cache[name].index_copy_(1, local, torch.where(
+                mine, new.to(cache[name].dtype), old))
+    else:
+        cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
     cache["pos"].index_copy_(0, slot,
                              position.reshape(1).to(torch.int32))
     cache["idx"].add_(1)
@@ -179,15 +208,20 @@ def cache_write(cache: Dict, k_new: Tensor, v_new: Tensor,
 
 
 def cache_fill(cache: Dict, k_all: Tensor, v_all: Tensor,
-               positions: Tensor) -> Dict:
+               positions: Tensor, mesh=None, axes=()) -> Dict:
     """Prefill in place: the whole sequence, or its trailing ``capacity``
     positions, from slot 0; the rest of the cache emptied."""
-    cap = cache["k"].shape[1]
+    cap = cache["pos"].shape[0]
     s = k_all.shape[1]
     keep = min(s, cap)
+    # the rank's slots [c0, c0 + n) hold positions s - keep + slot
+    c0, n = _first_slot(cache, mesh, axes), cache["k"].shape[1]
+    hi = min(c0 + n, keep)
     for name, val in (("k", k_all), ("v", v_all)):
-        cache[name][:, :keep].copy_(val[:, s - keep:])
-        cache[name][:, keep:].zero_()
+        if hi > c0:
+            cache[name][:, :hi - c0].copy_(val[:, s - keep + c0:
+                                               s - keep + hi])
+        cache[name][:, max(hi - c0, 0):].zero_()
     cache["pos"][:keep].copy_(positions[s - keep:])
     cache["pos"][keep:].fill_(-1)
     cache["idx"].add_(s)
@@ -195,7 +229,7 @@ def cache_fill(cache: Dict, k_all: Tensor, v_all: Tensor,
 
 
 def decode_attend(q: Tensor, cache: Dict, qpos: Tensor, *,
-                  window: int = 0) -> Tensor:
+                  window: int = 0, mesh=None, axes=()) -> Tensor:
     """Single-token attention against the cache: float32 scores and
     softmax, ``p`` cast to the value dtype.  q: (B, 1, H, hd) -> (B, 1, H,
     hd)."""
@@ -207,12 +241,32 @@ def decode_attend(q: Tensor, cache: Dict, qpos: Tensor, *,
     s = torch.einsum("bskgd,btkd->bkgst", qh.to(torch.float32),
                      cache["k"].to(torch.float32)) * scale
     pos = cache["pos"]
+    if axes:
+        c0 = _first_slot(cache, mesh, axes)
+        pos = pos[c0:c0 + cache["k"].shape[1]]
     valid = (pos >= 0) & (pos <= qpos)
     if window:
         valid = valid & (pos > qpos - window)
     s = torch.where(valid, s, NEG_INF)
+    if axes:
+        return _combine_slices(s, cache["v"], mesh, axes).reshape(
+            b, 1, n_heads, hd).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd",
                        p.to(cache["v"].dtype).to(torch.float32),
                        cache["v"].to(torch.float32))
     return out.reshape(b, 1, n_heads, hd).to(q.dtype)
+
+
+def _combine_slices(s: Tensor, v: Tensor, mesh, axes) -> Tensor:
+    """The softmax-weighted values over capacity slices split across
+    ``axes``: the global max of the scores and the global sum of their
+    exponentials make each rank's slice of the one-card softmax ``p``
+    (cast to the value dtype as there), and the ranks' ``p · v`` are
+    summed."""
+    m = collectives.pmax(s.amax(dim=-1, keepdim=True), mesh, axes)
+    e = torch.exp(s - m)                                   # (b,k,g,1,t)
+    p = e / collectives.psum(e.sum(dim=-1, keepdim=True), mesh, axes)
+    o = torch.einsum("bkgst,btkd->bskgd",
+                     p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return collectives.psum(o, mesh, axes)

@@ -20,6 +20,14 @@ Dtypes follow the reference: z, x, B, C in the compute dtype; dt, the
 decays and the state in float32 (``x · dt`` promotes); the convolution's
 products summed in float32 and rounded once (XLA keeps float32 inside the
 fusion); a cache's new ``ssm`` state rounded to the cache's dtype.
+
+On a mesh (``par``, ``models.parallel``) a cache may hold the rank's
+block of the SSM heads (``par.ssm``) and of the ``conv_x`` channels
+(``par.conv``).  Decoding then runs the convolution on the rank's
+channels and the recurrent step on its heads, and gathers each before
+the next stage needs the whole width (the per-head outputs before the
+gated norm and ``out_proj``); prefilling runs on the whole carries and
+keeps the rank's blocks.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import all_gather_dim
 from repro_torch.models.layers import (_normal, dense, dense_init, gen_device,
                                        rmsnorm, rmsnorm_init)
 
@@ -201,12 +210,33 @@ def mamba_cache_spec(batch: int, cfg: ModelConfig, dtype) -> Dict:
     return mamba_cache_init(batch, cfg, dtype, device="meta")
 
 
+def _split_prefill(p: Dict, x: Tensor, cfg: ModelConfig, cache: Dict, par
+                   ) -> Tuple[Tensor, Dict]:
+    """Prefill against split carries: the whole carries gathered, the
+    layer run, the rank's blocks of the new ones kept."""
+    from repro_torch.models.parallel import narrow_block
+    mesh = par.mesh
+    whole = dict(cache)
+    if par.ssm:
+        whole["ssm"] = all_gather_dim(cache["ssm"], mesh, par.ssm, 1)
+    if par.conv:
+        whole["conv_x"] = all_gather_dim(cache["conv_x"], mesh, par.conv, 2)
+    out, new = mamba_layer(p, x, cfg, cache=whole, decode=False)
+    new["ssm"] = narrow_block(new["ssm"], mesh, par.ssm, 1)
+    new["conv_x"] = narrow_block(new["conv_x"], mesh, par.conv, 2)
+    return out, new
+
+
 def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
-                cache: Optional[Dict] = None, decode: bool = False
-                ) -> Tuple[Tensor, Optional[Dict]]:
+                cache: Optional[Dict] = None, decode: bool = False,
+                par=None) -> Tuple[Tensor, Optional[Dict]]:
     """The full mixer.  x: (B, S, D) -> (B, S, D); ``decode`` means S == 1
     with ``cache``.  Returns (out, the new cache: None without a cache and
     outside decoding)."""
+    ssm_axes = par.ssm if par is not None and cache is not None else ()
+    conv_axes = par.conv if par is not None and cache is not None else ()
+    if (ssm_axes or conv_axes) and not decode:
+        return _split_prefill(p, x, cfg, cache, par)
     cdt = _dtype(cfg.compute_dtype)
     g_, n_ = cfg.ssm_groups, cfg.ssm_state
     z = dense(p["wz"], x, cdt)
@@ -218,9 +248,18 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
                                      device=x.device))           # (B,S,H)
     a = -torch.exp(p["a_log"])                                  # (H,)
 
-    xc, new_conv_x = _causal_conv(
-        xc, p["conv_x_w"].to(cdt), p["conv_x_b"].to(cdt),
-        cache["conv_x"] if cache is not None else None)
+    if conv_axes:
+        from repro_torch.models.parallel import block_of
+        n_c = cache["conv_x"].shape[-1]
+        c0 = block_of(par.mesh, conv_axes) * n_c
+        xc, new_conv_x = _causal_conv(
+            xc[..., c0:c0 + n_c], p["conv_x_w"][:, c0:c0 + n_c].to(cdt),
+            p["conv_x_b"][c0:c0 + n_c].to(cdt), cache["conv_x"])
+        xc = all_gather_dim(xc.contiguous(), par.mesh, conv_axes, -1)
+    else:
+        xc, new_conv_x = _causal_conv(
+            xc, p["conv_x_w"].to(cdt), p["conv_x_b"].to(cdt),
+            cache["conv_x"] if cache is not None else None)
     bc, new_conv_bc = _causal_conv(
         bc, p["conv_bc_w"].to(cdt), p["conv_bc_b"].to(cdt),
         cache["conv_bc"] if cache is not None else None)
@@ -230,7 +269,15 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     c = _expand_groups(bc[..., g_ * n_:].reshape(bc.shape[:-1] + (g_, n_)),
                        cfg.ssm_heads)
 
-    if decode:
+    if decode and ssm_axes:
+        from repro_torch.models.parallel import block_of
+        n_h = cache["ssm"].shape[1]
+        h = slice(block_of(par.mesh, ssm_axes) * n_h, None)
+        h = slice(h.start, h.start + n_h)
+        y1, new_ssm = ssd_step(cache["ssm"], xh[:, 0, h], dt[:, 0, h], a[h],
+                               b[:, 0, h], c[:, 0, h])
+        y = all_gather_dim(y1, par.mesh, ssm_axes, 1)[:, None]
+    elif decode:
         y1, new_ssm = ssd_step(cache["ssm"], xh[:, 0], dt[:, 0], a,
                                b[:, 0], c[:, 0])
         y = y1[:, None]

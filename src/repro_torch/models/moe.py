@@ -17,9 +17,18 @@ slot the exclusive running count of its expert over the row's flattened
 ``(s, k)`` order, dropped where the slot reaches the capacity
 ``max(int(S·K·f/E) + 1, 4)``.  ``decode_mode`` with one token per row
 merges the batch into one routing group with a capacity floor of 2.  The
-Switch load-balance loss is returned beside the output.  The reference's
-``expert_shard_axis`` pin belongs to the mesh and has no effect on one
-card.
+Switch load-balance loss is returned beside the output.
+
+On a mesh (``par``, ``models.parallel``) a rank runs its batch rows, whose
+routing is the global rows' (routing and capacity are per row); the
+load-balance loss's token fractions are averaged over the row axes, so
+the loss is the global batch's.  With the reference's
+``expert_shard_axis`` pin (``par.experts``) the expert weights are the
+rank's ``E/M`` experts: the dispatched ``(B, E, C, D)`` input keeps the
+rank's experts' slots, only those run, and their outputs are gathered
+back (the gather's backward keeps the rank's slots of the gradient, the
+slice's gathers them, so every rank holds the same activations and
+gradients).
 """
 
 from __future__ import annotations
@@ -78,8 +87,8 @@ def route(probs: Tensor, top_k: int, cap: int
 
 
 def moe_ffn(p: Dict, x: Tensor, *, top_k: int, capacity_factor: float,
-            mlp_type: str, compute_dtype, decode_mode: bool = False
-            ) -> Tuple[Tensor, Tensor]:
+            mlp_type: str, compute_dtype, decode_mode: bool = False,
+            par=None) -> Tuple[Tensor, Tensor]:
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, the aux loss, a float32
     scalar)."""
     orig_shape = x.shape
@@ -108,6 +117,10 @@ def moe_ffn(p: Dict, x: Tensor, *, top_k: int, capacity_factor: float,
                             device=x.device).index_put(
         (row.reshape(-1),), src.reshape(-1, d), accumulate=True)
     expert_in = expert_in.reshape(b, n_experts, cap, d)
+    pinned = par is not None and par.experts
+    if pinned:
+        from repro_torch.models.parallel import slice_dim
+        expert_in = slice_dim(expert_in, par.mesh, par.experts, 1)
 
     if mlp_type == "swiglu":
         gate = F.silu(torch.einsum("becd,edf->becf", expert_in,
@@ -118,6 +131,9 @@ def moe_ffn(p: Dict, x: Tensor, *, top_k: int, capacity_factor: float,
         hidden = F.gelu(torch.einsum("becd,edf->becf", expert_in,
                                      p["wu"].to(cdt)), approximate="tanh")
     expert_out = torch.einsum("becf,efd->becd", hidden, p["wd"].to(cdt))
+    if pinned:
+        from repro_torch.models.parallel import gather_dim
+        expert_out = gather_dim(expert_out, par.mesh, par.experts, 1)
 
     # combine: each token's K expert rows, weighted by its gate in the
     # compute dtype, summed in float32 and rounded once
@@ -129,6 +145,8 @@ def moe_ffn(p: Dict, x: Tensor, *, top_k: int, capacity_factor: float,
     # Switch-transformer load-balance auxiliary loss
     frac_tokens = (expert[..., 0:1] == torch.arange(
         n_experts, device=x.device)).to(torch.float32).mean(dim=(0, 1))
+    if par is not None and not decode_mode:
+        frac_tokens = par.row_mean(frac_tokens)
     frac_probs = probs.mean(dim=(0, 1))
     aux = n_experts * torch.sum(frac_tokens * frac_probs)
     return out.reshape(orig_shape).to(x.dtype), aux

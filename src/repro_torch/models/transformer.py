@@ -25,6 +25,13 @@ Caches mirror the block structure: a list of ``scan_block`` layer caches
 PLACE, block by block through views of the stacked buffers (nothing is
 re-stacked per token), and return them.
 
+On a mesh every entry point takes ``par`` (``models.parallel.Parallel``):
+the rank runs its batch rows, each block's parameters are gathered from
+the rank's blocks inside the (checkpointed) block function, the residual
+between blocks is the rank's slice of the sequence under sequence
+parallelism, and the caches hold the rank's blocks.  ``par`` None is the
+one-card path, unchanged.
+
 Public entry points:
   init_lm / init_lm_seeded / init_caches / cache_specs
   forward_train(params, cfg, tokens, embeds/frames) -> (logits, aux)
@@ -51,6 +58,7 @@ from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        layernorm_init, rmsnorm, rmsnorm_init)
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.parallel import gather_dim, slice_dim
 
 Tensor = torch.Tensor
 AUX_LOSS_WEIGHT = 0.01
@@ -150,7 +158,7 @@ def init_lm_seeded(cfg: ModelConfig, seed: int = 0,
 
 def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict], pos: Tensor, window: int,
-                causal: bool = True) -> Tensor:
+                causal: bool = True, par=None) -> Tensor:
     """Self-attention; ``mode`` "train" / "prefill" take the positions
     (S,), "decode" the 0-d position of its one token (the cache written
     in place)."""
@@ -162,8 +170,10 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
     if mode == "decode":
         q = apply_rope(q, pos[None, None], cfg.rope_theta)
         k = apply_rope(k, pos[None, None], cfg.rope_theta)
-        attn_lib.cache_write(cache, k, v, pos)
-        out = attn_lib.decode_attend(q, cache, pos, window=window)
+        mesh, kv = (par.mesh, par.kv) if par is not None else (None, ())
+        attn_lib.cache_write(cache, k, v, pos, mesh, kv)
+        out = attn_lib.decode_attend(q, cache, pos, window=window,
+                                     mesh=mesh, axes=kv)
     else:
         q = apply_rope(q, pos[None], cfg.rope_theta)
         k = apply_rope(k, pos[None], cfg.rope_theta)
@@ -175,22 +185,28 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
                                              causal=causal, window=window,
                                              causal_skip=cfg.causal_skip)
         if cache is not None:
-            attn_lib.cache_fill(cache, k, v, pos)
+            mesh, kv = (par.mesh, par.kv) if par is not None else (None, ())
+            attn_lib.cache_fill(cache, k, v, pos, mesh, kv)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return dense(p["wo"], out, cdt).to(x.dtype)
 
 
 def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
-                 enc_out: Optional[Tensor], cross_cache: Optional[Dict]
-                 ) -> Tensor:
+                 enc_out: Optional[Tensor], cross_cache: Optional[Dict],
+                 par=None) -> Tensor:
     """Cross-attention over the encoder's output, or over its cached
     projection when there is no output (decoding); a given output fills
     the cache in place."""
     cdt = _dtype(cfg.compute_dtype)
     b, s, _ = x.shape
     q = dense(p["wq"], x, cdt).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    axes = par.cross if par is not None else ()
     if cross_cache is not None and enc_out is None:
         k, v = cross_cache["k"], cross_cache["v"]
+        if axes:
+            # the frames split over ``axes``: gathered whole to attend
+            k = gather_dim(k, par.mesh, axes, 1)
+            v = gather_dim(v, par.mesh, axes, 1)
     else:
         t = enc_out.shape[1]
         k = dense(p["wk"], enc_out, cdt).reshape(b, t, cfg.n_kv_heads,
@@ -198,8 +214,10 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
         v = dense(p["wv"], enc_out, cdt).reshape(b, t, cfg.n_kv_heads,
                                                  cfg.head_dim)
         if cross_cache is not None:
-            cross_cache["k"].copy_(k)
-            cross_cache["v"].copy_(v)
+            from repro_torch.models.parallel import narrow_block
+            mesh = par.mesh if par is not None else None
+            cross_cache["k"].copy_(narrow_block(k, mesh, axes, 1))
+            cross_cache["v"].copy_(narrow_block(v, mesh, axes, 1))
     # no mask: every query position sees every frame
     qpos = torch.zeros(s, dtype=torch.int32, device=x.device)
     kpos = torch.zeros(k.shape[1], dtype=torch.int32, device=x.device)
@@ -214,7 +232,7 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
 
 def _apply_layer(p: Dict, x: Tensor, cfg: ModelConfig, i: int, mode: str,
                  cache: Optional[Dict], pos: Tensor, window: int,
-                 enc_out: Optional[Tensor], causal: bool = True
+                 enc_out: Optional[Tensor], causal: bool = True, par=None
                  ) -> Tuple[Tensor, Optional[Tensor]]:
     """(x, the MoE aux loss or None); ``cache`` is updated in place."""
     aux = None
@@ -222,11 +240,11 @@ def _apply_layer(p: Dict, x: Tensor, cfg: ModelConfig, i: int, mode: str,
     if cfg.layer_kind(i) == "attn":
         mix = _attn_mixer(p["mixer"], h, cfg, mode=mode,
                           cache=cache.get("attn") if cache else None,
-                          pos=pos, window=window, causal=causal)
+                          pos=pos, window=window, causal=causal, par=par)
     else:
         m_cache = cache.get("mamba") if cache else None
         mix, new_m = mamba2.mamba_layer(p["mixer"], h, cfg, cache=m_cache,
-                                        decode=(mode == "decode"))
+                                        decode=(mode == "decode"), par=par)
         if m_cache is not None:
             for key, val in new_m.items():
                 m_cache[key].copy_(val)
@@ -236,15 +254,21 @@ def _apply_layer(p: Dict, x: Tensor, cfg: ModelConfig, i: int, mode: str,
         hc = _norm(cfg, p["norm_x"], x)
         x = x + _cross_mixer(p["cross"], hc, cfg, enc_out=enc_out,
                              cross_cache=cache.get("cross") if cache
-                             else None)
+                             else None, par=par)
     if "ffn" in p:
         cdt = _dtype(cfg.compute_dtype)
         h2 = _norm(cfg, p["norm2"], x)
         if cfg.layer_is_moe(i):
-            f, aux = moe_ffn(p["ffn"], h2, top_k=cfg.experts_per_token,
+            route_all = (par is not None and par.rows and mode == "decode"
+                         and h2.shape[1] == 1)
+            # single-token decoding routes the whole batch as one group
+            hm = par.gather_rows(h2) if route_all else h2
+            f, aux = moe_ffn(p["ffn"], hm, top_k=cfg.experts_per_token,
                              capacity_factor=cfg.capacity_factor,
                              mlp_type=cfg.mlp_type, compute_dtype=cdt,
-                             decode_mode=(mode == "decode"))
+                             decode_mode=(mode == "decode"), par=par)
+            if route_all:
+                f = par.my_rows(f)
             if cfg.dense_residual:
                 f = f + mlp(p["dense_ffn"], h2, cfg.mlp_type, cdt)
         else:
@@ -255,7 +279,7 @@ def _apply_layer(p: Dict, x: Tensor, cfg: ModelConfig, i: int, mode: str,
 
 def _apply_block(block_params: list, x: Tensor, cfg: ModelConfig, mode: str,
                  block_cache, pos: Tensor, window: int, enc_out,
-                 causal: bool = True):
+                 causal: bool = True, par=None):
     """One scan block (``cfg.scan_block`` layers, unrolled) -> (x, aux);
     in training each layer of a multi-layer block is checkpointed on its
     own under ``cfg.remat``, so the block's recompute peaks at one
@@ -265,7 +289,7 @@ def _apply_block(block_params: list, x: Tensor, cfg: ModelConfig, mode: str,
     for j in range(cfg.scan_block):
         args = (block_params[j], x, cfg, j, mode,
                 block_cache[j] if block_cache is not None else None, pos,
-                window, enc_out, causal)
+                window, enc_out, causal, par)
         if nest:
             x, aux = checkpoint(_apply_layer, *args, use_reentrant=False)
         else:
@@ -286,23 +310,51 @@ def _unbind(tree: Any, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _sharded_block(bp, x, cfg, mode, bc, pos, window, enc_out, causal, par,
+                   stack, i, seq):
+    """One block on a rank: its parameters gathered, the sequence slice
+    gathered back on entry and sliced again on exit."""
+    bp = par.block_params(bp, stack, i)
+    if seq:
+        x = gather_dim(x, par.mesh, seq, 1)
+    x, aux = _apply_block(bp, x, cfg, mode, bc, pos, window, enc_out,
+                          causal, par)
+    if seq:
+        x = slice_dim(x, par.mesh, seq, 1)
+    return x, aux
+
+
 def _run_stack(blocks, x: Tensor, cfg: ModelConfig, *, mode: str, caches,
                pos: Tensor, window: int = 0, enc_out=None,
-               causal: bool = True, remat: Optional[bool] = None):
+               causal: bool = True, remat: Optional[bool] = None, par=None,
+               stack: str = "blocks"):
     """The loop over the stacked blocks -> (x, the aux sum or None);
-    ``caches`` (None, or stacked like the blocks) are updated in place."""
+    ``caches`` (None, or stacked like the blocks) are updated in place.
+    With ``par`` the residual between the decoder's blocks in training is
+    the rank's slice of the sequence over ``par.seq``."""
     use_remat = (cfg.remat if remat is None else remat) and mode == "train"
     n = tree_util.leaves(blocks)[0][1].shape[0]
     block_caches = (_unbind(caches, n) if caches is not None
                     else [None] * n)
+    seq = (par.seq if par is not None and stack == "blocks"
+           and mode == "train" else ())
+    if seq:
+        x = slice_dim(x, par.mesh, seq, 1)
     aux_total = None
-    for bp, bc in zip(_unbind(blocks, n), block_caches):
-        args = (bp, x, cfg, mode, bc, pos, window, enc_out, causal)
-        if use_remat:
-            x, aux = checkpoint(_apply_block, *args, use_reentrant=False)
+    for i, (bp, bc) in enumerate(zip(_unbind(blocks, n), block_caches)):
+        if par is None:
+            fn, args = _apply_block, (bp, x, cfg, mode, bc, pos, window,
+                                      enc_out, causal)
         else:
-            x, aux = _apply_block(*args)
+            fn, args = _sharded_block, (bp, x, cfg, mode, bc, pos, window,
+                                        enc_out, causal, par, stack, i, seq)
+        if use_remat:
+            x, aux = checkpoint(fn, *args, use_reentrant=False)
+        else:
+            x, aux = fn(*args)
         aux_total = _add_aux(aux_total, aux)
+    if seq:
+        x = gather_dim(x, par.mesh, seq, 1)
     return x, aux_total
 
 
@@ -373,14 +425,15 @@ def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
     return dense(params["head"], x, cdt)
 
 
-def _encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
+def _encode(params, cfg: ModelConfig, frames: Tensor, par=None) -> Tensor:
     """The encoder over the stub frame embeddings (B, T, D): non-causal,
     in training mode whatever the caller's mode (RoPE applied, as the
     reference's attention mixer always does)."""
     x = frames.to(_dtype(cfg.compute_dtype))
     pos = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_stack(params["enc_blocks"], x, cfg, mode="train",
-                      caches=None, pos=pos, window=0, causal=False)
+                      caches=None, pos=pos, window=0, causal=False, par=par,
+                      stack="enc_blocks")
     return _norm(cfg, params["enc_norm"], x)
 
 
@@ -390,7 +443,8 @@ def _encode(params, cfg: ModelConfig, frames: Tensor) -> Tensor:
 
 def forward_train(params, cfg: ModelConfig, tokens: Tensor,
                   embeds: Optional[Tensor] = None,
-                  frames: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                  frames: Optional[Tensor] = None,
+                  par=None) -> Tuple[Tensor, Tensor]:
     """Teacher-forced forward. tokens: (B, S_text); ``embeds``: VLM patch
     embeddings (B, P, D) prepended; ``frames``: the audio encoder's input
     (B, T, D).  Returns (logits over the text positions, the aux loss)."""
@@ -399,10 +453,11 @@ def forward_train(params, cfg: ModelConfig, tokens: Tensor,
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
         n_prefix = embeds.shape[1]
-    enc_out = _encode(params, cfg, frames) if frames is not None else None
+    enc_out = (_encode(params, cfg, frames, par) if frames is not None
+               else None)
     pos = torch.arange(x.shape[1], device=x.device)
     x, aux = _run_stack(params["blocks"], x, cfg, mode="train", caches=None,
-                        pos=pos, enc_out=enc_out)
+                        pos=pos, enc_out=enc_out, par=par)
     x = _norm(cfg, params["final_norm"], x)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -411,10 +466,11 @@ def forward_train(params, cfg: ModelConfig, tokens: Tensor,
     return _logits(params, cfg, x), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict) -> Tuple[Tensor, Dict]:
+def loss_fn(params, cfg: ModelConfig, batch: Dict,
+            par=None) -> Tuple[Tensor, Dict]:
     logits, aux = forward_train(params, cfg, batch["tokens"],
                                 embeds=batch.get("embeds"),
-                                frames=batch.get("frames"))
+                                frames=batch.get("frames"), par=par)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     loss = nll.mean() + AUX_LOSS_WEIGHT * aux
@@ -424,29 +480,31 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict) -> Tuple[Tensor, Dict]:
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens: Tensor, caches,
             embeds: Optional[Tensor] = None,
-            frames: Optional[Tensor] = None, window: int = 0):
+            frames: Optional[Tensor] = None, window: int = 0, par=None):
     """Run the prompt through the stack, filling ``caches`` in place.
     Returns (the last position's logits (B, 1, V), caches)."""
     x = _embed(params, cfg, tokens)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    enc_out = _encode(params, cfg, frames) if frames is not None else None
+    enc_out = (_encode(params, cfg, frames, par) if frames is not None
+               else None)
     pos = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_stack(params["blocks"], x, cfg, mode="prefill",
-                      caches=caches, pos=pos, window=window, enc_out=enc_out)
+                      caches=caches, pos=pos, window=window, enc_out=enc_out,
+                      par=par)
     x = _norm(cfg, params["final_norm"], x[:, -1:])
     return _logits(params, cfg, x), caches
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token: Tensor, pos, caches,
-                window: int = 0):
+                window: int = 0, par=None):
     """One-token decode, ``caches`` updated in place. token: (B, 1);
     ``pos``: the global position, a 0-d int32 tensor on the device (an
     int is copied there).  Returns (logits (B, 1, V), caches)."""
     x = _embed(params, cfg, token)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x, _ = _run_stack(params["blocks"], x, cfg, mode="decode",
-                      caches=caches, pos=pos, window=window)
+                      caches=caches, pos=pos, window=window, par=par)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x), caches

@@ -50,9 +50,10 @@ def test_every_port_module_imports_without_jax():
                  "repro_torch.optim.schedule", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.io", "repro_torch.launch",
                  "repro_torch.launch.steps", "repro_torch.launch.train",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                 "repro_torch.models.parallel"):
         assert name in mods
-    assert len(mods) >= 52
+    assert len(mods) >= 54
     assert len(BENCHMARKS) == 17
     for name in ("benchmarks.torch_engine_bench",
                  "benchmarks.torch_packed_bench",
