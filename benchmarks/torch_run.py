@@ -1,7 +1,8 @@
 """Run the paper's figures, Table I, the engine and packed server-phase
 benchmarks, the population and client-phase benchmarks, the kernel
 micro-benchmarks and the two extensions (error feedback, FAIR-k-auto)
-through the PyTorch port.
+through the PyTorch port, and print the roofline table of the dry-run
+artifacts (``roofline``: run ``repro_torch.launch.dryrun`` first).
 
 Prints ``name,us_per_call,derived`` CSV rows (stdout), in the format of
 ``benchmarks/run.py``, and writes the full detail payload to
@@ -29,7 +30,7 @@ from benchmarks import (torch_client_bench,  # noqa: E402
                         torch_fig6_km_ratio, torch_fig7_local_epochs,
                         torch_fig9_prototype, torch_kernels_bench,
                         torch_packed_bench, torch_population_bench,
-                        torch_table1_lipschitz)
+                        torch_roofline_table, torch_table1_lipschitz)
 
 MODULES = {
     "fig3": torch_fig3_aou, "fig4": torch_fig4_convergence,
@@ -39,6 +40,7 @@ MODULES = {
     "packed": torch_packed_bench, "population": torch_population_bench,
     "client": torch_client_bench, "kernels": torch_kernels_bench,
     "ext_ef": torch_ext_error_feedback, "ext_auto": torch_ext_fairk_auto,
+    "roofline": torch_roofline_table,
 }
 
 

@@ -9,7 +9,8 @@ shared by ``chip_smoke.py``, ``benchmarks/torch_kernels_bench.py`` and
   launched from Python;
 - ``bound_ms(n_bytes, n_ops)``: the least time the card could take, the
   larger of the bytes over the memory rate and the operations over the
-  float32 rate (H100 SXM data sheet);
+  float32 rate (H100 SXM data sheet, from ``repro_torch.roofline.
+  analysis``);
 - ``input_sets(n_bytes)``: how many copies of a call's inputs to cycle
   through so that every call reads its inputs from HBM and not from L2.
 """
@@ -22,8 +23,10 @@ from typing import Callable, Sequence, Union
 
 import torch
 
-PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+from repro_torch.roofline.analysis import HBM_BW as PEAK_BYTES_PER_S
+from repro_torch.roofline.analysis import \
+    PEAK_F32_FLOPS as PEAK_F32_OPS_PER_S
+
 L2_BYTES = 50 * 2**20               # H100 SXM L2 cache
 
 

@@ -203,19 +203,35 @@ failure):
    decoded tokens of reduced ``qwen2.5-32b``, ``mamba2-370m`` and
    ``granite-moe-3b-a800m`` within 0.05 / 0.05 / 0.5 of the
    single-process decode (correctness only);
-21. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
+21. the dry run and the roofline (``launch/dryrun.py``, ``roofline/``):
+   (a) ``internvl2-1b``'s launch step, route (i), at the launch phase's
+   shape, traced once on fake CUDA and once on fake CPU tensors under
+   ``roofline.dispatch.StepCounter`` — equal counts; its three terms,
+   FLOPs by dtype, model FLOPs, usefulness and peak beside the same
+   step's device time (one profiled step), steady wall step and warm
+   peak on the card: the roofline at most the device time, the fake
+   peak within 15% of the card's, ``fairk_update`` counted once at the
+   kernel phase's bytes (within 5%); (b) ``python -m
+   repro_torch.launch.dryrun`` as a user runs it on the (16, 16) mesh
+   of a fake group (fake CUDA tensors) for ``mamba2-370m train_4k``,
+   ``qwen2.5-32b decode_32k`` and the FL-OAC step with and without
+   FAIR-k, started in the background after the kernel phase at a lower
+   priority: each exits 0, FAIR-k's collective bytes under 0.2 of the
+   baseline's;
+22. the same rounds (2 each of (a), (b), exact one-bit and exact coherent
    FAIR-k with error feedback) with the kernels and with the plain
    versions from one generator seed: identical ages and weights
    (max |Δw| = 0);
-22. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
+23. a profile of 2 rounds each of (a), (b) and exact coherent FAIR-k:
    device time per round, the device's busy share and the largest kernels
    (report only);
-23. summary: a ``{"kernels": [...]}`` line, the card line, and the last
+24. summary: a ``{"kernels": [...]}`` line, the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
-Each path (4-16, 18, 19 (b), 20 (a)) runs with every launch count set to 0 just
-before it and read just after; a kernel that none of them launched fails
-the run.
+Each path (4-16, 18, 19 (b), 20 (a), 21 (a)) runs with every launch count
+set to 0 just before it and read just after; a kernel that none of them
+launched fails the run.  The kernels are ``torch.library`` operators;
+each wrapper still counts only its real launches.
 The serving path (17) launches none of the five kernels: its counts must
 stay 0.
 
@@ -4098,6 +4114,269 @@ def sharded_phase(dev):
     return launches, summary
 
 
+# --------------------------------------------------------------------------
+# the dry run and the roofline
+# --------------------------------------------------------------------------
+
+# (b): ``python -m repro_torch.launch.dryrun`` as a user runs it, on the
+# production (16, 16) mesh of a fake process group (fake CUDA tensors)
+DRYRUN_RUNS = {
+    "mamba2_train": ["--arch", "mamba2-370m", "--shape", "train_4k"],
+    "qwen_decode": ["--arch", "qwen2.5-32b", "--shape", "decode_32k"],
+    "fl_fairk": ["--arch", "mamba2-370m", "--shape", "train_4k",
+                 "--fl-mode"],
+    "fl_baseline": ["--arch", "mamba2-370m", "--shape", "train_4k",
+                    "--fl-mode", "--fl-baseline"],
+}
+DRYRUN_TIMEOUT = 900                # s, each run of (b)
+DRYRUN_PEAK_TOL = 0.15              # fake peak against the card's
+DRYRUN_KERNEL_BYTES_TOL = 0.05      # fairk_update's counted bytes
+DRYRUN_STEPS = 3                    # (a): real steps, the first cold
+
+
+def start_dryrun_runs():
+    """Start (b)'s dry runs (CPU only: fake tensors) in the background at
+    a lower priority, each writing its artifact and log under
+    ``chiprun_out/``; the dryrun phase waits for them."""
+    out = ROOT / "chiprun_out" / "torch_dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for name, args in DRYRUN_RUNS.items():
+        log = open(ROOT / "chiprun_out" / f"dryrun_{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--force", "--out", str(out)], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10)),
+            log, time.perf_counter())
+    return procs
+
+
+def stop_dryrun_runs(procs) -> None:
+    for proc, log, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _launch_trace(dev, cfg, shape, oac):
+    """The launch step of route (i) traced once under ``FakeTensorMode`` on
+    ``dev``'s fake tensors inside ``roofline.dispatch.StepCounter`` ->
+    (counts, memory block, seconds)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        bundle = steps.make_train_step(cfg, shape, n_micro=LAUNCH_MICRO,
+                                       oac=oac, kernel_mode="kernel",
+                                       device=dev)
+        params = tree_util.tree_map(
+            lambda m: torch.empty(m.shape, dtype=m.dtype, device=dev),
+            steps.abstract_params(cfg))
+        opt = make_optimizer(bundle.meta["optimizer"], bundle.meta["lr"])
+        server = steps.init_server_state(params, oac=oac)
+        specs = steps.train_input_specs(cfg, shape, LAUNCH_MICRO,
+                                        bundle.meta["micro_batch"])
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                 for k, v in specs.items()}
+        parsed, memory = dryrun.trace_step(
+            bundle.fn, (params, opt.init(params), server, batch, 0))
+    return parsed, memory, time.perf_counter() - t0
+
+
+def _dryrun_real(dev, cfg, shape, oac):
+    """(a)'s measurements of the same step on the card: ``DRYRUN_STEPS``
+    steps (CUDA events; steady = median after the first), the bytes a
+    warm step allocates at its peak (``max_memory_allocated`` less what
+    was allocated before it, plus its inputs), one profiled step's device
+    time, and the launches."""
+    import torch
+    from repro_torch.launch import dryrun, steps, train
+    from repro_torch.models import transformer
+    from repro_torch.optim import make_optimizer
+
+    bundle = steps.make_train_step(cfg, shape, n_micro=LAUNCH_MICRO, oac=oac,
+                                   device=dev)
+    params = transformer.init_lm_seeded(cfg, 0, dev)
+    opt = make_optimizer(bundle.meta["optimizer"], bundle.meta["lr"])
+    state = [params, opt.init(params), steps.init_server_state(params,
+                                                               oac=oac)]
+
+    def batch(t):
+        return train.make_batch(cfg, 0, t, LAUNCH_BATCH, LAUNCH_SEQ,
+                                LAUNCH_MICRO, dev)
+
+    torch.cuda.synchronize()
+    reset_counters()
+    step_ms = []
+    for t in range(DRYRUN_STEPS):
+        b = batch(t)
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        *state, loss = bundle.fn(*state, b, t)
+        e.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(e))
+        check(math.isfinite(float(loss)), f"dryrun (a): loss {loss}")
+    got = read_counters()
+    t = DRYRUN_STEPS
+    b = batch(t)
+    inputs = (*state, b)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bundle.fn(*state, b, t)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - before
+            + dryrun._storage_bytes(inputs))
+    t += 1
+    b = batch(t)
+    prof = _profile_round(lambda: bundle.fn(*state, b, t), top=6,
+                          label="one launch step (dryrun phase)")
+    del state, inputs, b
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "steady_ms": statistics.median(step_ms[1:]),
+            "peak_bytes": peak, "device_ms": prof["device_ms"],
+            "device_ops": prof["ops"]}, got
+
+
+def dryrun_phase(dev, procs):
+    """The dry run and the roofline.  (a) ``internvl2-1b``'s launch step,
+    route (i), at the launch phase's shape, traced on fake CUDA tensors
+    and on fake CPU tensors (equal counts), its roofline beside the card's
+    measurements of the same step: the roofline's step time at most the
+    measured device time, the fake peak within ``DRYRUN_PEAK_TOL`` of the
+    card's, ``fairk_update`` counted once with its bytes within
+    ``DRYRUN_KERNEL_BYTES_TOL`` of the kernel phase's; (b) the dry runs
+    started by ``start_dryrun_runs`` exit 0, and FAIR-k's collective
+    bytes are under 0.2 of the baseline's.  Returns (launches of (a),
+    summary)."""
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.steps import OacServerConfig
+    from repro_torch.roofline import build_report, suggestion
+
+    t0 = time.perf_counter()
+    cfg = get_config(LAUNCH_ARCH)
+    shape = InputShape("custom", LAUNCH_SEQ + cfg.n_patches, LAUNCH_BATCH,
+                       "train")
+    oac = OacServerConfig(rho=0.1)
+    parsed, memory, trace_s = _launch_trace(dev, cfg, shape, oac)
+    parsed_cpu, memory_cpu, trace_cpu_s = _launch_trace(
+        torch.device("cpu"), cfg, shape, oac)
+    keys = ("flops_by_dtype", "bytes_per_device", "collective_breakdown",
+            "collective_counts", "n_ops", "peak_bytes", "ops", "op_bytes")
+    for key in keys:
+        check(parsed[key] == parsed_cpu[key],
+              f"dryrun (a): {key} differs between fake CUDA and fake CPU "
+              f"tensors: {parsed[key]} vs {parsed_cpu[key]}")
+    check(memory == memory_cpu, f"dryrun (a): memory {memory} vs "
+          f"{memory_cpu}")
+    report = build_report(cfg, shape, "1", 1, parsed)
+    real, launches = _dryrun_real(dev, cfg, shape, oac)
+    want = dict.fromkeys(KERNELS, 0)
+    want["fairk_update"] = DRYRUN_STEPS
+    check(launches == want, f"dryrun (a): launches {launches}, expected "
+          f"{want}")
+    kernel_bytes = 20 * LAUNCH_D + 4 * 258 + 8
+    counted = parsed["op_bytes"].get("repro_torch.fairk_update", 0.0)
+    fake_peak = memory["per_device_total"]
+    row = {"trace_s": trace_s, "trace_cpu_s": trace_cpu_s,
+           "compute_ms": report.compute_s * 1e3,
+           "memory_ms": report.memory_s * 1e3,
+           "collective_ms": report.collective_s * 1e3,
+           "roofline_ms": report.step_time_s * 1e3,
+           "dominant": report.dominant, "suggestion": suggestion(report),
+           "flops_by_dtype": parsed["flops_by_dtype"],
+           "flops": parsed["flops_per_device"],
+           "bytes": parsed["bytes_per_device"], "n_ops": parsed["n_ops"],
+           "model_flops": report.model_flops,
+           "usefulness": report.usefulness, "fake_peak_bytes": fake_peak,
+           "memory": memory, "fairk_update_calls":
+               parsed["ops"].get("repro_torch.fairk_update", 0),
+           "fairk_update_bytes": counted,
+           "kernel_phase_bytes": kernel_bytes, **real}
+    print(f"dryrun (a) {LAUNCH_ARCH} launch step (i), batch {LAUNCH_BATCH}"
+          f" x {shape.seq_len} tokens: traced in {trace_s:.1f} s (fake "
+          f"CUDA) and {trace_cpu_s:.1f} s (fake CPU), equal counts; "
+          f"{parsed['n_ops']} operations, FLOPs by dtype "
+          f"{parsed['flops_by_dtype']}, {parsed['bytes_per_device']:.4e} "
+          f"bytes; roofline compute {row['compute_ms']:.3f} ms, memory "
+          f"{row['memory_ms']:.3f} ms, collective "
+          f"{row['collective_ms']:.3f} ms -> {row['roofline_ms']:.3f} ms "
+          f"({report.dominant}); model FLOPs {report.model_flops:.4e}, "
+          f"usefulness {report.usefulness:.4f}; fake peak "
+          f"{fake_peak / 1e9:.3f} GB | card: one profiled step "
+          f"{real['device_ms']:.3f} ms of device time in "
+          f"{real['device_ops']} operations, steady wall step "
+          f"{real['steady_ms']:.1f} ms (steps "
+          f"{[round(x, 1) for x in real['step_ms']]}), warm step peak "
+          f"{real['peak_bytes'] / 1e9:.3f} GB; fairk_update counted "
+          f"{row['fairk_update_calls']}x at {counted:.6e} bytes (kernel "
+          f"phase {kernel_bytes:.6e})", flush=True)
+    check(row["roofline_ms"] <= real["device_ms"],
+          f"dryrun (a): roofline step {row['roofline_ms']:.3f} ms exceeds "
+          f"the measured device time {real['device_ms']:.3f} ms")
+    check(abs(fake_peak / real["peak_bytes"] - 1) <= DRYRUN_PEAK_TOL,
+          f"dryrun (a): fake peak {fake_peak} vs the card's "
+          f"{real['peak_bytes']}")
+    check(row["fairk_update_calls"] == 1,
+          f"dryrun (a): fairk_update counted {row['fairk_update_calls']}x")
+    check(abs(counted / kernel_bytes - 1) <= DRYRUN_KERNEL_BYTES_TOL,
+          f"dryrun (a): fairk_update bytes {counted} vs {kernel_bytes}")
+    # (b)
+    runs = {}
+    for name, (proc, log, started) in procs.items():
+        left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - started))
+        try:
+            rc = proc.wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+        tail = (ROOT / "chiprun_out" / f"dryrun_{name}.log").read_text()
+        check(rc == 0, f"dryrun (b) {name}: exit {rc}\n{tail[-3000:]}")
+        runs[name] = {"exit": rc, "seconds": time.perf_counter() - started}
+    art_dir = ROOT / "chiprun_out" / "torch_dryrun"
+    arts = {}
+    for name, args in DRYRUN_RUNS.items():
+        arch, shp = args[1], args[3]
+        tag = f"{arch}__{shp}__16x16" + (
+            "__flbase" if "--fl-baseline" in args
+            else "__fl" if "--fl-mode" in args else "")
+        arts[name] = json.loads((art_dir / f"{tag}.json").read_text())
+        a = arts[name]
+        runs[name].update(trace_s=a["trace_s"], roofline=a["roofline"],
+                          per_device_total=a["memory"]["per_device_total"],
+                          collective_bytes=a["parsed"][
+                              "collective_bytes_per_device"],
+                          n_ops=a["parsed"]["n_ops"])
+        print(f"dryrun (b) {name}: traced in {a['trace_s']:.1f} s, "
+              f"{a['parsed']['n_ops']} operations, peak "
+              f"{a['memory']['per_device_total'] / 2**30:.2f} GiB per rank,"
+              f" compute {a['roofline']['compute_s'] * 1e3:.3f} / memory "
+              f"{a['roofline']['memory_s'] * 1e3:.3f} / collective "
+              f"{a['roofline']['collective_s'] * 1e3:.3f} ms "
+              f"({a['roofline']['dominant']})", flush=True)
+    fairk = arts["fl_fairk"]["parsed"]["collective_bytes_per_device"]
+    base = arts["fl_baseline"]["parsed"]["collective_bytes_per_device"]
+    ratio = fairk / base
+    check(ratio < 0.2, f"dryrun (b): FL-OAC FAIR-k / baseline collective "
+          f"bytes {fairk} / {base} = {ratio:.4f}")
+    print(f"dryrun (b): FL-OAC collective bytes per rank FAIR-k {fairk:.0f}"
+          f" / baseline {base:.0f} = {ratio:.4f}", flush=True)
+    summary = {"a": row, "b": runs, "fl_ratio": ratio,
+               "seconds": time.perf_counter() - t0}
+    print(f"dryrun phase: {summary['seconds']:.1f} s", flush=True)
+    return launches, summary
+
+
 def main(argv) -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch not found: run chip_smoke.py from the root of "
@@ -4132,6 +4411,16 @@ def main(argv) -> None:
     if "--kernels" in argv:
         print("kernels only: the paths were not driven", flush=True)
         return
+    dryruns = start_dryrun_runs()
+    try:
+        paths(dev, card, kind, count, records, extras, dryruns)
+    finally:
+        stop_dryrun_runs(dryruns)
+
+
+def paths(dev, card, kind, count, records, extras, dryruns) -> None:
+    """Every path after the kernel phase, then the summary lines."""
+    from repro_torch.kernels import build
     task = make_task(dev)
     packed, exact = run_configs()
     by_path = {}
@@ -4156,6 +4445,7 @@ def main(argv) -> None:
     by_path["entry_points"], entry_summary = entry_points_phase(dev)
     by_path["distributed"], distributed_summary = distributed_phase(dev)
     by_path["sharded"], sharded_summary = sharded_phase(dev)
+    by_path["dryrun"], dryrun_summary = dryrun_phase(dev, dryruns)
     launches = {key: sum(p[key] for p in by_path.values())
                 for key in KERNELS}
     for key, n in launches.items():
@@ -4221,7 +4511,7 @@ def main(argv) -> None:
          "families": families_summary, "serve": serve_summary,
          "entry_points": entry_summary,
          "distributed": distributed_summary, "sharded": sharded_summary,
-         "launches_by_path": by_path, "profile": profile,
+         "dryrun": dryrun_summary, "launches_by_path": by_path, "profile": profile,
          "kernels": kernels},
         indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

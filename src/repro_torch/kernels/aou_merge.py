@@ -14,9 +14,11 @@ JAX oracle and the engine do.
   the k selected ones are written): the trainer's scatter form (SET) or
   the engine's arithmetic form (``arith``).
 
-Each wrapper checks its tensors, allocates the outputs and launches on the
-current stream without synchronising.  ``LAUNCHES`` counts the launches
-of both.
+Each launch is a ``torch.library`` operator (``repro_torch::aou_merge``,
+``repro_torch::merge_by_indices``) with a fake implementation for
+``FakeTensorMode``; its kernel checks the tensors, allocates the outputs
+and launches on the current stream without synchronising.  ``LAUNCHES``
+counts the launches of both.
 """
 
 from __future__ import annotations
@@ -26,16 +28,24 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fairk_update import check_vec
+from repro_torch.kernels.fairk_update import LIB, check_vec
 
 Tensor = torch.Tensor
 
 LAUNCHES = 0
 
 
-def aou_merge_cuda(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor
-                   ) -> Tuple[Tensor, Tensor]:
-    """One launch -> (g, age'), both (d,) float32."""
+LIB.define("aou_merge(Tensor g_new, Tensor g_old, Tensor age, Tensor mask) "
+           "-> (Tensor, Tensor)")
+LIB.define("merge_by_indices(Tensor idx, Tensor row, Tensor g_prev, "
+           "Tensor age, Tensor? sel_count, Tensor? noise, float noise_mul, "
+           "int n_clients, bool superposed, Tensor? aux, bool arith) "
+           "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+def _aou_merge_launch(g_new: Tensor, g_old: Tensor, age: Tensor,
+                      mask: Tensor) -> Tuple[Tensor, Tensor]:
+    """The op's kernel: one launch -> (g, age')."""
     global LAUNCHES
     d = g_new.shape[0] if g_new.dim() == 1 else -1
     for name, t in (("g_new", g_new), ("g_old", g_old), ("age", age),
@@ -53,24 +63,25 @@ def aou_merge_cuda(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor
     return g_out, age_out
 
 
-def merge_by_indices_cuda(idx: Tensor, row: Tensor, g_prev: Tensor,
-                          age: Tensor, *, sel_count: Optional[Tensor] = None,
-                          noise: Optional[Tensor] = None,
-                          noise_mul: float = 0.0, n_clients: int = 1,
-                          superposed: bool = False,
-                          aux: Optional[Tensor] = None, arith: bool = False
-                          ) -> Tuple[Tensor, Tensor, Optional[Tensor],
-                                     Optional[Tensor], Optional[Tensor]]:
-    """One launch -> ``(g_t, age', mask | None, sel_count' | None,
-    residual' | None)``, each (d,) float32, for the int64 selection ``idx``
-    (k distinct values in [0, d)).
+def _aou_merge_fake(g_new, g_old, age, mask):
+    return torch.empty_like(g_new), torch.empty_like(age)
 
-    SET (``arith`` False): ``row`` is the (k,) fresh row (with
-    ``superposed``, the raw faded sum, given ``(row + noise_mul·noise) /
-    n_clients`` first), ``noise`` the (k,) draw, ``sel_count`` (d,) is
-    required, ``aux`` is ``ef_sum`` (d,) for the residual.  ARITH: ``row``
-    is the (d,) sent row, ``noise`` the (d,) draw scaled by ``noise_mul``,
-    ``aux`` the score (d,) for the residual; no mask or count."""
+
+def aou_merge_cuda(g_new: Tensor, g_old: Tensor, age: Tensor, mask: Tensor
+                   ) -> Tuple[Tensor, Tensor]:
+    """One launch -> (g, age'), both (d,) float32."""
+    return aou_merge_op(g_new, g_old, age, mask)
+
+
+def _merge_by_indices_launch(idx: Tensor, row: Tensor, g_prev: Tensor,
+                             age: Tensor, sel_count: Optional[Tensor],
+                             noise: Optional[Tensor], noise_mul: float,
+                             n_clients: int, superposed: bool,
+                             aux: Optional[Tensor], arith: bool
+                             ) -> Tuple[Tensor, Tensor, Tensor, Tensor,
+                                        Tensor]:
+    """The op's kernel (``merge_by_indices_cuda``); an empty (0,) row
+    stands for each output the form does not write."""
     global LAUNCHES
     dev = g_prev.device
     d = g_prev.shape[0] if g_prev.dim() == 1 else -1
@@ -105,4 +116,49 @@ def merge_by_indices_cuda(idx: Tensor, row: Tensor, g_prev: Tensor,
         float(n_clients), int(bool(superposed)), int(bool(arith)), stream)
     build.check(rc, "aou_merge")
     LAUNCHES += 1
-    return g_out, age_out, mask, count, res
+    return (g_out, age_out, *(g_prev.new_empty(0) if t is None else t
+                              for t in (mask, count, res)))
+
+
+def _merge_by_indices_fake(idx, row, g_prev, age, sel_count, noise,
+                           noise_mul, n_clients, superposed, aux, arith):
+    def row_or_empty(present):
+        return torch.empty_like(g_prev) if present else g_prev.new_empty(0)
+    return (torch.empty_like(g_prev), torch.empty_like(g_prev),
+            row_or_empty(not arith), row_or_empty(not arith),
+            row_or_empty(aux is not None))
+
+
+for _name, _launch, _fake in (
+        ("aou_merge", _aou_merge_launch, _aou_merge_fake),
+        ("merge_by_indices", _merge_by_indices_launch,
+         _merge_by_indices_fake)):
+    LIB.impl(_name, _launch, "CompositeExplicitAutograd")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=LIB)
+aou_merge_op = torch.ops.repro_torch.aou_merge.default
+merge_by_indices_op = torch.ops.repro_torch.merge_by_indices.default
+
+
+def merge_by_indices_cuda(idx: Tensor, row: Tensor, g_prev: Tensor,
+                          age: Tensor, *, sel_count: Optional[Tensor] = None,
+                          noise: Optional[Tensor] = None,
+                          noise_mul: float = 0.0, n_clients: int = 1,
+                          superposed: bool = False,
+                          aux: Optional[Tensor] = None, arith: bool = False
+                          ) -> Tuple[Tensor, Tensor, Optional[Tensor],
+                                     Optional[Tensor], Optional[Tensor]]:
+    """One launch -> ``(g_t, age', mask | None, sel_count' | None,
+    residual' | None)``, each (d,) float32, for the int64 selection ``idx``
+    (k distinct values in [0, d)).
+
+    SET (``arith`` False): ``row`` is the (k,) fresh row (with
+    ``superposed``, the raw faded sum, given ``(row + noise_mul·noise) /
+    n_clients`` first), ``noise`` the (k,) draw, ``sel_count`` (d,) is
+    required, ``aux`` is ``ef_sum`` (d,) for the residual.  ARITH: ``row``
+    is the (d,) sent row, ``noise`` the (d,) draw scaled by ``noise_mul``,
+    ``aux`` the score (d,) for the residual; no mask or count."""
+    g_out, age_out, mask, count, res = merge_by_indices_op(
+        idx, row, g_prev, age, sel_count, noise, float(noise_mul),
+        int(n_clients), bool(superposed), aux, bool(arith))
+    return (g_out, age_out, None if arith else mask,
+            None if arith else count, None if aux is None else res)

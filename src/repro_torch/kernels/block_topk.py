@@ -11,11 +11,12 @@ and m <= 256, else a radix select of at most four passes over the keys in
 shared memory — then sorts the candidates (key descending, index
 ascending: ties toward the lower index) with a bitonic sort.
 
-``block_topk_cuda`` checks its tensor and the shape (``ValueError`` as
-in JAX), allocates the outputs (and, where the candidates do not fit in
-shared memory beside the keys, a scratch row per block) and launches on
-the current stream without synchronising.  ``LAUNCHES`` counts its
-launches.
+The launch is the ``torch.library`` operator ``repro_torch::block_topk``
+with a fake implementation for ``FakeTensorMode``; its kernel checks the
+tensor and the shape (``ValueError`` as in JAX), allocates the outputs
+(and, where the candidates do not fit in shared memory beside the keys, a
+scratch row per block) and launches on the current stream without
+synchronising.  ``LAUNCHES`` counts its launches.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fairk_update import check_vec
+from repro_torch.kernels.fairk_update import LIB, check_vec
 from repro_torch.kernels.ref import check_block_topk
 
 Tensor = torch.Tensor
@@ -48,9 +49,12 @@ def candidates_in_smem(block_size: int, m: int) -> bool:
     return keys + max(8 * cand_n, 1024) <= SMEM_BYTES
 
 
-def block_topk_cuda(x: Tensor, block_size: int, m: int
-                    ) -> Tuple[Tensor, Tensor]:
-    """x (d,) float32 -> (vals (nb, m) float32, idxs (nb, m) int32)."""
+LIB.define("block_topk(Tensor x, int block_size, int m) -> (Tensor, Tensor)")
+
+
+def _block_topk_launch(x: Tensor, block_size: int, m: int
+                       ) -> Tuple[Tensor, Tensor]:
+    """The op's kernel: one launch -> (vals, idxs)."""
     global LAUNCHES
     d = x.shape[0] if x.dim() == 1 else -1
     check_vec("x", x, d, x.device)
@@ -71,3 +75,21 @@ def block_topk_cuda(x: Tensor, block_size: int, m: int
     build.check(rc, "block_topk")
     LAUNCHES += 1
     return vals, idxs
+
+
+def _block_topk_fake(x, block_size, m):
+    nb = check_block_topk(x.shape[0], block_size, m)
+    return (x.new_empty((nb, m)),
+            x.new_empty((nb, m), dtype=torch.int32))
+
+
+LIB.impl("block_topk", _block_topk_launch, "CompositeExplicitAutograd")
+torch.library.register_fake("repro_torch::block_topk", _block_topk_fake,
+                            lib=LIB)
+block_topk_op = torch.ops.repro_torch.block_topk.default
+
+
+def block_topk_cuda(x: Tensor, block_size: int, m: int
+                    ) -> Tuple[Tensor, Tensor]:
+    """x (d,) float32 -> (vals (nb, m) float32, idxs (nb, m) int32)."""
+    return block_topk_op(x, int(block_size), int(m))

@@ -11,9 +11,17 @@ blocks in a per-slot device accumulator, converted by the last block),
 so a call is one device operation.  The TPU wrapper's 256-lane block
 padding is gone: the kernel masks its own tail.
 
-``fairk_update_cuda`` checks its tensors, allocates the outputs, picks
-the statistics slot of the current stream and launches on that stream
-without synchronising.  ``LAUNCHES`` counts its launches.
+The launch is the ``torch.library`` operator ``repro_torch::fairk_update``
+(``fairk_update_op``, defined in ``LIB``, the library every kernel
+module adds its operator to), so a dispatch mode sees one call as one
+named operation, and under ``FakeTensorMode`` its fake implementation
+gives the outputs' shapes and dtypes without launching anything.  Its
+kernel (one Python function for every device, the dispatcher's
+``CompositeExplicitAutograd`` key) checks the tensors, allocates the
+outputs, picks the statistics slot of the current stream and launches
+on that stream without synchronising; ``LAUNCHES`` counts its launches.
+``fairk_update_cuda`` calls it and turns the empty rows that stand for
+absent outputs into None.
 """
 
 from __future__ import annotations
@@ -81,17 +89,23 @@ def stats_slot(device: torch.device, stream: int) -> int:
     return slot
 
 
-def fairk_update_cuda(g: Tensor, g_prev: Tensor, age: Tensor,
-                      theta_m: Tensor, theta_a: Tensor,
-                      residual: Optional[Tensor] = None,
-                      fresh: Optional[Tensor] = None, stats_stride: int = 0,
-                      sanitize: bool = False
-                      ) -> Tuple[Tensor, Tensor, Optional[Tensor],
-                                 Optional[Tensor]]:
-    """One fused launch -> (g_t, age', residual' | None, stats | None).
-    ``theta_m`` / ``theta_a`` are one-element float32 device tensors;
-    ``stats`` is the float32 row ``[n_sel, n_sel_m, mag_hist(128),
-    age_hist(128)]`` when ``stats_stride`` > 0 (a power of two)."""
+# the operator library of the port's kernels (each kernel module adds its
+# operators to the ``repro_torch`` namespace)
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+LIB.define("fairk_update(Tensor g, Tensor g_prev, Tensor age, "
+           "Tensor theta_m, Tensor theta_a, Tensor? residual, "
+           "Tensor? fresh, int stats_stride, bool sanitize) "
+           "-> (Tensor, Tensor, Tensor, Tensor)")
+
+
+def _fairk_update_launch(g: Tensor, g_prev: Tensor, age: Tensor,
+                         theta_m: Tensor, theta_a: Tensor,
+                         residual: Optional[Tensor], fresh: Optional[Tensor],
+                         stats_stride: int, sanitize: bool
+                         ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The op's kernel: one fused launch -> (g_t, age', residual',
+    stats); an empty (0,) row stands for the residual without
+    ``residual`` and for the statistics when ``stats_stride`` is 0."""
     global LAUNCHES
     d = g.shape[0] if g.dim() == 1 else -1
     dev = g.device
@@ -119,4 +133,37 @@ def fairk_update_cuda(g: Tensor, g_prev: Tensor, age: Tensor,
         stats_stride, slot, int(bool(sanitize)), stream)
     build.check(rc, "fairk_update")
     LAUNCHES += 1
-    return g_t, age_out, res_out, stats
+    return (g_t, age_out, g.new_empty(0) if res_out is None else res_out,
+            g.new_empty(0) if stats is None else stats)
+
+
+def _fairk_update_fake(g, g_prev, age, theta_m, theta_a, residual, fresh,
+                       stats_stride, sanitize):
+    return (torch.empty_like(g), torch.empty_like(age),
+            torch.empty_like(residual) if residual is not None
+            else g.new_empty(0),
+            g.new_empty(STATS_SIZE if stats_stride else 0))
+
+
+LIB.impl("fairk_update", _fairk_update_launch, "CompositeExplicitAutograd")
+torch.library.register_fake("repro_torch::fairk_update", _fairk_update_fake,
+                            lib=LIB)
+fairk_update_op = torch.ops.repro_torch.fairk_update.default
+
+
+def fairk_update_cuda(g: Tensor, g_prev: Tensor, age: Tensor,
+                      theta_m: Tensor, theta_a: Tensor,
+                      residual: Optional[Tensor] = None,
+                      fresh: Optional[Tensor] = None, stats_stride: int = 0,
+                      sanitize: bool = False
+                      ) -> Tuple[Tensor, Tensor, Optional[Tensor],
+                                 Optional[Tensor]]:
+    """One fused launch -> (g_t, age', residual' | None, stats | None).
+    ``theta_m`` / ``theta_a`` are one-element float32 device tensors;
+    ``stats`` is the float32 row ``[n_sel, n_sel_m, mag_hist(128),
+    age_hist(128)]`` when ``stats_stride`` > 0 (a power of two)."""
+    g_t, age_out, res_out, stats = fairk_update_op(
+        g, g_prev, age, theta_m, theta_a, residual, fresh,
+        int(stats_stride), bool(sanitize))
+    return (g_t, age_out, res_out if residual is not None else None,
+            stats if stats_stride else None)

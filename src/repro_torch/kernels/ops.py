@@ -5,7 +5,10 @@ plain PyTorch version (``kernels.ref``) on a CPU tensor; ``"kernel"``
 launches the kernel and raises on a CPU tensor; ``"plain"`` runs the
 plain version on any device (the tests and ``chip_smoke.py`` compare the
 two with it).  Nothing falls back: a kernel that fails to build or launch
-raises.
+raises.  Each kernel is a ``torch.library`` custom op, so ``"kernel"``
+also takes a ``FakeTensor`` on any device: under ``FakeTensorMode``
+nothing launches, and the op's fake implementation gives the outputs
+(``roofline.dispatch`` counts a step that way).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core import packing
 from repro_torch.kernels import aou_merge as am
@@ -35,7 +39,7 @@ def resolve_mode(mode: Optional[str], t: Tensor) -> str:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode is None:
         return "kernel" if t.is_cuda else "plain"
-    if mode == "kernel" and not t.is_cuda:
+    if mode == "kernel" and not (t.is_cuda or isinstance(t, FakeTensor)):
         raise ValueError(f"mode='kernel' needs CUDA tensors, got a tensor "
                          f"on {t.device}")
     return mode

@@ -1047,6 +1047,13 @@ def _sharded_serve_step(cfg: ModelConfig, shape: InputShape, mesh
                       out_specs=(P(par.rows or None, None, None), c_specs))
 
 
+def _same_memory(a: Tensor, b: Tensor) -> bool:
+    """Whether ``a`` and ``b`` start at one address (the same storage and
+    offset; no data pointer is read, so fake tensors answer too)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
 def _assign(server: Dict[str, Any], new: Dict[str, Any]) -> None:
     """Write the successor state into the carried buffers (copies, in
     their dtypes)."""
@@ -1054,7 +1061,7 @@ def _assign(server: Dict[str, Any], new: Dict[str, Any]) -> None:
         cur = server.get(key)
         if isinstance(cur, Tensor) and isinstance(val, Tensor) \
                 and cur.shape == val.shape:
-            if val.data_ptr() != cur.data_ptr():
+            if not _same_memory(val, cur):
                 cur.copy_(val)
         elif isinstance(cur, (dict, list)):
             for (_, c), (_, v) in zip(tree_util.leaves(cur),

@@ -163,7 +163,7 @@ def init_cache(batch: int, capacity: int, n_kv: int, head_dim: int, dtype,
         "v": torch.zeros(kv, dtype=dtype, device=device),
         "pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
         "idx": torch.zeros((), dtype=torch.int32, device=device),
-        "ring": torch.tensor(bool(ring), device=device),
+        "ring": torch.full((), bool(ring), dtype=torch.bool, device=device),
     }
 
 

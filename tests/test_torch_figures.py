@@ -78,11 +78,12 @@ def test_fig3_equals_the_jax_script():
 def test_registry_lists_the_seven_entries():
     # the seven figure and table entries, then the server-phase and
     # population benchmarks, the client-phase and kernel benchmarks and
-    # the two extensions
+    # the two extensions, and the roofline table of the dry-run artifacts
     assert list(torch_run.MODULES) == ["fig3", "fig4", "fig5", "fig6",
                                        "fig7", "table1", "fig9", "engine",
                                        "packed", "population", "client",
-                                       "kernels", "ext_ef", "ext_auto"]
+                                       "kernels", "ext_ef", "ext_auto",
+                                       "roofline"]
 
 
 def test_runner_runs_fig3_on_the_cpu():

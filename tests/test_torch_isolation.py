@@ -51,10 +51,13 @@ def test_every_port_module_imports_without_jax():
                  "repro_torch.checkpoint.io", "repro_torch.launch",
                  "repro_torch.launch.steps", "repro_torch.launch.train",
                  "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-                 "repro_torch.models.parallel"):
+                 "repro_torch.models.parallel", "repro_torch.launch.dryrun",
+                 "repro_torch.roofline", "repro_torch.roofline.analysis",
+                 "repro_torch.roofline.dispatch",
+                 "repro_torch.roofline.report"):
         assert name in mods
-    assert len(mods) >= 54
-    assert len(BENCHMARKS) == 17
+    assert len(mods) >= 67
+    assert len(BENCHMARKS) == 18
     for name in ("benchmarks.torch_engine_bench",
                  "benchmarks.torch_packed_bench",
                  "benchmarks.torch_population_bench",
@@ -62,7 +65,8 @@ def test_every_port_module_imports_without_jax():
                  "benchmarks.torch_kernels_bench",
                  "benchmarks.torch_timing",
                  "benchmarks.torch_ext_error_feedback",
-                 "benchmarks.torch_ext_fairk_auto"):
+                 "benchmarks.torch_ext_fairk_auto",
+                 "benchmarks.torch_roofline_table"):
         assert name in BENCHMARKS
     assert SCRIPTS == [os.path.join("examples", f"torch_{n}.py") for n in (
         "aou_analysis", "fl_cifar_sim", "fl_prototype_onebit", "quickstart",
@@ -148,7 +152,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_common.make_task()
     for name, mod in torch_run.MODULES.items():
-        if name == "fig3":           # numpy only: nothing runs on a device
+        # numpy only, or artifacts read back: nothing runs on a device
+        if name in ("fig3", "roofline"):
             continue
         with pytest.raises(RuntimeError, match="device='cpu'"):
             # the server-phase benchmarks are cut by repeats, the figures
