@@ -3706,6 +3706,15 @@ SHARDED_PROMPT, SHARDED_NEW, SHARDED_CAP = 16, 8, 64
 # tolerances (tests/test_sharded.py::test_decode_parity_sharded_vs_single)
 SHARDED_SERVE_TOL = {"qwen2.5-32b": 0.05, "mamba2-370m": 0.05,
                      "granite-moe-3b-a800m": 0.5}
+# (b)'s tensor-parallel checks: reduced configurations whose heads split
+# over ``model``, float32 compute and parameters, against the single
+# process's ``grads_fn`` on the same global batch; each rank's measured
+# peak against the dry-run counter's on a fake group of 4
+SHARDED_TP = ("deepseek-67b", "mamba2-370m")
+SHARDED_TP_SEQ = 256
+SHARDED_TP_LOSS_RTOL = 1e-5
+SHARDED_TP_GRAD_TOL = 1e-5          # relative L2 over the rank's blocks
+SHARDED_TP_PEAK_TOL = 0.15
 
 
 def _sharded_full_width(dev, mesh, name, oac, profile):
@@ -3862,6 +3871,98 @@ def _states_bits_equal(a, b, what) -> None:
         check(bool(torch.equal(x, y)), f"{what} {path}: not bit for bit")
 
 
+def _tp_case(arch: str, dev, mesh=None):
+    """(b)'s tensor-parallel case ``arch``: (cfg, shape, the step built on
+    ``mesh`` — the single-process step without one —, the global batch of
+    zeros' specs)."""
+    import dataclasses
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(get_config(arch, reduced_variant=True),
+                              compute_dtype="float32",
+                              param_dtype="float32")
+    shape = InputShape("t", SHARDED_TP_SEQ, SHARDED_BATCH, "train")
+    bundle = steps.make_train_step(cfg, shape, mesh, n_micro=2, device=dev)
+    specs = steps.train_input_specs(cfg, shape, 2, SHARDED_BATCH // 2)
+    return cfg, shape, bundle, specs
+
+
+def _tp_counted_peaks(dev) -> dict:
+    """The dry-run counter's per-rank peak of each (b) tensor-parallel
+    ``grads_fn`` on a fake group of ``SHARDED_RANKS`` laid out as
+    ``SHARDED_MESH`` (fake CUDA tensors; rank 0's blocks)."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.roofline.dispatch import count
+    dryrun.start_fake_group(SHARDED_RANKS)
+    peaks = {}
+    try:
+        mesh = mesh_lib.make_mesh(SHARDED_MESH, ("data", "model"), "cuda")
+        for arch in SHARDED_TP:
+            with FakeTensorMode():
+                cfg, _, bundle, specs = _tp_case(arch, dev, mesh)
+                params = dryrun._empty_tree(steps.abstract_params(cfg),
+                                            bundle.in_specs[0], mesh, dev)
+                batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                         for k, v in specs.items()}
+                _, parsed = count(bundle.grads_fn, params, batch)
+            peaks[arch] = {"peak_bytes": parsed["peak_bytes"],
+                           "split": bundle.meta["tensor_parallel"]}
+    finally:
+        dist.destroy_process_group()
+    return peaks
+
+
+def _tp_rank_checks(mesh, dev) -> dict:
+    """(b) on one rank: each tensor-parallel case's sharded ``grads_fn``
+    (a warm call) against the single process's on the same global batch —
+    the loss, the rank's blocks of the gradient (relative L2) — and the
+    warm call's peak (``max_memory_allocated`` less what was allocated
+    before, plus the inputs)."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer as tr
+    out = {}
+    for arch in SHARDED_TP:
+        cfg, _, single, specs = _tp_case(arch, dev)
+        _, _, bundle, _ = _tp_case(arch, dev, mesh)
+        gen = torch.Generator().manual_seed(5)
+        batch = {k: (torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                                   dtype=torch.int32)
+                     if v.dtype == torch.int32 else
+                     0.02 * torch.randn(v.shape, generator=gen)).to(dev)
+                 for k, v in specs.items()}
+        params = tr.init_lm_seeded(cfg, 0, dev)
+        loss1, g1 = single.grads_fn(params, batch)
+        local = sharding.local_tree(params, bundle.in_specs[0], mesh)
+        del params
+        bundle.grads_fn(local, batch)                   # cold
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        loss2, g2 = bundle.grads_fn(local, batch)
+        torch.cuda.synchronize()
+        inputs = sum(t.untyped_storage().nbytes()
+                     for _, t in tree_util.leaves(local)) + sum(
+            t.untyped_storage().nbytes() for t in batch.values())
+        peak = torch.cuda.max_memory_allocated() - before + inputs
+        want = sharding.local_tree(g1, bundle.in_specs[0], mesh)
+        num = den = 0.0
+        for (_, a), (_, b) in zip(tree_util.leaves(g2),
+                                  tree_util.leaves(want)):
+            num += float(((a.double() - b.double()) ** 2).sum())
+            den += float((b.double() ** 2).sum())
+        out[arch] = {"loss": float(loss2), "single_loss": float(loss1),
+                     "grad_rel_l2": (num / den) ** 0.5, "peak_bytes": peak,
+                     "split": bundle.meta["tensor_parallel"],
+                     "sp": bundle.meta["sequence_parallel"]}
+    return out
+
+
 def _stage_gloo_through_host() -> None:
     """gloo reduces CUDA tensors only with ``all_reduce`` (sum) and gathers
     them only as lists: in this process, route the tensor
@@ -3897,7 +3998,9 @@ def _sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """(b) one rank of a (2, 2) mesh of gloo ranks on ``cuda:0``: the
     sharded train step on reduced ``qwen2.5-32b`` (sequence parallel) and
     ``granite-moe-3b-a800m`` (the expert pin), kernel run against plain
-    run; prefill and decode against the single-process decode."""
+    run; the tensor-parallel ``grads_fn`` of ``SHARDED_TP`` against the
+    single process's, with its peak; prefill and decode against the
+    single-process decode."""
     import dataclasses
     import datetime
     sys.path.insert(0, str(ROOT / "src"))
@@ -3962,6 +4065,7 @@ def _sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             result[arch] = {"losses": l1, "kernel_vs_plain_equal": same,
                             "pin": b1.meta["expert_shard_axis"],
                             "sp": b1.meta["sequence_parallel"]}
+        result["tp"] = _tp_rank_checks(mesh, dev)
         torch.use_deterministic_algorithms(False)
         result["train_seconds"] = time.time() - t0
         t1 = time.time()
@@ -4005,9 +4109,10 @@ def _sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     Path(out_dir, f"rank_{rank}.json").write_text(json.dumps(result))
 
 
-def _sharded_gloo_phase():
+def _sharded_gloo_phase(counted):
     """(b): ``SHARDED_RANKS`` spawned gloo processes on the one card, a
-    (2, 2) mesh.  Correctness only: no speed is claimed."""
+    (2, 2) mesh.  Correctness only: no speed is claimed.  ``counted``:
+    the dry-run counter's peaks of the tensor-parallel cases."""
     import shutil
     import torch.multiprocessing as mp
 
@@ -4054,6 +4159,25 @@ def _sharded_gloo_phase():
             check(row["finite"] and row["max_err"] < tol,
                   f"sharded gloo rank {r} serve {arch}: {row['max_err']} "
                   f"from the single-process decode (tolerance {tol})")
+        for arch in SHARDED_TP:
+            row = res["tp"][arch]
+            want = counted[arch]["peak_bytes"]
+            row["counted_peak_bytes"] = want
+            row["peak_rel"] = row["peak_bytes"] / want - 1.0
+            check(row["split"] == counted[arch]["split"]
+                  and ("attn" in row["split"] or "ssm" in row["split"]),
+                  f"sharded gloo rank {r} {arch}: split {row['split']}")
+            check(abs(row["loss"] - row["single_loss"])
+                  <= SHARDED_TP_LOSS_RTOL * abs(row["single_loss"]),
+                  f"sharded gloo rank {r} {arch}: TP loss {row['loss']} "
+                  f"against the single process's {row['single_loss']}")
+            check(row["grad_rel_l2"] <= SHARDED_TP_GRAD_TOL,
+                  f"sharded gloo rank {r} {arch}: gradients "
+                  f"{row['grad_rel_l2']:.3e} relative L2 from the single "
+                  "process's")
+            check(abs(row["peak_rel"]) <= SHARDED_TP_PEAK_TOL,
+                  f"sharded gloo rank {r} {arch}: peak {row['peak_bytes']} "
+                  f"bytes against the counted {want}")
     print(f"sharded (b): {SHARDED_RANKS} gloo ranks on the one card, a "
           f"{SHARDED_MESH} mesh — reduced qwen2.5-32b (sequence parallel) "
           f"and granite-moe-3b-a800m (the expert pin) {SHARDED_STEPS} steps "
@@ -4063,7 +4187,20 @@ def _sharded_gloo_phase():
           f"{SHARDED_NEW} tokens within "
           + ", ".join(f"{results[0]['serve ' + a]['max_err']:.4f} of "
                       f"{t} ({a})" for a, t in SHARDED_SERVE_TOL.items())
-          + f" of the single-process decode; train "
+          + f" of the single-process decode; tensor parallel "
+          + ", ".join(
+              f"{a} {results[0]['tp'][a]['split']}: loss "
+              f"{results[0]['tp'][a]['loss']:.7f} against "
+              f"{results[0]['tp'][a]['single_loss']:.7f}, gradients "
+              + "/".join(f"{res['tp'][a]['grad_rel_l2']:.2e}"
+                         for res in results)
+              + " relative L2, peaks "
+              + "/".join(f"{res['tp'][a]['peak_bytes']}" for res in results)
+              + f" bytes against the counted {counted[a]['peak_bytes']} ("
+              + "/".join(f"{100 * res['tp'][a]['peak_rel']:+.1f}%"
+                         for res in results) + ")"
+              for a in SHARDED_TP)
+          + f"; train "
           f"{results[0]['train_seconds']:.1f} s, serve "
           f"{results[0]['serve_seconds']:.1f} s, {seconds:.1f} s in all "
           "(correctness only)", flush=True)
@@ -4075,8 +4212,9 @@ def sharded_phase(dev):
     sharded ``make_train_step`` on a NCCL process group of one rank (a
     (1, 1) mesh), routes (i) fused stats and (ii) one-bit + EF, each equal
     to the single-card step bit for bit; (b) four gloo ranks on the one
-    card as a (2, 2) mesh at reduced width.  Returns (launches of (a),
-    summary)."""
+    card as a (2, 2) mesh at reduced width, the tensor-parallel cases'
+    peaks counted first on a fake group of four.  Returns (launches of
+    (a), summary)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
@@ -4106,7 +4244,8 @@ def sharded_phase(dev):
     summary["full_width_seconds"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    summary["gloo"] = _sharded_gloo_phase()
+    counted = _tp_counted_peaks(dev)
+    summary["gloo"] = _sharded_gloo_phase(counted)
     summary["seconds"] = time.perf_counter() - t0
     print(f"sharded phase: {summary['seconds']:.1f} s ((a) "
           f"{summary['full_width_seconds']:.1f} s, (b) "

@@ -27,15 +27,20 @@ optimizer state and the server state by ``launch.sharding``'s specs
 (``state_from_numpy(..., mesh=, specs=)`` cuts them from global trees;
 ``init_server_state(..., local=True)`` makes the rank's server state),
 runs its batch rows through the model with each block's weights
-gathered inside the checkpointed block function (``models.parallel``),
-averages the float32 gradients over the batch axes (a reduce-scatter
-along the dimension the batch axes split, else an all-reduce), keeps its
-blocks, and runs the reference's per-shard server phase on them: one
+gathered over the FSDP axes inside the checkpointed block function
+(``models.parallel``) — and over ``model`` too where the part they
+belong to does not split (``parallel.tp_split``): the split parts
+compute only the rank's heads, hidden units, SSM heads or vocabulary
+block —, reduce-scatters each block's gradient over the batch axes in
+the backward pass into float32 accumulators of its local shape (leaves
+gathered over no batch axis are all-reduced once, at the end), and runs
+the reference's per-shard server phase on its blocks: one
 ``fairk_update`` over its ``d_packed`` with ``reduce_axes`` = every mesh
 axis and ``n_clients`` the number of batch shards, then the optimizer in
-place.  ``sequence_parallel`` keeps the residual between blocks as the
-rank's slice of the sequence over ``model``; ``_with_expert_axis`` pins
-the experts to ``model`` (each rank runs its ``E/M`` experts).  The
+place.  ``sequence_parallel`` keeps the residual as the rank's slice of
+the sequence over ``model`` (gathered on entry to each sub-layer and
+reduce-scattered on its exit); ``_with_expert_axis`` pins the experts to
+``model`` (each rank runs its ``E/M`` experts).  The
 sharded prefill and serve steps keep the caches by ``cache_pspecs``.
 A bundle built on a mesh carries the reference's ``in_shardings`` and
 ``out_shardings`` as spec trees (``in_specs`` / ``out_specs``).
@@ -84,7 +89,7 @@ from repro_torch.launch import sharding
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.launch.sharding import P
 from repro_torch.models import transformer as tr
-from repro_torch.models.parallel import Parallel, gather_param
+from repro_torch.models.parallel import Parallel, gather_param, tp_split
 from repro_torch.optim import make_optimizer
 
 Tensor = torch.Tensor
@@ -600,6 +605,8 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
     GLOBAL ``batch`` (n_micro, mb, ...), of which the rank runs its rows
     (its row-major block over the batch axes when they divide ``mb``,
     else every row); the loss is the global mean, equal on every rank.
+    The parts of ``cfg`` that ``parallel.tp_split`` finds split over
+    ``model`` compute the rank's part (``meta["tensor_parallel"]``), and
     ``sequence_parallel`` slices the residual over ``model`` when it has
     more than one rank."""
     grid = _ONE_RANK if mesh is None else mesh
@@ -615,11 +622,13 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
             f"client_chunk must divide n_micro ({n_micro}), got "
             f"{client_chunk}")
     rows = collectives.spread(grid, b_axes) if mb % n_shards == 0 else ()
+    gdt = getattr(torch, gather_dtype) if gather_dtype else None
+    # the dtype a block's gradient is reduce-scattered in
+    rs_dtype = gdt or torch.float32
     opt = make_optimizer(opt_name or cfg.optimizer, lr)
     _check_oac(oac)
     meta = _meta(cfg, shape, oac, n_micro, mb, client_chunk, opt_name, lr,
                  gather_dtype)
-    gdt = getattr(torch, gather_dtype) if gather_dtype else None
     inv_micro = reciprocal(n_micro)
     inv_shards = reciprocal(n_shards)
 
@@ -627,31 +636,32 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
     p_specs = sharding.param_pspecs(params_abs, cfg, grid)
     pairs = tree_util.leaves(params_abs)
     paths = [pa for pa, _ in pairs]
-    pinned = cfg.expert_shard_axis == "model"
-    plan = _gather_plan(params_abs, p_specs, pinned, grid)
-    # the gathered dims of each leaf, counted in the whole (stacked) leaf;
-    # the accumulators have the leaves' gathered shapes (a pinned expert
-    # leaf keeps the rank's experts)
-    gathered = [[(d + (stack is not None), axes) for d, axes in pl]
-                for stack, pl in plan]
-    acc_shapes = []
-    for (_, x), spec, gl in zip(pairs, sharding.spec_leaves(p_specs),
-                                gathered):
-        dims = list(sharding.local_shape(x.shape, spec, grid))
-        for d, axes in gl:
-            dims[d] *= collectives.axis_size(grid, axes)
-        acc_shapes.append(tuple(dims))
+    split = tp_split(cfg, grid)
+    # the rank runs its experts where they are pinned, and wherever the
+    # spec splits them over ``model``
+    pinned = cfg.expert_shard_axis == "model" or "experts" in split
+    plan = _gather_plan(params_abs, p_specs, pinned, grid, split)
+    # the accumulators have the leaves' local shapes
+    acc_shapes = [sharding.local_shape(x.shape, spec, grid)
+                  for (_, x), spec in zip(pairs,
+                                          sharding.spec_leaves(p_specs))]
+    # the leaves whose gradient the backward pass reduce-scatters over the
+    # batch axes (a dimension gathered over ``rows``)
+    scattered = [bool(rows) and any(axes == rows for _, axes in pl)
+                 for _, pl in plan]
     seq_sp = _text_len(cfg, shape.seq_len) + (cfg.n_patches or 0)
     model = collectives.spread(grid, ("model",))
     seq = (model if sequence_parallel
            and seq_sp % collectives.axis_size(grid, ("model",)) == 0 else ())
     experts = model if pinned else ()
+    tp = model if split else ()
     loss_axes = collectives.spread(grid, collectives.axis_names(grid))
     if mesh is not None:
         meta.update(mesh_shape=tuple(mesh.shape),
                     mesh_axes=collectives.axis_names(mesh),
                     rows_sharded=bool(rows), sequence_parallel=bool(seq),
-                    expert_shard_axis=cfg.expert_shard_axis)
+                    expert_shard_axis=cfg.expert_shard_axis,
+                    tensor_parallel=sorted(split))
 
     def my_rows(x):
         if not rows:
@@ -661,30 +671,21 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
         return x[r0:r0 + n]
 
     def reduce_grad(g, k):
-        """The float32 mean over the batch axes of the rank's gathered
-        gradient, cut to the rank's block: a reduce-scatter along the
-        dimension the batch axes split, else an all-reduce."""
-        split = [d for d, axes in gathered[k] if axes == rows]
-        done = None
-        if rows and split:
-            done = split[0]
-            g = collectives.reduce_scatter_dim(g, grid, rows, done)
-            g = g * inv_shards
-        elif rows:
-            g = collectives.pmean(g, grid, rows)
-        for d, axes in gathered[k]:
-            if d != done:
-                size = g.shape[d] // collectives.axis_size(grid, axes)
-                g = g.narrow(d, sharding.block_index(grid, axes) * size,
-                             size)
-        return g
+        """The rank's summed gradient -> its mean over the batch axes: a
+        leaf reduce-scattered block by block takes the factor, the others
+        (gathered over no batch axis) are all-reduced here."""
+        if not rows:
+            return g
+        if scattered[k]:
+            return g * inv_shards
+        return collectives.pmean(g, grid, rows)
 
     def grads_fn(params, batch):
         """The global mean loss and the rank's blocks of the mean
         gradients over the microbatches and the batch axes (float32
-        accumulators; a gathered block's gradient is added as the
-        backward pass leaves it; a chunk's gradients are summed before
-        they join)."""
+        accumulators of the local shapes; a gathered block's gradient is
+        reduce-scattered and added as the backward pass leaves it; a
+        chunk's gradients are summed before they join)."""
         local = [p for _, p in tree_util.leaves(params)]
         acc = [torch.zeros(sh, dtype=torch.float32, device=p.device)
                for sh, p in zip(acc_shapes, local)]
@@ -701,11 +702,14 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
                            and p.dim() > 1 else p.detach())
                           .requires_grad_(True) for p in local]
                     whole = [x if plan[k][0] is not None
-                             else gather_param(x, grid, plan[k][1], sinks[k])
+                             else gather_param(x, grid, plan[k][1], sinks[k],
+                                               rows, rs_dtype)
                              for k, x in enumerate(xs)]
                     par = Parallel(grid, rows=rows, seq=seq, experts=experts,
+                                   tp=tp, split=split,
                                    gather=_block_gather(grid, paths, plan,
-                                                        sinks))
+                                                        sinks, rows,
+                                                        rs_dtype))
                     loss, _ = tr.loss_fn(tree_util.unflatten(paths, whole),
                                          cfg, mbatch, par=par)
                     gs = torch.autograd.grad(loss, xs, allow_unused=True)
@@ -809,12 +813,37 @@ def _is_expert(path_s: str, ndim: int) -> bool:
     return "/ffn/" in path_s and ndim == 4 and "router" not in path_s
 
 
-def _gather_plan(params_abs: Any, p_specs: Any, pinned: bool, mesh
-                 ) -> list:
+# the leaves of each part that ``parallel.tp_split`` can split: the
+# rank computes with its block of them along ``model``
+_TP_LEAVES = {
+    "attn": ("mixer/wq/w", "mixer/wo/w", "cross/wq/w", "cross/wo/w"),
+    "ffn": ("ffn/wg/w", "ffn/wu/w", "ffn/wd/w", "dense_ffn/wg/w",
+            "dense_ffn/wu/w", "dense_ffn/wd/w"),
+    "ssm": ("mixer/wz/w", "mixer/wx/w", "mixer/wdt/w", "mixer/out_proj/w",
+            "mixer/conv_x_w", "mixer/conv_x_b", "mixer/a_log",
+            "mixer/d_skip", "mixer/dt_bias"),
+    "vocab": ("embed", "head/w"),
+}
+
+
+def _tp_part(path_s: str, ndim: int) -> Optional[str]:
+    """The split part a leaf belongs to (None: it is used whole)."""
+    if _is_expert(path_s, ndim):
+        return "moe"
+    for part, ends in _TP_LEAVES.items():
+        if any(path_s == e or path_s.endswith("/" + e) for e in ends):
+            return part
+    return None
+
+
+def _gather_plan(params_abs: Any, p_specs: Any, pinned: bool, mesh,
+                 split: frozenset = frozenset()) -> list:
     """Per leaf (in ``tree.leaves`` order): (stack name or None, the
     ``(dim, axes)`` pairs to gather over, axes of one rank left out).  A
     stacked leaf is gathered per block, so its dims count from the block;
-    a pinned expert leaf keeps its experts split over ``model``."""
+    a pinned expert leaf keeps its experts split over ``model``, and so
+    does a leaf of a part in ``split`` (``parallel.tp_split``) its
+    ``model`` block, whose dimension the spec must split over ``model``."""
     plan = []
     for (path, leaf), spec in zip(tree_util.leaves(params_abs),
                                   sharding.spec_leaves(p_specs)):
@@ -823,10 +852,16 @@ def _gather_plan(params_abs: Any, p_specs: Any, pinned: bool, mesh
         entries = list(tuple(spec))
         if stack is not None:
             entries = entries[1:]
+        part = _tp_part(s, leaf.dim())
+        local = part is not None and part in split
+        if local and not any("model" in collectives.spread(
+                mesh, sharding.entry_axes(e)) for e in entries):
+            raise ValueError(f"{s}: the spec {spec} does not split the "
+                             f"{part!r} part over 'model'")
         pairs = []
         for dim, entry in enumerate(entries):
             axes = collectives.spread(mesh, sharding.entry_axes(entry))
-            if pinned and dim == 0 and _is_expert(s, leaf.dim()):
+            if local or (pinned and dim == 0 and _is_expert(s, leaf.dim())):
                 axes = tuple(a for a in axes if a != "model")
             if axes:
                 pairs.append((dim, axes))
@@ -834,20 +869,22 @@ def _gather_plan(params_abs: Any, p_specs: Any, pinned: bool, mesh
     return plan
 
 
-def _block_gather(mesh, paths, plan, sinks):
-    """``Parallel.gather``: block ``i`` of stack ``stack`` gathered, each
-    gathered leaf's gradient into ``sinks[k][i]`` (None: no gradient)."""
+def _block_gather(mesh, paths, plan, sinks, rows=(), dtype=torch.float32):
+    """``Parallel.gather``: the subtree at ``prefix`` of block ``i`` of
+    stack ``stack`` gathered, each gathered leaf's gradient
+    reduce-scattered over ``rows`` in ``dtype`` into ``sinks[k][i]``
+    (None: no gradient)."""
     index = {pa: k for k, pa in enumerate(paths)}
 
-    def gather(tree, stack, i):
+    def gather(tree, stack, i, prefix=()):
         pairs = tree_util.leaves(tree)
         out = []
         for path, x in pairs:
-            k = index[(stack,) + tuple(path)]
+            k = index[(stack,) + tuple(prefix) + tuple(path)]
             entries = plan[k][1]
             sink = (sinks[k][i] if sinks is not None and entries
                     else None)
-            out.append(gather_param(x, mesh, entries, sink))
+            out.append(gather_param(x, mesh, entries, sink, rows, dtype))
         return tree_util.unflatten([pa for pa, _ in pairs], out)
     return gather
 

@@ -28,6 +28,16 @@ channels and the recurrent step on its heads, and gathers each before
 the next stage needs the whole width (the per-head outputs before the
 gated norm and ``out_proj``); prefilling runs on the whole carries and
 keeps the rank's blocks.
+
+In training the layer takes the residual's layout and gives it back
+(``models.parallel``); where "ssm" splits over ``model`` the rank
+computes its SSM heads: ``wz`` / ``wx`` / ``wdt`` by columns, the
+``conv_x`` channels, ``a_log`` / ``d_skip`` / ``dt_bias`` by heads and
+``out_proj`` by rows arrive as its blocks; ``wbc`` and the B, C
+convolution stay replicated (their gradients summed over ``model``) and
+each head reads its group; the gated RMSNorm over ``d_inner`` takes its
+sum of squares as a float32 all-reduce over ``model`` and the rank's
+slice of its scale.
 """
 
 from __future__ import annotations
@@ -41,6 +51,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collectives import all_gather_dim
 from repro_torch.models.layers import (_normal, dense, dense_init, gen_device,
                                        rmsnorm, rmsnorm_init)
+from repro_torch.models.parallel import (block_of, enter, leave,
+                                         narrow_block, slice_dim, splits,
+                                         sum_both)
 
 Tensor = torch.Tensor
 
@@ -214,7 +227,6 @@ def _split_prefill(p: Dict, x: Tensor, cfg: ModelConfig, cache: Dict, par
                    ) -> Tuple[Tensor, Dict]:
     """Prefill against split carries: the whole carries gathered, the
     layer run, the rank's blocks of the new ones kept."""
-    from repro_torch.models.parallel import narrow_block
     mesh = par.mesh
     whole = dict(cache)
     if par.ssm:
@@ -238,6 +250,17 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     if (ssm_axes or conv_axes) and not decode:
         return _split_prefill(p, x, cfg, cache, par)
     cdt = _dtype(cfg.compute_dtype)
+    dt_out = x.dtype
+    train = cache is None and not decode
+    if train:
+        x = enter(par, x, "ssm")
+    split = train and splits(par, "ssm")
+    n_heads = cfg.ssm_heads
+    if split:
+        p = dict(p)
+        for name in ("wbc", "conv_bc_w", "conv_bc_b"):
+            p[name] = _tree_partial(p[name], par)
+        n_heads //= par.tp_index()[1]
     g_, n_ = cfg.ssm_groups, cfg.ssm_state
     z = dense(p["wz"], x, cdt)
     xc = dense(p["wx"], x, cdt)
@@ -249,7 +272,6 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     a = -torch.exp(p["a_log"])                                  # (H,)
 
     if conv_axes:
-        from repro_torch.models.parallel import block_of
         n_c = cache["conv_x"].shape[-1]
         c0 = block_of(par.mesh, conv_axes) * n_c
         xc, new_conv_x = _causal_conv(
@@ -263,14 +285,19 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     bc, new_conv_bc = _causal_conv(
         bc, p["conv_bc_w"].to(cdt), p["conv_bc_b"].to(cdt),
         cache["conv_bc"] if cache is not None else None)
-    xh = xc.reshape(xc.shape[:-1] + (cfg.ssm_heads, cfg.ssm_head_dim))
-    b = _expand_groups(bc[..., :g_ * n_].reshape(bc.shape[:-1] + (g_, n_)),
-                       cfg.ssm_heads)
-    c = _expand_groups(bc[..., g_ * n_:].reshape(bc.shape[:-1] + (g_, n_)),
-                       cfg.ssm_heads)
+    xh = xc.reshape(xc.shape[:-1] + (n_heads, cfg.ssm_head_dim))
+    b = bc[..., :g_ * n_].reshape(bc.shape[:-1] + (g_, n_))
+    c = bc[..., g_ * n_:].reshape(bc.shape[:-1] + (g_, n_))
+    if split:
+        # the groups the rank's heads read
+        h0 = par.tp_index()[0] * n_heads
+        group = (torch.arange(h0, h0 + n_heads, device=x.device) * g_
+                 ) // cfg.ssm_heads
+        b, c = b.index_select(-2, group), c.index_select(-2, group)
+    else:
+        b, c = _expand_groups(b, n_heads), _expand_groups(c, n_heads)
 
     if decode and ssm_axes:
-        from repro_torch.models.parallel import block_of
         n_h = cache["ssm"].shape[1]
         h = slice(block_of(par.mesh, ssm_axes) * n_h, None)
         h = slice(h.start, h.start + n_h)
@@ -286,12 +313,35 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
                                  cache["ssm"] if cache is not None else None)
 
     y = y + p["d_skip"][:, None] * xh.to(torch.float32)
-    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
-    y = rmsnorm(p["norm"], y * F.silu(z.to(torch.float32)), cfg.norm_eps)
+    y = y.reshape(x.shape[0], x.shape[1], n_heads * cfg.ssm_head_dim)
+    if split:
+        y = _split_gated_norm(p["norm"], y * F.silu(z.to(torch.float32)),
+                              cfg, par)
+    else:
+        y = rmsnorm(p["norm"], y * F.silu(z.to(torch.float32)),
+                    cfg.norm_eps)
     out = dense(p["out_proj"], y, cdt)
+    if train:
+        out = leave(par, out, "ssm")
     new_cache = None
     if cache is not None or decode:
         ssm_dtype = x.dtype if cache is None else cache["ssm"].dtype
         new_cache = {"ssm": new_ssm.to(ssm_dtype), "conv_x": new_conv_x,
                      "conv_bc": new_conv_bc}
-    return out.to(x.dtype), new_cache
+    return out.to(dt_out), new_cache
+
+
+def _tree_partial(t, par):
+    return ({k: par.partial(v) for k, v in t.items()} if isinstance(t, dict)
+            else par.partial(t))
+
+
+def _split_gated_norm(p: Dict, y: Tensor, cfg: ModelConfig, par) -> Tensor:
+    """The gated RMSNorm of the rank's channels of ``y`` (float32): the
+    mean square over the whole ``d_inner`` from a float32 all-reduce of
+    the sums of squares, times the rank's slice of the scale."""
+    total = sum_both(torch.sum(torch.square(y), dim=-1, keepdim=True),
+                     par.mesh, par.tp)
+    scale = slice_dim(p["scale"], par.mesh, par.tp, 0)
+    return (y * torch.rsqrt(total / cfg.d_inner + cfg.norm_eps)
+            * scale.to(torch.float32))

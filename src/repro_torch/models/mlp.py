@@ -1,5 +1,10 @@
 """Feed-forward blocks (``repro.models.mlp``): SwiGLU (llama family) and
-GeLU (whisper / bigcode; ``jax.nn.gelu``'s default, the tanh form)."""
+GeLU (whisper / bigcode; ``jax.nn.gelu``'s default, the tanh form).
+
+On a mesh (``par``) the block takes the residual's layout and gives it
+back (``models.parallel``); where "ffn" splits over ``model`` the rank
+holds its hidden units — ``wg`` / ``wu`` by columns (their bias sliced),
+``wd`` by rows, its output summed over ``model`` before ``wd``'s bias."""
 
 from __future__ import annotations
 
@@ -9,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense, dense_init
+from repro_torch.models.parallel import enter, leave, slice_dim, splits
 
 Tensor = torch.Tensor
 
@@ -32,10 +38,27 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
     raise ValueError(f"unknown mlp_type {mlp_type!r}")
 
 
-def mlp(p: Dict, x: Tensor, mlp_type: str, compute_dtype) -> Tensor:
+def mlp(p: Dict, x: Tensor, mlp_type: str, compute_dtype, par=None
+        ) -> Tensor:
+    split = splits(par, "ffn")
+    x = enter(par, x, "ffn")
+    bias_d = None
+    if split:
+        p = dict(p)
+        if "b" in p["wu"]:
+            p["wu"] = {"w": p["wu"]["w"],
+                       "b": slice_dim(p["wu"]["b"], par.mesh, par.tp, 0)}
+        if "b" in p["wd"]:
+            bias_d = par.on_slice(p["wd"]["b"])
+            p["wd"] = {"w": p["wd"]["w"]}
     if mlp_type == "swiglu":
         gate = F.silu(dense(p["wg"], x, compute_dtype))
         up = dense(p["wu"], x, compute_dtype)
-        return dense(p["wd"], gate * up, compute_dtype)
-    up = F.gelu(dense(p["wu"], x, compute_dtype), approximate="tanh")
-    return dense(p["wd"], up, compute_dtype)
+        y = dense(p["wd"], gate * up, compute_dtype)
+    else:
+        up = F.gelu(dense(p["wu"], x, compute_dtype), approximate="tanh")
+        y = dense(p["wd"], up, compute_dtype)
+    y = leave(par, y, "ffn")
+    if bias_d is not None:
+        y = y + bias_d.to(compute_dtype)
+    return y

@@ -28,7 +28,14 @@ rank's ``E/M`` experts: the dispatched ``(B, E, C, D)`` input keeps the
 rank's experts' slots, only those run, and their outputs are gathered
 back (the gather's backward keeps the rank's slots of the gradient, the
 slice's gathers them, so every rank holds the same activations and
-gradients).
+gradients).  Where the experts do not divide ``model`` and "moe" splits
+(``par.split``), the reference's fallback spec splits ``wg`` / ``wu`` by
+their hidden columns and ``wd`` by its output columns (the expert leaf's
+path ``ffn/wd`` misses the row rule of ``ffn/wd/w``), so each rank holds
+every expert's block of both: the dispatched input and the gates enter
+whole (their gradients summed over ``model``), the rank's hidden units
+are gathered over ``model`` before ``wd`` (their gradient
+reduce-scattered back), and the rank's output columns after the combine.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _normal, dense_init
+from repro_torch.models.parallel import gather_dim, gather_seq, slice_dim
 
 Tensor = torch.Tensor
 
@@ -118,8 +126,10 @@ def moe_ffn(p: Dict, x: Tensor, *, top_k: int, capacity_factor: float,
         (row.reshape(-1),), src.reshape(-1, d), accumulate=True)
     expert_in = expert_in.reshape(b, n_experts, cap, d)
     pinned = par is not None and par.experts
+    split = par is not None and par.splits("moe")
+    if split:
+        expert_in = par.partial(expert_in)
     if pinned:
-        from repro_torch.models.parallel import slice_dim
         expert_in = slice_dim(expert_in, par.mesh, par.experts, 1)
 
     if mlp_type == "swiglu":
@@ -130,17 +140,23 @@ def moe_ffn(p: Dict, x: Tensor, *, top_k: int, capacity_factor: float,
     else:
         hidden = F.gelu(torch.einsum("becd,edf->becf", expert_in,
                                      p["wu"].to(cdt)), approximate="tanh")
+    if split:
+        hidden = gather_seq(hidden, par.mesh, par.tp, -1)
     expert_out = torch.einsum("becf,efd->becd", hidden, p["wd"].to(cdt))
     if pinned:
-        from repro_torch.models.parallel import gather_dim
         expert_out = gather_dim(expert_out, par.mesh, par.experts, 1)
 
     # combine: each token's K expert rows, weighted by its gate in the
     # compute dtype, summed in float32 and rounded once
-    picked = expert_out.reshape(b * n_experts * cap, d)[row.reshape(-1)]
+    picked = expert_out.reshape(b * n_experts * cap, -1)[row.reshape(-1)]
     weight = torch.where(kept, gates.to(cdt), 0.0).to(torch.float32)
-    out = (picked.reshape(b, s, top_k, d).to(torch.float32)
+    if split:
+        weight = par.partial(weight)
+    d_out = expert_out.shape[-1]
+    out = (picked.reshape(b, s, top_k, d_out).to(torch.float32)
            * weight[..., None]).sum(2).to(cdt)
+    if split:
+        out = gather_dim(out, par.mesh, par.tp, -1)
 
     # Switch-transformer load-balance auxiliary loss
     frac_tokens = (expert[..., 0:1] == torch.arange(

@@ -10,11 +10,12 @@ where nothing here runs):
   token fractions are averaged over them, so the loss is the global
   batch's; single-token MoE decoding routes the whole batch (the
   reference's one routing group), gathered over them.
-* ``gather(tree, stack, i)``: block ``i`` of the parameter stack
-  ``stack`` ("blocks", "enc_blocks") from the rank's local blocks of its
-  leaves, gathered over the axes that split them — inside the
-  checkpointed block function, so full weights live one block at a time
-  and are gathered again when the backward pass recomputes the block.
+* ``gather(tree, stack, i, prefix)``: block ``i`` of the parameter stack
+  ``stack`` ("blocks", "enc_blocks") — the layer at ``prefix`` in it —
+  from the rank's local blocks of its leaves, gathered over the axes
+  that split them inside the layer's (checkpointed) function, so full
+  weights live one layer at a time and are gathered again when the
+  backward pass recomputes the layer.
 * ``seq``: sequence parallelism — the residual carried (and saved)
   between blocks is the rank's slice of the sequence over these axes;
   each block gathers it back on entry and keeps its slice on exit.
@@ -24,10 +25,32 @@ where nothing here runs):
   cache's capacity, a cross-attention cache's frames, the SSM state's
   heads and the ``conv_x`` carry's channels.
 
-The activations and their gradients are equal on every rank of one row
-of the mesh: a gather's backward keeps the rank's block of the gradient
-and a slice's backward gathers the blocks back, both exact, so no
-gradient is summed inside the model.
+* ``tp`` and ``split``: tensor parallelism over ``model`` in the train
+  step — the parts of the model named in ``split`` ("attn", "ffn",
+  "experts", "moe", "ssm", "vocab"; ``tp_split``) arrive as the rank's block of
+  their matmul weights along the TP dimension of the reference's spec,
+  and each rank computes only its part.
+
+Outside a split part the activations and their gradients are equal on
+every rank of one row of the mesh: a gather's backward keeps the rank's
+block of the gradient and a slice's backward gathers the blocks back.  A
+split part is a region (Megatron's column- then row-parallel pair): it
+is entered through ``enter`` (forward the input whole, backward the sum
+over ``tp`` of the ranks' partial gradients; under sequence parallelism
+an all-gather of the sequence slice whose backward is a reduce-scatter)
+and left through ``leave`` (forward the sum over ``tp`` of the ranks'
+partial outputs, or its reduce-scatter over the sequence; backward the
+gradient whole).  Inside a region a replicated weight's gradient is the
+rank's partial one: ``partial`` sums it over ``tp``.  Under sequence
+parallelism the residual stays the rank's slice of the sequence through
+the block, so the norms that run on it see a partial gradient too
+(``on_slice``).
+
+The step's gradients leave the model block by block: the backward pass
+of ``gather_param`` reduce-scatters a gathered block's gradient over the
+batch axes it was gathered over (the FSDP pair of the forward
+all-gather), keeps the rank's block along the others, and adds it in
+float32 into the step's accumulator of the rank's local shape.
 """
 
 from __future__ import annotations
@@ -102,32 +125,203 @@ def _gather_entries(x: Tensor, mesh, entries) -> Tensor:
     return x
 
 
+def scatter_grad(g: Tensor, mesh, entries, rows: Tuple[str, ...],
+                 dtype=torch.float32) -> Tensor:
+    """A gathered block's gradient -> the rank's block: narrowed to the
+    rank's block along every gathered dimension but the one gathered over
+    ``rows`` (the batch axes), which is reduce-scattered over them in
+    ``dtype`` (the rank's rows' gradient summed with the other rows')."""
+    rs = None
+    for dim, axes in entries:
+        if rows and tuple(axes) == tuple(rows):
+            rs = dim
+        else:
+            g = narrow_block(g, mesh, axes, dim)
+    g = g.to(dtype)
+    if rs is not None:
+        g = collectives.reduce_scatter_dim(g, mesh, rows, rs)
+    return g
+
+
 class _GatherInto(torch.autograd.Function):
     """A parameter block gathered over the axes of its spec; the backward
-    pass adds the whole block's gradient, in float32, into ``sink`` (the
-    step's accumulator) and hands nothing on."""
+    pass reduce-scatters the block's gradient over ``rows`` and keeps the
+    rank's block along the other gathered dimensions (``scatter_grad``),
+    adds it in float32 into ``sink`` (the step's accumulator of the rank's
+    local shape) and hands nothing on."""
 
     @staticmethod
-    def forward(ctx, x, sink, mesh, entries):
-        ctx.sink = sink
+    def forward(ctx, x, sink, mesh, entries, rows, dtype):
+        ctx.meta = (sink, mesh, entries, rows, dtype)
         return _gather_entries(x, mesh, entries)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.sink is not None:
-            ctx.sink.add_(g.to(torch.float32))
-        return None, None, None, None
+        sink, mesh, entries, rows, dtype = ctx.meta
+        if sink is not None:
+            sink.add_(scatter_grad(g, mesh, entries, rows, dtype)
+                      .to(torch.float32))
+        return None, None, None, None, None, None
 
 
-def gather_param(x: Tensor, mesh, entries, sink: Optional[Tensor]) -> Tensor:
+def gather_param(x: Tensor, mesh, entries, sink: Optional[Tensor],
+                 rows: Tuple[str, ...] = (), dtype=torch.float32) -> Tensor:
     """``x`` (a rank's block) gathered over ``entries`` ((dim, axes) pairs);
-    with autograd on, its gradient lands in ``sink``.  With no entries
-    ``x`` itself, whose gradient autograd hands back to the caller."""
+    with autograd on, the rank's block of its gradient (``scatter_grad``
+    over ``rows`` in ``dtype``) lands in ``sink``.  With no entries ``x``
+    itself, whose gradient autograd hands back to the caller."""
     if not entries:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        return _GatherInto.apply(x, sink, mesh, entries)
+        return _GatherInto.apply(x, sink, mesh, entries, tuple(rows), dtype)
     return _gather_entries(x, mesh, entries)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+def _summed(x: Tensor, mesh, axes) -> Tensor:
+    return collectives.psum(x.clone(memory_format=torch.contiguous_format),
+                            mesh, axes)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Column-parallel input: forward ``x``; backward the sum over ``axes``
+    of the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.meta = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.meta
+        return _summed(g, mesh, axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Row-parallel output: forward the sum over ``axes`` of the ranks'
+    partial outputs; backward the gradient (equal on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _summed(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBoth(torch.autograd.Function):
+    """A sum over ``axes`` inside a region (a statistic every rank's
+    partial output depends on): summed forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.meta = (mesh, axes)
+        return _summed(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.meta
+        return _summed(g, mesh, axes), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Sequence-parallel column input (and any dimension a region needs
+    whole, as the MoE fallback's hidden units): forward the whole
+    dimension from the ranks' blocks; backward the reduce-scatter of the
+    partial gradients (each rank keeps its block, summed over the
+    ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.meta = (mesh, axes, dim)
+        return collectives.all_gather_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.meta
+        return (collectives.reduce_scatter_dim(g, mesh, axes, dim),
+                None, None, None)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Sequence-parallel row output: forward the ranks' partial outputs
+    summed, each rank keeping its slice of the sequence; backward the
+    gradient's slices gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.meta = (mesh, axes, dim)
+        return collectives.reduce_scatter_dim(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.meta
+        return (collectives.all_gather_dim(g.contiguous(), mesh, axes, dim),
+                None, None, None)
+
+
+def copy_to(x: Tensor, mesh, axes) -> Tensor:
+    return _CopyTo.apply(x, mesh, tuple(axes)) if axes else x
+
+
+def reduce_from(x: Tensor, mesh, axes) -> Tensor:
+    return _ReduceFrom.apply(x, mesh, tuple(axes)) if axes else x
+
+
+def sum_both(x: Tensor, mesh, axes) -> Tensor:
+    return _SumBoth.apply(x, mesh, tuple(axes)) if axes else x
+
+
+def gather_seq(x: Tensor, mesh, axes, dim: int = 1) -> Tensor:
+    return _GatherSeq.apply(x, mesh, tuple(axes), dim) if axes else x
+
+
+def scatter_seq(x: Tensor, mesh, axes, dim: int = 1) -> Tensor:
+    return _ScatterSeq.apply(x, mesh, tuple(axes), dim) if axes else x
+
+
+def heads_split(n_heads: int, n_kv: int, m: int) -> bool:
+    """Whether ``n_heads`` split into whole heads over ``m`` ranks with
+    every rank's heads reading a contiguous run of whole kv groups."""
+    if not n_heads or n_heads % m:
+        return False
+    per, hpg = n_heads // m, n_heads // max(n_kv, 1)
+    return per % hpg == 0 or hpg % per == 0
+
+
+def tp_split(cfg, mesh) -> frozenset:
+    """The parts of ``cfg`` that split over ``model`` on ``mesh`` (none
+    when ``model`` has one rank): "attn" where the heads split whole
+    (``heads_split``), "ffn" (dense MLPs) where ``d_ff`` divides,
+    "experts" where the experts divide (each rank runs its experts, as
+    under the expert pin, which the reference sets only from two experts
+    a rank on), else "moe" where ``moe_d_ff`` divides, "ssm" where the
+    SSM heads divide, "vocab" where the vocabulary divides — each where
+    the reference's spec puts ``model`` on that dimension."""
+    m = collectives.axis_size(mesh, collectives.spread(mesh, ("model",)))
+    if m == 1:
+        return frozenset()
+    parts = set()
+    if heads_split(cfg.n_heads, cfg.n_kv_heads, m):
+        parts.add("attn")
+    dense_ffn = cfg.dense_residual or not all(
+        cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    if cfg.d_ff and dense_ffn and cfg.d_ff % m == 0:
+        parts.add("ffn")
+    if cfg.n_experts and cfg.n_experts % m == 0:
+        parts.add("experts")
+    elif cfg.n_experts and cfg.moe_d_ff % m == 0:
+        parts.add("moe")
+    if cfg.ssm_state and cfg.ssm_heads % m == 0:
+        parts.add("ssm")
+    if cfg.vocab % m == 0:
+        parts.add("vocab")
+    return frozenset(parts)
 
 
 @dataclasses.dataclass
@@ -141,9 +335,14 @@ class Parallel:
     cross: Tuple[str, ...] = ()
     ssm: Tuple[str, ...] = ()
     conv: Tuple[str, ...] = ()
+    tp: Tuple[str, ...] = ()
+    split: frozenset = frozenset()
 
-    def block_params(self, tree, stack: str, i: int):
-        return tree if self.gather is None else self.gather(tree, stack, i)
+    def block_params(self, tree, stack: str, i: int, prefix=()):
+        """Block ``i`` of ``stack`` (the subtree at ``prefix`` in it) from
+        the rank's blocks of its leaves, gathered."""
+        return (tree if self.gather is None
+                else self.gather(tree, stack, i, prefix))
 
     def row_mean(self, x: Tensor) -> Tensor:
         """``x`` (a mean over the rank's rows) averaged over the row axes
@@ -158,6 +357,60 @@ class Parallel:
     def my_rows(self, x: Tensor) -> Tensor:
         return narrow_block(x, self.mesh, self.rows, 0)
 
+    # -- the regions of tensor parallelism --------------------------------
+
+    def splits(self, part: str) -> bool:
+        return part in self.split
+
+    def tp_index(self) -> Tuple[int, int]:
+        """(this rank's index over ``tp``, the number of ranks)."""
+        return (block_of(self.mesh, self.tp),
+                collectives.axis_size(self.mesh, self.tp))
+
+    def enter(self, x: Tensor, part: Optional[str]) -> Tensor:
+        """A sub-layer's input (the residual's layout: the rank's slice of
+        the sequence under ``seq``) -> what the sub-layer runs on: the
+        region's input when ``part`` splits, else the whole sequence."""
+        if part is not None and self.splits(part):
+            if self.seq:
+                return gather_seq(x, self.mesh, self.seq, 1)
+            return copy_to(x, self.mesh, self.tp)
+        return gather_dim(x, self.mesh, self.seq, 1)
+
+    def leave(self, y: Tensor, part: Optional[str]) -> Tensor:
+        """A sub-layer's output -> the residual's layout: the region's
+        partial outputs summed when ``part`` splits, else the rank's
+        slice of the whole output."""
+        if part is not None and self.splits(part):
+            if self.seq:
+                return scatter_seq(y, self.mesh, self.seq, 1)
+            return reduce_from(y, self.mesh, self.tp)
+        return slice_dim(y, self.mesh, self.seq, 1)
+
+    def partial(self, w: Tensor) -> Tensor:
+        """A replicated weight used inside a region: its gradient summed
+        over ``tp``."""
+        return copy_to(w, self.mesh, self.tp)
+
+    def on_slice(self, w: Tensor) -> Tensor:
+        """A replicated weight used on the residual's sequence slice: its
+        gradient summed over ``seq``."""
+        return copy_to(w, self.mesh, self.seq)
+
+
+def enter(par: Optional[Parallel], x: Tensor, part: Optional[str]) -> Tensor:
+    return x if par is None else par.enter(x, part)
+
+
+def leave(par: Optional[Parallel], y: Tensor, part: Optional[str]) -> Tensor:
+    return y if par is None else par.leave(y, part)
+
+
+def splits(par: Optional[Parallel], part: str) -> bool:
+    return par is not None and par.splits(part)
+
 
 __all__ = ["Parallel", "gather_dim", "slice_dim", "gather_param",
-           "narrow_block", "block_of"]
+           "scatter_grad", "narrow_block", "block_of", "copy_to",
+           "reduce_from", "sum_both", "gather_seq", "scatter_seq",
+           "heads_split", "tp_split", "enter", "leave", "splits"]

@@ -28,9 +28,19 @@ re-stacked per token), and return them.
 On a mesh every entry point takes ``par`` (``models.parallel.Parallel``):
 the rank runs its batch rows, each block's parameters are gathered from
 the rank's blocks inside the (checkpointed) block function, the residual
-between blocks is the rank's slice of the sequence under sequence
-parallelism, and the caches hold the rank's blocks.  ``par`` None is the
-one-card path, unchanged.
+is the rank's slice of the sequence under sequence parallelism (each
+sub-layer gathers it on entry and leaves its slice on exit), and the
+caches hold the rank's blocks.  In training the parts that split over
+``model`` (``par.split``) compute the rank's part: attention its whole
+heads (``wq`` by columns, ``wo`` by rows, ``wk`` / ``wv`` replicated and
+cut to the kv groups the rank's heads read), the MLP its hidden units,
+and the vocabulary its block — a masked embedding lookup summed over
+``model``, local logits and a vocab-parallel cross-entropy (float32
+all-reduces of the maximum, the sum of exponentials and the target
+logit).  Attention whose heads do not split whole over ``model`` (40,
+56, 14, 24 or 8 heads on 16 ranks) and a vocabulary that does not divide
+stay gathered whole on every rank, where the reference's GSPMD re-tiles
+half heads.  ``par`` None is the one-card path, unchanged.
 
 Public entry points:
   init_lm / init_lm_seeded / init_caches / cache_specs
@@ -42,6 +52,7 @@ Public entry points:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -58,7 +69,10 @@ from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        layernorm_init, rmsnorm, rmsnorm_init)
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_ffn
-from repro_torch.models.parallel import gather_dim, slice_dim
+from repro_torch.core import collectives
+from repro_torch.models.parallel import (enter, gather_dim, leave,
+                                         narrow_block, reduce_from,
+                                         slice_dim, splits)
 
 Tensor = torch.Tensor
 AUX_LOSS_WEIGHT = 0.01
@@ -163,10 +177,13 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
     (S,), "decode" the 0-d position of its one token (the cache written
     in place)."""
     cdt = _dtype(cfg.compute_dtype)
+    dt_out = x.dtype
+    x = enter(par, x, "attn")
     b, s, _ = x.shape
-    q = dense(p["wq"], x, cdt).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = dense(p["wk"], x, cdt).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], x, cdt).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    p, n_h, n_kv = _heads_of(p, cfg, par)
+    q = dense(p["wq"], x, cdt).reshape(b, s, n_h, cfg.head_dim)
+    k = dense(p["wk"], x, cdt).reshape(b, s, n_kv, cfg.head_dim)
+    v = dense(p["wv"], x, cdt).reshape(b, s, n_kv, cfg.head_dim)
     if mode == "decode":
         q = apply_rope(q, pos[None, None], cfg.rope_theta)
         k = apply_rope(k, pos[None, None], cfg.rope_theta)
@@ -187,8 +204,8 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
         if cache is not None:
             mesh, kv = (par.mesh, par.kv) if par is not None else (None, ())
             attn_lib.cache_fill(cache, k, v, pos, mesh, kv)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return dense(p["wo"], out, cdt).to(x.dtype)
+    out = out.reshape(b, s, n_h * cfg.head_dim)
+    return leave(par, dense(p["wo"], out, cdt), "attn").to(dt_out)
 
 
 def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
@@ -198,8 +215,12 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     projection when there is no output (decoding); a given output fills
     the cache in place."""
     cdt = _dtype(cfg.compute_dtype)
+    dt_out = x.dtype
+    x = enter(par, x, "attn")
     b, s, _ = x.shape
-    q = dense(p["wq"], x, cdt).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    split = splits(par, "attn")
+    p, n_h, n_kv = _heads_of(p, cfg, par)
+    q = dense(p["wq"], x, cdt).reshape(b, s, n_h, cfg.head_dim)
     axes = par.cross if par is not None else ()
     if cross_cache is not None and enc_out is None:
         k, v = cross_cache["k"], cross_cache["v"]
@@ -209,12 +230,12 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
             v = gather_dim(v, par.mesh, axes, 1)
     else:
         t = enc_out.shape[1]
-        k = dense(p["wk"], enc_out, cdt).reshape(b, t, cfg.n_kv_heads,
-                                                 cfg.head_dim)
-        v = dense(p["wv"], enc_out, cdt).reshape(b, t, cfg.n_kv_heads,
-                                                 cfg.head_dim)
+        # the encoder's output enters the region: the rank's heads give
+        # it a partial gradient
+        enc = par.partial(enc_out) if split else enc_out
+        k = dense(p["wk"], enc, cdt).reshape(b, t, n_kv, cfg.head_dim)
+        v = dense(p["wv"], enc, cdt).reshape(b, t, n_kv, cfg.head_dim)
         if cross_cache is not None:
-            from repro_torch.models.parallel import narrow_block
             mesh = par.mesh if par is not None else None
             cross_cache["k"].copy_(narrow_block(k, mesh, axes, 1))
             cross_cache["v"].copy_(narrow_block(v, mesh, axes, 1))
@@ -222,8 +243,31 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     qpos = torch.zeros(s, dtype=torch.int32, device=x.device)
     kpos = torch.zeros(k.shape[1], dtype=torch.int32, device=x.device)
     out = attn_lib.chunked_attention(q, k, v, qpos, kpos, causal=False)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return dense(p["wo"], out, cdt).to(x.dtype)
+    out = out.reshape(b, s, n_h * cfg.head_dim)
+    return leave(par, dense(p["wo"], out, cdt), "attn").to(dt_out)
+
+
+def _heads_of(p: Dict, cfg: ModelConfig, par) -> Tuple[Dict, int, int]:
+    """(the projections, heads, kv heads) the rank computes: all of them,
+    or under a split "attn" its whole heads — ``wq`` / ``wo`` arrive as
+    its columns / rows, ``wq``'s bias is sliced, and the replicated
+    ``wk`` / ``wv`` are cut to the kv groups its heads read, their
+    gradients summed over ``model``."""
+    if not splits(par, "attn"):
+        return p, cfg.n_heads, cfg.n_kv_heads
+    r, m = par.tp_index()
+    n_h = cfg.n_heads // m
+    per_group = cfg.n_heads // cfg.n_kv_heads
+    n_kv = max(1, n_h // per_group)
+    cols = ((r * n_h // per_group) * cfg.head_dim, n_kv * cfg.head_dim)
+    out = dict(p)
+    if "b" in p["wq"]:
+        out["wq"] = {"w": p["wq"]["w"],
+                     "b": slice_dim(p["wq"]["b"], par.mesh, par.tp, 0)}
+    for name in ("wk", "wv"):
+        out[name] = {key: par.partial(t).narrow(-1, *cols)
+                     for key, t in p[name].items()}
+    return out, n_h, n_kv
 
 
 # ---------------------------------------------------------------------------
@@ -232,11 +276,17 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
 
 def _apply_layer(p: Dict, x: Tensor, cfg: ModelConfig, i: int, mode: str,
                  cache: Optional[Dict], pos: Tensor, window: int,
-                 enc_out: Optional[Tensor], causal: bool = True, par=None
-                 ) -> Tuple[Tensor, Optional[Tensor]]:
-    """(x, the MoE aux loss or None); ``cache`` is updated in place."""
+                 enc_out: Optional[Tensor], causal: bool = True, par=None,
+                 where=None) -> Tuple[Tensor, Optional[Tensor]]:
+    """(x, the MoE aux loss or None); ``cache`` is updated in place.
+    ``where`` (stack, block): ``p`` is the rank's blocks of the layer's
+    parameters, gathered here — inside the layer's own checkpointed
+    function, so that no checkpoint keeps a gathered weight as its
+    input."""
+    if where is not None:
+        p = par.block_params(p, *where, (i,))
     aux = None
-    h = _norm(cfg, p["norm1"], x)
+    h = _norm(cfg, _on_slice(par, p["norm1"]), x)
     if cfg.layer_kind(i) == "attn":
         mix = _attn_mixer(p["mixer"], h, cfg, mode=mode,
                           cache=cache.get("attn") if cache else None,
@@ -251,45 +301,54 @@ def _apply_layer(p: Dict, x: Tensor, cfg: ModelConfig, i: int, mode: str,
     x = x + mix
     if "cross" in p and (enc_out is not None
                          or (cache is not None and "cross" in cache)):
-        hc = _norm(cfg, p["norm_x"], x)
+        hc = _norm(cfg, _on_slice(par, p["norm_x"]), x)
         x = x + _cross_mixer(p["cross"], hc, cfg, enc_out=enc_out,
                              cross_cache=cache.get("cross") if cache
                              else None, par=par)
     if "ffn" in p:
         cdt = _dtype(cfg.compute_dtype)
-        h2 = _norm(cfg, p["norm2"], x)
+        h2 = _norm(cfg, _on_slice(par, p["norm2"]), x)
         if cfg.layer_is_moe(i):
             route_all = (par is not None and par.rows and mode == "decode"
                          and h2.shape[1] == 1)
-            # single-token decoding routes the whole batch as one group
-            hm = par.gather_rows(h2) if route_all else h2
+            # single-token decoding routes the whole batch as one group;
+            # routing (per row) sees the whole sequence
+            hm = par.gather_rows(h2) if route_all else enter(par, h2, None)
             f, aux = moe_ffn(p["ffn"], hm, top_k=cfg.experts_per_token,
                              capacity_factor=cfg.capacity_factor,
                              mlp_type=cfg.mlp_type, compute_dtype=cdt,
                              decode_mode=(mode == "decode"), par=par)
-            if route_all:
-                f = par.my_rows(f)
+            f = par.my_rows(f) if route_all else leave(par, f, None)
             if cfg.dense_residual:
-                f = f + mlp(p["dense_ffn"], h2, cfg.mlp_type, cdt)
+                f = f + mlp(p["dense_ffn"], h2, cfg.mlp_type, cdt, par)
         else:
-            f = mlp(p["ffn"], h2, cfg.mlp_type, cdt)
+            f = mlp(p["ffn"], h2, cfg.mlp_type, cdt, par)
         x = x + f
     return x, aux
 
 
+def _on_slice(par, norm: Dict) -> Dict:
+    """A norm's parameters as the residual's slice of the sequence uses
+    them (their gradients summed over the sequence's ranks)."""
+    if par is None or not par.seq:
+        return norm
+    return {k: par.on_slice(t) for k, t in norm.items()}
+
+
 def _apply_block(block_params: list, x: Tensor, cfg: ModelConfig, mode: str,
                  block_cache, pos: Tensor, window: int, enc_out,
-                 causal: bool = True, par=None):
+                 causal: bool = True, par=None, where=None):
     """One scan block (``cfg.scan_block`` layers, unrolled) -> (x, aux);
     in training each layer of a multi-layer block is checkpointed on its
     own under ``cfg.remat``, so the block's recompute peaks at one
-    layer's intermediates."""
+    layer's intermediates.  On a rank (``where``: (stack, block)) each
+    layer gathers its parameters itself."""
     nest = cfg.remat and mode == "train" and cfg.scan_block > 1
     aux_total = None
     for j in range(cfg.scan_block):
         args = (block_params[j], x, cfg, j, mode,
                 block_cache[j] if block_cache is not None else None, pos,
-                window, enc_out, causal, par)
+                window, enc_out, causal, par, where)
         if nest:
             x, aux = checkpoint(_apply_layer, *args, use_reentrant=False)
         else:
@@ -310,20 +369,6 @@ def _unbind(tree: Any, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _sharded_block(bp, x, cfg, mode, bc, pos, window, enc_out, causal, par,
-                   stack, i, seq):
-    """One block on a rank: its parameters gathered, the sequence slice
-    gathered back on entry and sliced again on exit."""
-    bp = par.block_params(bp, stack, i)
-    if seq:
-        x = gather_dim(x, par.mesh, seq, 1)
-    x, aux = _apply_block(bp, x, cfg, mode, bc, pos, window, enc_out,
-                          causal, par)
-    if seq:
-        x = slice_dim(x, par.mesh, seq, 1)
-    return x, aux
-
-
 def _run_stack(blocks, x: Tensor, cfg: ModelConfig, *, mode: str, caches,
                pos: Tensor, window: int = 0, enc_out=None,
                causal: bool = True, remat: Optional[bool] = None, par=None,
@@ -338,20 +383,18 @@ def _run_stack(blocks, x: Tensor, cfg: ModelConfig, *, mode: str, caches,
                     else [None] * n)
     seq = (par.seq if par is not None and stack == "blocks"
            and mode == "train" else ())
+    if par is not None and par.seq != seq:
+        par = dataclasses.replace(par, seq=seq)
     if seq:
         x = slice_dim(x, par.mesh, seq, 1)
     aux_total = None
     for i, (bp, bc) in enumerate(zip(_unbind(blocks, n), block_caches)):
-        if par is None:
-            fn, args = _apply_block, (bp, x, cfg, mode, bc, pos, window,
-                                      enc_out, causal)
-        else:
-            fn, args = _sharded_block, (bp, x, cfg, mode, bc, pos, window,
-                                        enc_out, causal, par, stack, i, seq)
+        args = (bp, x, cfg, mode, bc, pos, window, enc_out, causal, par,
+                None if par is None else (stack, i))
         if use_remat:
-            x, aux = checkpoint(fn, *args, use_reentrant=False)
+            x, aux = checkpoint(_apply_block, *args, use_reentrant=False)
         else:
-            x, aux = fn(*args)
+            x, aux = _apply_block(*args)
         aux_total = _add_aux(aux_total, aux)
     if seq:
         x = gather_dim(x, par.mesh, seq, 1)
@@ -409,16 +452,40 @@ def cache_specs(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
 # embedding / head / encoder
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+def _embed(params, cfg: ModelConfig, tokens: Tensor, par=None) -> Tensor:
+    """The token embeddings; under a split "vocab" the rank looks up its
+    block's rows, zero elsewhere, and the blocks are summed over
+    ``model``."""
     cdt = _dtype(cfg.compute_dtype)
+    v = params["embed"].shape[0]
+    ids, inside = tokens.long(), None
+    if splits(par, "vocab"):
+        ids, inside = _vocab_block(v, ids, par)
     if cfg.embed_mode == "onehot":
-        oh = F.one_hot(tokens.long(), params["embed"].shape[0]).to(cdt)
-        return torch.einsum("bsv,vd->bsd", oh, params["embed"].to(cdt))
-    return params["embed"][tokens.long()].to(cdt)
+        oh = F.one_hot(ids, v).to(cdt)
+        x = torch.einsum("bsv,vd->bsd", oh, params["embed"].to(cdt))
+    else:
+        x = params["embed"][ids].to(cdt)
+    if inside is None:
+        return x
+    return reduce_from(torch.where(inside[..., None], x, 0.0), par.mesh,
+                       par.tp)
 
 
-def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+def _vocab_block(v_local: int, ids: Tensor, par) -> Tuple[Tensor, Tensor]:
+    """(``ids`` as rows of the rank's vocabulary block, 0 outside it;
+    whether each lies inside)."""
+    r, _ = par.tp_index()
+    local = ids.long() - r * v_local
+    inside = (local >= 0) & (local < v_local)
+    return torch.where(inside, local, 0), inside
+
+
+def _logits(params, cfg: ModelConfig, x: Tensor, par=None) -> Tensor:
+    """The logits, or under a split "vocab" the rank's block of them."""
     cdt = _dtype(cfg.compute_dtype)
+    if splits(par, "vocab"):
+        x = par.partial(x)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x.to(cdt),
                             params["embed"].to(cdt))
@@ -448,7 +515,7 @@ def forward_train(params, cfg: ModelConfig, tokens: Tensor,
     """Teacher-forced forward. tokens: (B, S_text); ``embeds``: VLM patch
     embeddings (B, P, D) prepended; ``frames``: the audio encoder's input
     (B, T, D).  Returns (logits over the text positions, the aux loss)."""
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, par)
     n_prefix = 0
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
@@ -463,7 +530,7 @@ def forward_train(params, cfg: ModelConfig, tokens: Tensor,
         x = x[:, n_prefix:]
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, par), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict,
@@ -471,10 +538,28 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict,
     logits, aux = forward_train(params, cfg, batch["tokens"],
                                 embeds=batch.get("embeds"),
                                 frames=batch.get("frames"), par=par)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    if splits(par, "vocab"):
+        nll = _vocab_parallel_nll(logits, batch["labels"], par)
+    else:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1,
+                            batch["labels"].long()[..., None])[..., 0]
     loss = nll.mean() + AUX_LOSS_WEIGHT * aux
     return loss, {"nll": nll.mean(), "aux": aux}
+
+
+def _vocab_parallel_nll(logits: Tensor, labels: Tensor, par) -> Tensor:
+    """The cross-entropy of the rank's block of the logits: float32
+    all-reduces over ``model`` of the maximum, the sum of exponentials
+    and the target logit (``logsumexp - target``)."""
+    lg = logits.to(torch.float32)
+    top = lg.detach().amax(-1, keepdim=True).contiguous()
+    collectives.pmax(top, par.mesh, par.tp)
+    total = reduce_from(torch.exp(lg - top).sum(-1), par.mesh, par.tp)
+    ids, inside = _vocab_block(lg.shape[-1], labels, par)
+    target = torch.gather(lg, -1, ids[..., None])[..., 0]
+    target = reduce_from(torch.where(inside, target, 0.0), par.mesh, par.tp)
+    return top[..., 0] + torch.log(total) - target
 
 
 @torch.no_grad()

@@ -8,14 +8,16 @@ gradients), then runs the reference on 8 placeholder host devices
 the default ``Explicit`` axes make the reference's sharded step fail)
 concurrently with the port on 8 gloo ranks; the reference writes its
 per-shard draws (``normal(fold_in(PRNGKey(seed), my))``) first and the
-ranks wait for them.  Each side saves, per rank, the parameters, the
-optimizer state and the server state after every step (after the last
-one for an update case) — the reference's from the device at the rank's
-mesh coordinate (``addressable_shards``).
+ranks wait for them.  A case's ``overrides`` replace fields of the
+reduced configuration on both sides.  Each side saves, per rank, the
+parameters, the optimizer state and the server state after every step
+(after the last one for an update case) — the reference's from the
+device at the rank's mesh coordinate (``addressable_shards``).
 ``check_whole_step`` and ``check_update`` hold them to the tolerances
 the test files' docstrings state.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -60,7 +62,8 @@ def setup(case):
     mesh = jax.make_mesh((dm, mm), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     cfg = dataclasses.replace(get_config(case["arch"], reduced_variant=True),
-                              compute_dtype="float32")
+                              compute_dtype="float32",
+                              **case.get("overrides", {}))
     return mesh, cfg, jsteps.OacServerConfig(**case.get("oac", {}))
 
 
@@ -197,7 +200,8 @@ def setup(name, case):
     dm, mm = case["mesh"]
     mesh = mesh_lib.make_mesh((dm, mm), ("data", "model"), "cpu")
     cfg = dataclasses.replace(get_config(case["arch"], reduced_variant=True),
-                              compute_dtype="float32")
+                              compute_dtype="float32",
+                              **case.get("overrides", {}))
     oac = steps.OacServerConfig(**case.get("oac", {}))
     bundle = steps.make_train_step(cfg, InputShape("t", SEQ, GB, "train"),
                                    mesh, n_micro=NM, oac=oac,
@@ -249,7 +253,8 @@ for name, case in cases.items():
     save(name, arrays,
          {"losses": losses, "leaves": leaves,
           "meta": {k: bundle.meta[k] for k in (
-              "rows_sharded", "sequence_parallel", "expert_shard_axis")}})
+              "rows_sharded", "sequence_parallel", "expert_shard_axis",
+              "tensor_parallel")}})
 
 for name, case in updates.items():
     mesh, bundle, init, params, opt_state, server, pairs, p_specs = setup(
@@ -276,7 +281,9 @@ def _write_inputs(work, cases):
     the update cases, global random gradients, as numpy."""
     from repro.data.tokens import lm_batch
     for name, case in cases.items():
-        cfg = get_config(case["arch"], reduced_variant=True)
+        cfg = dataclasses.replace(get_config(case["arch"],
+                                             reduced_variant=True),
+                                  **case.get("overrides", {}))
         params = tr.init_lm_seeded(cfg, 0, "cpu")
         arrays = {f"p{i:03d}": leaf.numpy()
                   for i, (_, leaf) in enumerate(tree_util.leaves(params))}
@@ -366,6 +373,8 @@ def check_whole_step(work, ref_losses, name, case):
             assert meta["sequence_parallel"] == case["sp"]
             assert meta["rows_sharded"]
             assert meta["expert_shard_axis"] == case.get("pin", "")
+            if "split" in case:
+                assert meta["tensor_parallel"] == case["split"]
         ref, port = _load(work, name, r)
         for t in range(STEPS):
             np.testing.assert_allclose(

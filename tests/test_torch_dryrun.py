@@ -16,7 +16,16 @@ group of 256 ranks and destroys it):
   baseline's 1,473,560,580, a ratio under the reference's 0.2
   (``tests/test_sharded.py``, ``test_fl_oac_collective_reduction``);
 * a combination that fails makes the run exit 1; without ``--device`` the
-  entry point needs a card.
+  entry point needs a card;
+* the FSDP×TP train step's float32 buffers: ``deepseek-67b`` ``train_4k``
+  at 16×16, full width with 2 of its 95 layers, traced under a
+  ``StepCounter`` that also notes the largest float32 storage alive at
+  the peak and the collectives' groups: no float32 buffer alive at the
+  peak (the attention's (S, S) scores aside, activations of one row) is
+  larger than the largest leaf's local accumulator plus one block's
+  FSDP-gathered float32 gradient, and the gradient
+  reduce-scatters over ``data`` number the gathered leaves' blocks times
+  the microbatches (one per leaf, block and microbatch).
 """
 
 import json
@@ -50,6 +59,84 @@ print(json.dumps({"art": art, "failed_exit": code}))
 """
 
 
+_ACCUMULATORS = r"""
+import dataclasses, json, sys
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch import tree as tree_util
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun, sharding
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.roofline import dispatch
+
+dryrun.start_fake_group(256)
+cfg = dataclasses.replace(get_config("deepseek-67b"), n_layers=2)
+shape = SHAPES["train_4k"]
+mesh = make_production_mesh(device_type="cpu")
+dev = torch.device("cpu")
+data_ranks = sorted(dist.get_process_group_ranks(mesh.get_group("data")))
+
+
+class Counter(dispatch.StepCounter):
+    def __init__(self):
+        super().__init__()
+        self.f32 = {}
+        self.largest_f32_at_peak = 0
+        self.data_rs = 0
+
+    def _alive(self, t):
+        added = super()._alive(t)
+        # the attention's float32 scores, whole (S, S) tiles of one row's
+        # heads in any layout, are activations
+        if (added and t.dtype == torch.float32
+                and t.numel() % shape.seq_len ** 2):
+            self.f32[t.untyped_storage()._cdata] = added
+        if added and self.live_bytes == self.peak_bytes:
+            self.largest_f32_at_peak = max(
+                (n for k, n in self.f32.items() if k in self.live),
+                default=0)
+        return added
+
+    def _collective(self, func, name, args, kwargs, out):
+        super()._collective(func, name, args, kwargs, out)
+        group = dispatch._group_of(args)
+        if (dispatch._COLLECTIVE_KIND[name] == "reduce-scatter"
+                and group is not None
+                and sorted(dist.get_process_group_ranks(group))
+                == data_ranks):
+            self.data_rs += 1
+
+
+with FakeTensorMode():
+    bundle = dryrun.make_step(cfg, shape, mesh, device=dev)
+    inputs = dryrun.step_inputs(bundle, cfg, shape, mesh, dev)
+    counter = Counter()
+    counter.track(inputs)
+    with counter:
+        bundle.fn(*inputs)
+params_abs = dryrun.abstract_params(cfg)
+specs = sharding.spec_leaves(bundle.in_specs[0])
+local, block_grad, scattered = [], 0, 0
+for (path, x), spec in zip(tree_util.leaves(params_abs), specs):
+    local.append(4 * torch.Size(
+        sharding.local_shape(x.shape, spec, mesh)).numel())
+    if any("data" in sharding.entry_axes(e) for e in tuple(spec)):
+        stacked = path[0] == "blocks"
+        scattered += cfg.n_scan_blocks if stacked else 1
+        if stacked:
+            # one block's gradient, gathered over ``data`` (16 ranks)
+            block_grad += 16 * local[-1] // cfg.n_scan_blocks
+print(json.dumps({
+    "largest_f32_at_peak": counter.largest_f32_at_peak,
+    "largest_local_acc": max(local), "block_grad": block_grad,
+    "data_reduce_scatters": counter.data_rs,
+    "expected_reduce_scatters": scattered * bundle.meta["n_micro"],
+    "split": bundle.meta["tensor_parallel"],
+    "peak_bytes": counter.peak_bytes}))
+"""
+
+
 def _start(args, env=None):
     return subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
@@ -70,7 +157,8 @@ def runs(tmp_path_factory):
           "--shape", "train_4k", "--fl-mode", "--device", "cpu", "--out",
           out]
     procs = {"train": _start(["-c", _TRAIN, out]),
-             "fl": _start(fl), "base": _start(fl + ["--fl-baseline"])}
+             "fl": _start(fl), "base": _start(fl + ["--fl-baseline"]),
+             "acc": _start(["-c", _ACCUMULATORS])}
     got = {k: _wait(p) for k, p in procs.items()}
     train = json.loads(got["train"].strip().splitlines()[-1])
     arts = {}
@@ -79,6 +167,16 @@ def runs(tmp_path_factory):
                                     ".json")) as f:
             arts[tag] = json.load(f)
     return out, train, arts, got
+
+
+def test_fsdp_tp_float32_buffers_and_reduce_scatters(runs):
+    got = json.loads(runs[3]["acc"].strip().splitlines()[-1])
+    assert got["split"] == ["attn", "ffn", "vocab"]
+    assert 0 < got["largest_f32_at_peak"] <= (got["largest_local_acc"]
+                                              + got["block_grad"])
+    assert got["data_reduce_scatters"] == got["expected_reduce_scatters"]
+    # 7 gathered leaves a block, embed and head; 16 microbatches
+    assert got["expected_reduce_scatters"] == 16 * (2 * 7 + 2)
 
 
 def test_train_step_on_the_production_mesh(runs):
