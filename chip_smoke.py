@@ -202,7 +202,19 @@ failure):
    every rank, losses equal across ranks and finite; prefill and 8
    decoded tokens of reduced ``qwen2.5-32b``, ``mamba2-370m`` and
    ``granite-moe-3b-a800m`` within 0.05 / 0.05 / 0.5 of the
-   single-process decode (correctness only);
+   single-process decode, qwen2.5's heads, MLP and vocabulary split over
+   ``model`` (correctness only); (d) four spawned gloo ranks on the one
+   card as a (1, 4) mesh: ``granite-moe-3b-a800m`` (heads and experts
+   split) and ``whisper-base`` (heads and MLP split, the cross caches) at
+   full width and depth in float32 compute, a 64-token prompt (whisper
+   with seeded frames) and 8 teacher-forced tokens through the sharded
+   prefill and serve steps — each rank's logits within 1e-4 of one
+   process's ``prefill`` / ``decode_step`` on the card, its cache blocks
+   its blocks of one process's caches (positions exactly, values within
+   1e-4), finite, 0 kernel launches; prefill ms and ms per token of the
+   ranks and of one process, each rank's warm peak beside the dry-run
+   counter's for the same step on a fake (1, 4) group (correctness
+   only);
 21. the dry run and the roofline (``launch/dryrun.py``, ``roofline/``):
    (a) ``internvl2-1b``'s launch step, route (i), at the launch phase's
    shape, traced once on fake CUDA and once on fake CPU tensors under
@@ -3715,6 +3727,17 @@ SHARDED_TP_SEQ = 256
 SHARDED_TP_LOSS_RTOL = 1e-5
 SHARDED_TP_GRAD_TOL = 1e-5          # relative L2 over the rank's blocks
 SHARDED_TP_PEAK_TOL = 0.15
+# (b)'s served models whose parts must split over ``model`` on (2, 2)
+SHARDED_SERVE_SPLIT = {"qwen2.5-32b": ["attn", "ffn", "vocab"]}
+# (d): serving under tensor parallelism at full width and depth, float32
+# compute, four gloo ranks on the one card as a (1, 4) mesh against one
+# process on the card
+TP_SERVE_MESH = (1, 4)
+TP_SERVE_MODELS = {"granite-moe-3b-a800m": ["attn", "experts"],
+                   "whisper-base": ["attn", "ffn"]}
+TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_NEW = 4, 64, 8
+TP_SERVE_CAP = 128                  # the caches' capacity, 32 slots a rank
+TP_SERVE_TOL = 1e-4
 
 
 def _sharded_full_width(dev, mesh, name, oac, profile):
@@ -4000,7 +4023,7 @@ def _sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     ``granite-moe-3b-a800m`` (the expert pin), kernel run against plain
     run; the tensor-parallel ``grads_fn`` of ``SHARDED_TP`` against the
     single process's, with its peak; prefill and decode against the
-    single-process decode."""
+    single-process decode, the parts split over ``model`` recorded."""
     import dataclasses
     import datetime
     sys.path.insert(0, str(ROOT / "src"))
@@ -4102,7 +4125,10 @@ def _sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                       for a, b in zip(single, got))
             result[f"serve {arch}"] = {"max_err": err, "tol": tol,
                                        "finite": all(bool(torch.isfinite(
-                                           x).all()) for x in got)}
+                                           x).all()) for x in got),
+                                       "split": srv.meta["tensor_parallel"],
+                                       "prefill_split":
+                                           pre.meta["tensor_parallel"]}
         result["serve_seconds"] = time.time() - t1
     finally:
         dist.destroy_process_group()
@@ -4159,6 +4185,11 @@ def _sharded_gloo_phase(counted):
             check(row["finite"] and row["max_err"] < tol,
                   f"sharded gloo rank {r} serve {arch}: {row['max_err']} "
                   f"from the single-process decode (tolerance {tol})")
+            check(row["split"] == row["prefill_split"]
+                  and row["split"] == SHARDED_SERVE_SPLIT.get(
+                      arch, row["split"]),
+                  f"sharded gloo rank {r} serve {arch}: split "
+                  f"{row['split']} / {row['prefill_split']}")
         for arch in SHARDED_TP:
             row = res["tp"][arch]
             want = counted[arch]["peak_bytes"]
@@ -4187,7 +4218,10 @@ def _sharded_gloo_phase(counted):
           f"{SHARDED_NEW} tokens within "
           + ", ".join(f"{results[0]['serve ' + a]['max_err']:.4f} of "
                       f"{t} ({a})" for a, t in SHARDED_SERVE_TOL.items())
-          + f" of the single-process decode; tensor parallel "
+          + " of the single-process decode (split over model: "
+          + ", ".join(f"{a} {results[0]['serve ' + a]['split']}"
+                      for a in SHARDED_SERVE_TOL)
+          + "); tensor parallel "
           + ", ".join(
               f"{a} {results[0]['tp'][a]['split']}: loss "
               f"{results[0]['tp'][a]['loss']:.7f} against "
@@ -4207,14 +4241,367 @@ def _sharded_gloo_phase(counted):
     return {"seconds": seconds, "ranks": results}
 
 
+def _tp_serve_case(arch: str, mesh=None):
+    """(d)'s model ``arch`` at full width and depth in float32 compute:
+    (cfg, the prefill and serve bundles on ``mesh``, None without one)."""
+    import dataclasses
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    if mesh is None:
+        return cfg, None, None
+    gb = TP_SERVE_BATCH
+    return (cfg,
+            steps.make_prefill_step(
+                cfg, InputShape("p", TP_SERVE_CAP, gb, "prefill"), mesh),
+            steps.make_serve_step(
+                cfg, InputShape("d", TP_SERVE_CAP, gb, "decode"), mesh))
+
+
+def _tp_serve_inputs(cfg, dev):
+    """(d)'s prompt batch (with seeded frames for an encoder-decoder) and
+    teacher-forced tokens, from a seeded generator on the host."""
+    import torch
+    gen = torch.Generator().manual_seed(11)
+    gb = TP_SERVE_BATCH
+    batch = {"tokens": torch.randint(0, cfg.vocab, (gb, TP_SERVE_PROMPT),
+                                     generator=gen, dtype=torch.int32)}
+    toks = torch.randint(0, cfg.vocab, (gb, TP_SERVE_NEW), generator=gen,
+                         dtype=torch.int32)
+    if cfg.is_encdec:
+        batch["frames"] = 0.02 * torch.randn(gb, cfg.encoder_seq,
+                                             cfg.d_model, generator=gen)
+    return {k: v.to(dev) for k, v in batch.items()}, toks.to(dev)
+
+
+def _tp_serve_run(prefill, decode, new_caches, batch, toks, dev):
+    """A cold prompt and ``TP_SERVE_NEW`` teacher-forced tokens on scratch
+    caches, then the timed warm run on fresh ones: (the logits of the
+    prompt's last position and of each token, the caches, prefill ms, ms
+    per token, the warm prefill's and decode steps' peak bytes less the
+    bytes allocated before each), with the launch counts set to 0 just
+    before the warm run and read just after."""
+    import torch
+
+    def tokens(caches, logits):
+        pos = torch.full((), TP_SERVE_PROMPT, dtype=torch.int32, device=dev)
+        out = [logits]
+        for t in range(TP_SERVE_NEW):
+            out.append(decode(caches, toks[:, t:t + 1], pos)[0])
+            pos.add_(1)
+        return out
+
+    caches = new_caches()
+    tokens(caches, prefill(caches, batch)[0])
+    del caches
+    caches = new_caches()
+    torch.cuda.synchronize()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    logits = prefill(caches, batch)[0]
+    e.record()
+    torch.cuda.synchronize()
+    peak_prefill = torch.cuda.max_memory_allocated(dev) - before
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    d0, d1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    d0.record()
+    out = tokens(caches, logits)
+    d1.record()
+    torch.cuda.synchronize()
+    peak_decode = torch.cuda.max_memory_allocated(dev) - before
+    launches = read_counters()
+    return {"logits": out, "caches": caches,
+            "prefill_ms": a.elapsed_time(e),
+            "ms_per_token": d0.elapsed_time(d1) / TP_SERVE_NEW,
+            "peak_prefill": peak_prefill, "peak_decode": peak_decode,
+            "launches": launches}
+
+
+def _host_tree(tree):
+    from repro_torch import tree as tree_util
+    return tree_util.tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def _tp_serve_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """(d) one rank of a (1, 4) mesh of gloo ranks on ``cuda:0``: each
+    model of ``TP_SERVE_MODELS`` through the sharded prefill and serve
+    steps; the logits, the rank's cache blocks, times and peaks written
+    to ``out_dir`` for the main process to hold against one process."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_util
+    from repro_torch.device import set_numerics
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    set_numerics(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    _stage_gloo_through_host()
+    try:
+        mesh = mesh_lib.make_mesh(TP_SERVE_MESH, ("data", "model"), "cuda")
+        for arch in TP_SERVE_MODELS:
+            t0 = time.time()
+            cfg, pre, srv = _tp_serve_case(arch, mesh)
+            batch, toks = _tp_serve_inputs(cfg, dev)
+            # the whole model is made on one rank at a time: one copy on
+            # the card at once
+            local = None
+            for r in range(world):
+                if r == rank:
+                    params = tr.init_lm_seeded(cfg, 0, dev)
+                    local = sharding.local_tree(params, srv.in_specs[0],
+                                                mesh)
+                    del params
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            param_bytes = sum(t.untyped_storage().nbytes()
+                              for _, t in tree_util.leaves(local))
+            batch_bytes = sum(t.untyped_storage().nbytes()
+                              for t in batch.values())
+            run = _tp_serve_run(
+                lambda c, b: pre.fn(local, c, b),
+                lambda c, t, p: srv.fn(local, c, t, p),
+                lambda: steps.init_sharded_caches(cfg, mesh, TP_SERVE_BATCH,
+                                                  TP_SERVE_CAP, device=dev),
+                batch, toks, dev)
+            cache_bytes = sum(t.untyped_storage().nbytes()
+                              for _, t in tree_util.leaves(run["caches"]))
+            torch.save({"logits": [x.cpu() for x in run.pop("logits")],
+                        "caches": _host_tree(run.pop("caches"))},
+                       Path(out_dir, f"rank_{rank}_{arch}.pt"))
+            run.update(split=srv.meta["tensor_parallel"],
+                       prefill_split=pre.meta["tensor_parallel"],
+                       param_bytes=param_bytes, cache_bytes=cache_bytes,
+                       batch_bytes=batch_bytes,
+                       seconds=time.time() - t0)
+            Path(out_dir, f"rank_{rank}_{arch}.json").write_text(
+                json.dumps(run))
+            del local
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_serve_counted(dev) -> dict:
+    """The dry-run counter's per-rank peak of (d)'s prefill step and of
+    one decode step on a fake group of four laid out as
+    ``TP_SERVE_MESH`` (fake CUDA tensors; rank 0's blocks)."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tr
+    from repro_torch.roofline.dispatch import count
+    world = TP_SERVE_MESH[0] * TP_SERVE_MESH[1]
+    dryrun.start_fake_group(world)
+    out = {}
+    try:
+        mesh = mesh_lib.make_mesh(TP_SERVE_MESH, ("data", "model"), "cuda")
+        for arch in TP_SERVE_MODELS:
+            with FakeTensorMode():
+                cfg, pre, srv = _tp_serve_case(arch, mesh)
+                batch = {"tokens": torch.zeros(
+                    (TP_SERVE_BATCH, TP_SERVE_PROMPT), dtype=torch.int32,
+                    device=dev)}
+                if cfg.is_encdec:
+                    batch["frames"] = torch.zeros(
+                        (TP_SERVE_BATCH, cfg.encoder_seq, cfg.d_model),
+                        device=dev)
+                params = dryrun._empty_tree(steps.abstract_params(cfg),
+                                            srv.in_specs[0], mesh, dev)
+                cache_abs = tr.cache_specs(cfg, TP_SERVE_BATCH, TP_SERVE_CAP)
+
+                def caches():
+                    return dryrun._empty_tree(cache_abs, srv.in_specs[1],
+                                              mesh, dev)
+                _, p = count(pre.fn, params, caches(), batch)
+                pos = torch.full((), TP_SERVE_PROMPT, dtype=torch.int32,
+                                 device=dev)
+                tok = torch.zeros((TP_SERVE_BATCH, 1), dtype=torch.int32,
+                                  device=dev)
+                _, d = count(srv.fn, params, caches(), tok, pos)
+            out[arch] = {"prefill": p["peak_bytes"], "decode": d["peak_bytes"],
+                         "prefill_collective_bytes":
+                             p["collective_bytes_per_device"],
+                         "decode_collective_bytes":
+                             d["collective_bytes_per_device"]}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _tp_serve_phase(dev):
+    """(d): ``TP_SERVE_MODELS`` at full width and depth, float32 compute —
+    first in this process (the single-process ``prefill`` /
+    ``decode_step``), then on four spawned gloo ranks as a (1, 4) mesh
+    through the sharded steps, which split the parts named in
+    ``TP_SERVE_MODELS`` over ``model``.  Gates: each rank's logits (all
+    rows: ``data`` has one rank) within ``TP_SERVE_TOL`` of one process's,
+    its cache blocks its blocks of one process's caches (positions
+    exactly, values within ``TP_SERVE_TOL``), finite values, 0 kernel
+    launches.  Reports prefill ms, ms per token and each rank's warm peak
+    beside the dry-run counter's (correctness only: gloo on one card is
+    no speed)."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import transformer as tr
+
+    t0 = time.perf_counter()
+    world = TP_SERVE_MESH[0] * TP_SERVE_MESH[1]
+    single = {}
+    for arch in TP_SERVE_MODELS:
+        cfg, _, _ = _tp_serve_case(arch)
+        batch, toks = _tp_serve_inputs(cfg, dev)
+        params = tr.init_lm_seeded(cfg, 0, dev)
+        run = _tp_serve_run(
+            lambda c, b: tr.prefill(params, cfg, b["tokens"], c,
+                                    frames=b.get("frames")),
+            lambda c, t, p: tr.decode_step(params, cfg, t, p, c),
+            lambda: tr.init_caches(cfg, TP_SERVE_BATCH, TP_SERVE_CAP,
+                                   device=dev),
+            batch, toks, dev)
+        run["logits"] = [x.cpu() for x in run["logits"]]
+        run["caches"] = _host_tree(run["caches"])
+        single[arch] = run
+        del params
+        torch.cuda.empty_cache()
+    tmp = ROOT / "chiprun_out" / "tp_serve"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_serve_rank,
+                         args=(r, world, str(tmp / "store"), str(tmp)))
+             for r in range(world)]
+    t_ranks = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        # counted on the host while the ranks run
+        counted = _tp_serve_counted(dev)
+        for p in procs:
+            p.join(timeout=DIST_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t_ranks
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world, f"tp serve (d) ranks exited {codes}")
+    mesh = AbstractMesh(TP_SERVE_MESH, ("data", "model"))
+    summary = {"mesh": list(TP_SERVE_MESH), "batch": TP_SERVE_BATCH,
+               "prompt": TP_SERVE_PROMPT, "decoded": TP_SERVE_NEW,
+               "capacity": TP_SERVE_CAP, "ranks_seconds": ranks_s}
+    for arch, want_split in TP_SERVE_MODELS.items():
+        one = single[arch]
+        check(not any(one["launches"].values()),
+              f"tp serve (d) {arch}: a kernel was launched in one process: "
+              f"{one['launches']}")
+        _, _, srv = _tp_serve_case(arch, mesh)
+        rows = []
+        for r in range(world):
+            res = json.loads((tmp / f"rank_{r}_{arch}.json").read_text())
+            got = torch.load(tmp / f"rank_{r}_{arch}.pt")
+            check(res["split"] == want_split
+                  and res["prefill_split"] == want_split,
+                  f"tp serve (d) rank {r} {arch}: split {res['split']} / "
+                  f"{res['prefill_split']}, expected {want_split}")
+            check(not any(res["launches"].values()),
+                  f"tp serve (d) rank {r} {arch}: a kernel was launched: "
+                  f"{res['launches']}")
+            _finite([float(x.abs().max()) for x in got["logits"]],
+                    f"tp serve (d) rank {r} {arch} logits")
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(got["logits"], one["logits"]))
+            check(err <= TP_SERVE_TOL,
+                  f"tp serve (d) rank {r} {arch}: logits {err} from one "
+                  f"process's (tolerance {TP_SERVE_TOL})")
+            blocks = sharding.local_tree(one["caches"], srv.in_specs[1],
+                                         mesh, coord=(0, r))
+            cache_err = 0.0
+            for (path, a), (_, b) in zip(tree_util.leaves(blocks),
+                                         tree_util.leaves(got["caches"])):
+                check(a.shape == b.shape,
+                      f"tp serve (d) rank {r} {arch} cache {path}: "
+                      f"{tuple(b.shape)}, one process's block "
+                      f"{tuple(a.shape)}")
+                if a.is_floating_point():
+                    _finite([float(b.abs().max())],
+                            f"tp serve (d) rank {r} {arch} cache {path}")
+                    cache_err = max(cache_err, float((a - b).abs().max()))
+                else:
+                    check(bool(torch.equal(a, b)),
+                          f"tp serve (d) rank {r} {arch} cache {path}: "
+                          "positions differ from one process's")
+            check(cache_err <= TP_SERVE_TOL,
+                  f"tp serve (d) rank {r} {arch}: caches {cache_err} from "
+                  f"one process's blocks (tolerance {TP_SERVE_TOL})")
+            # the warm peaks as the counter counts them: the inputs in
+            inputs = res["param_bytes"] + res["cache_bytes"]
+            res.update(max_err=err, cache_err=cache_err,
+                       prefill_peak_bytes=(res["peak_prefill"] + inputs
+                                           + res["batch_bytes"]),
+                       decode_peak_bytes=res["peak_decode"] + inputs)
+            rows.append(res)
+        summary[arch] = {
+            "split": want_split, "ranks": rows,
+            "single": {k: one[k] for k in ("prefill_ms", "ms_per_token",
+                                           "peak_prefill", "peak_decode")},
+            "counted": counted[arch]}
+        c = counted[arch]
+        print(f"sharded (d) {arch}: full width and depth in float32 on "
+              f"{world} gloo ranks as a {TP_SERVE_MESH} mesh (split over "
+              f"model: {want_split}), batch {TP_SERVE_BATCH}, a "
+              f"{TP_SERVE_PROMPT}-token prompt and {TP_SERVE_NEW} "
+              f"teacher-forced tokens; logits within "
+              + "/".join(f"{x['max_err']:.2e}" for x in rows)
+              + ", caches within "
+              + "/".join(f"{x['cache_err']:.2e}" for x in rows)
+              + f" of one process (tolerance {TP_SERVE_TOL}); 0 launches; "
+              f"prefill {one['prefill_ms']:.1f} ms and "
+              f"{one['ms_per_token']:.2f} ms per token in one process, "
+              + "/".join(f"{x['prefill_ms']:.1f}" for x in rows)
+              + " ms and "
+              + "/".join(f"{x['ms_per_token']:.2f}" for x in rows)
+              + " ms per token on the ranks; warm peaks (less what was "
+              "allocated before, plus the rank's parameters and caches) "
+              "prefill "
+              + "/".join(str(x["prefill_peak_bytes"]) for x in rows)
+              + f" bytes against the counted {c['prefill']}, decode step "
+              + "/".join(str(x["decode_peak_bytes"]) for x in rows)
+              + f" against {c['decode']} (correctness only)", flush=True)
+    # the ranks' logits and caches (over 100 MB) are not kept
+    shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t0
+    return summary
+
+
 def sharded_phase(dev):
     """The sharded steps: (a) ``internvl2-1b`` at full width through the
     sharded ``make_train_step`` on a NCCL process group of one rank (a
     (1, 1) mesh), routes (i) fused stats and (ii) one-bit + EF, each equal
     to the single-card step bit for bit; (b) four gloo ranks on the one
     card as a (2, 2) mesh at reduced width, the tensor-parallel cases'
-    peaks counted first on a fake group of four.  Returns (launches of
-    (a), summary)."""
+    peaks counted first on a fake group of four; (d) serving under tensor
+    parallelism at full width on four gloo ranks as a (1, 4) mesh against
+    one process.  Returns (launches of (a), summary)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
@@ -4246,10 +4633,14 @@ def sharded_phase(dev):
     torch.cuda.empty_cache()
     counted = _tp_counted_peaks(dev)
     summary["gloo"] = _sharded_gloo_phase(counted)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary["tp_serve"] = _tp_serve_phase(dev)
     summary["seconds"] = time.perf_counter() - t0
     print(f"sharded phase: {summary['seconds']:.1f} s ((a) "
           f"{summary['full_width_seconds']:.1f} s, (b) "
-          f"{summary['gloo']['seconds']:.1f} s)", flush=True)
+          f"{summary['gloo']['seconds']:.1f} s, (d) "
+          f"{summary['tp_serve']['seconds']:.1f} s)", flush=True)
     return launches, summary
 
 

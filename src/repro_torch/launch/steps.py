@@ -40,8 +40,12 @@ axis and ``n_clients`` the number of batch shards, then the optimizer in
 place.  ``sequence_parallel`` keeps the residual as the rank's slice of
 the sequence over ``model`` (gathered on entry to each sub-layer and
 reduce-scattered on its exit); ``_with_expert_axis`` pins the experts to
-``model`` (each rank runs its ``E/M`` experts).  The
-sharded prefill and serve steps keep the caches by ``cache_pspecs``.
+``model`` (each rank runs its ``E/M`` experts).  The sharded prefill and
+serve steps partition the parameters as the train step does (the split
+parts' leaves stay the rank's ``model`` blocks, gathered over the FSDP
+axes layer by layer, and the rank computes its part; the logits'
+vocabulary blocks are gathered at the end) and keep the caches by
+``cache_pspecs``.
 A bundle built on a mesh carries the reference's ``in_shardings`` and
 ``out_shardings`` as spec trees (``in_specs`` / ``out_specs``).
 
@@ -632,15 +636,9 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
     inv_micro = reciprocal(n_micro)
     inv_shards = reciprocal(n_shards)
 
-    params_abs = abstract_params(cfg)
-    p_specs = sharding.param_pspecs(params_abs, cfg, grid)
+    params_abs, p_specs, split, pinned, plan = _partition(cfg, grid)
     pairs = tree_util.leaves(params_abs)
     paths = [pa for pa, _ in pairs]
-    split = tp_split(cfg, grid)
-    # the rank runs its experts where they are pinned, and wherever the
-    # spec splits them over ``model``
-    pinned = cfg.expert_shard_axis == "model" or "experts" in split
-    plan = _gather_plan(params_abs, p_specs, pinned, grid, split)
     # the accumulators have the leaves' local shapes
     acc_shapes = [sharding.local_shape(x.shape, spec, grid)
                   for (_, x), spec in zip(pairs,
@@ -836,6 +834,21 @@ def _tp_part(path_s: str, ndim: int) -> Optional[str]:
     return None
 
 
+def _partition(cfg: ModelConfig, mesh) -> Tuple:
+    """(the abstract parameters, their specs, the parts split over
+    ``model`` (``parallel.tp_split``), whether the rank runs only its
+    experts, the leaves' gather plan): the one partition of the train
+    and serving steps on ``mesh``."""
+    params_abs = abstract_params(cfg)
+    p_specs = sharding.param_pspecs(params_abs, cfg, mesh)
+    split = tp_split(cfg, mesh)
+    # the rank runs its experts where they are pinned, and wherever the
+    # spec splits them over ``model``
+    pinned = cfg.expert_shard_axis == "model" or "experts" in split
+    plan = _gather_plan(params_abs, p_specs, pinned, mesh, split)
+    return params_abs, p_specs, split, pinned, plan
+
+
 def _gather_plan(params_abs: Any, p_specs: Any, pinned: bool, mesh,
                  split: frozenset = frozenset()) -> list:
     """Per leaf (in ``tree.leaves`` order): (stack name or None, the
@@ -903,16 +916,16 @@ def _batch_specs(cfg: ModelConfig, gb: int, mesh, micro: bool) -> Dict:
 
 def _sharded_serving(cfg: ModelConfig, mesh, gb: int, cache_abs: Any):
     """(cfg with the expert pin, param specs, cache specs, the leaves'
-    gather plan, the ``Parallel``) of a sharded serving step; a batch of
-    one splits the caches' capacity over ``data`` too (``shard_capacity``).
-    """
+    gather plan, the ``Parallel``) of a sharded serving step: the train
+    step's partition (``_partition``) — the leaves of the parts that
+    split over ``model`` stay the rank's blocks and are gathered over the
+    FSDP axes only, layer by layer, and the rank computes its part —;
+    the caches by ``cache_pspecs``, a batch of one splitting their
+    capacity over ``data`` too (``shard_capacity``)."""
     cfg = _with_expert_axis(cfg, mesh)
-    params_abs = abstract_params(cfg)
-    p_specs = sharding.param_pspecs(params_abs, cfg, mesh)
+    params_abs, p_specs, split, pinned, plan = _partition(cfg, mesh)
     c_specs = sharding.cache_pspecs(cache_abs, cfg, mesh,
                                     shard_capacity=gb == 1)
-    plan = _gather_plan(params_abs, p_specs,
-                        cfg.expert_shard_axis == "model", mesh)
     found: Dict[str, Tuple[str, ...]] = {}
     for path, spec in zip([pa for pa, _ in tree_util.leaves(cache_abs)],
                           sharding.spec_leaves(c_specs)):
@@ -926,19 +939,23 @@ def _sharded_serving(cfg: ModelConfig, mesh, gb: int, cache_abs: Any):
     rows = (b_axes if gb % collectives.axis_size(mesh, b_axes) == 0
             else ())
     paths = [pa for pa, _ in tree_util.leaves(params_abs)]
+    model = collectives.spread(mesh, ("model",))
+    # serving has no gradient: no sinks
     par = Parallel(mesh, rows=rows,
                    gather=_block_gather(mesh, paths, plan, None),
-                   experts=(("model",) if cfg.expert_shard_axis == "model"
-                            else ()),
+                   experts=model if pinned else (),
                    kv=found.get("kv", ()), cross=found.get("cross", ()),
-                   ssm=found.get("ssm", ()), conv=found.get("conv", ()))
+                   ssm=found.get("ssm", ()), conv=found.get("conv", ()),
+                   tp=model if split else (), split=split,
+                   float32_sums=True)
     return cfg, p_specs, c_specs, plan, par
 
 
 def _serving_params(params: Any, mesh, plan) -> Any:
     """The rank's parameter blocks -> the tree the model runs on: the
-    unstacked leaves gathered whole, the stacks left to ``par.gather``
-    (block by block)."""
+    unstacked leaves gathered by the plan (a split ``embed`` / ``head``
+    keeps its ``model`` block), the stacks left to ``par.gather`` (block
+    by block)."""
     pairs = tree_util.leaves(params)
     paths = [pa for pa, _ in pairs]
     return tree_util.unflatten(
@@ -1054,7 +1071,8 @@ def _sharded_prefill_step(cfg: ModelConfig, shape: InputShape, mesh
     logits = P(par.rows or None, None, None)
     meta = {"kind": "prefill", "seq_len": shape.seq_len,
             "global_batch": gb, "scans": {"layers": cfg.n_scan_blocks},
-            "rows_sharded": bool(par.rows)}
+            "rows_sharded": bool(par.rows),
+            "tensor_parallel": sorted(par.split)}
     return StepBundle(prefill_step, meta, in_specs=(p_specs, c_specs,
                                                     b_specs),
                       out_specs=(logits, c_specs))
@@ -1078,6 +1096,7 @@ def _sharded_serve_step(cfg: ModelConfig, shape: InputShape, mesh
     meta = {"kind": "decode", "seq_len": shape.seq_len, "global_batch": gb,
             "capacity": capacity, "ring": ring,
             "shard_capacity": gb == 1, "rows_sharded": bool(par.rows),
+            "tensor_parallel": sorted(par.split),
             "scans": {"layers": cfg.n_scan_blocks}}
     return StepBundle(serve_step, meta,
                       in_specs=(p_specs, c_specs, tok, P()),

@@ -23,14 +23,16 @@ fusion); a cache's new ``ssm`` state rounded to the cache's dtype.
 
 On a mesh (``par``, ``models.parallel``) a cache may hold the rank's
 block of the SSM heads (``par.ssm``) and of the ``conv_x`` channels
-(``par.conv``).  Decoding then runs the convolution on the rank's
-channels and the recurrent step on its heads, and gathers each before
-the next stage needs the whole width (the per-head outputs before the
-gated norm and ``out_proj``); prefilling runs on the whole carries and
-keeps the rank's blocks.
+(``par.conv``).  Where "ssm" does not split, decoding then runs the
+convolution on the rank's channels and the recurrent step on its heads,
+and gathers each before the next stage needs the whole width (the
+per-head outputs before the gated norm and ``out_proj``); prefilling
+runs on the whole carries and keeps the rank's blocks.
 
-In training the layer takes the residual's layout and gives it back
-(``models.parallel``); where "ssm" splits over ``model`` the rank
+The layer takes the residual's layout and gives it back
+(``models.parallel``); where "ssm" splits over ``model`` — in training
+and in serving alike, where the cache's blocks are then exactly the
+rank's heads and channels, prefilled and decoded in place — the rank
 computes its SSM heads: ``wz`` / ``wx`` / ``wdt`` by columns, the
 ``conv_x`` channels, ``a_log`` / ``d_skip`` / ``dt_bias`` by heads and
 ``out_proj`` by rows arrive as its blocks; ``wbc`` and the B, C
@@ -51,8 +53,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collectives import all_gather_dim
 from repro_torch.models.layers import (_normal, dense, dense_init, gen_device,
                                        rmsnorm, rmsnorm_init)
-from repro_torch.models.parallel import (block_of, enter, leave,
-                                         narrow_block, slice_dim, splits,
+from repro_torch.models.parallel import (block_of, enter, narrow_block,
+                                         row_parallel, slice_dim, splits,
                                          sum_both)
 
 Tensor = torch.Tensor
@@ -245,16 +247,17 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     """The full mixer.  x: (B, S, D) -> (B, S, D); ``decode`` means S == 1
     with ``cache``.  Returns (out, the new cache: None without a cache and
     outside decoding)."""
-    ssm_axes = par.ssm if par is not None and cache is not None else ()
-    conv_axes = par.conv if par is not None and cache is not None else ()
+    # under a split "ssm" the cache's ``ssm`` and ``conv_x`` blocks are
+    # the rank's heads and channels, which it computes
+    split = splits(par, "ssm")
+    whole = par is not None and cache is not None and not split
+    ssm_axes = par.ssm if whole else ()
+    conv_axes = par.conv if whole else ()
     if (ssm_axes or conv_axes) and not decode:
         return _split_prefill(p, x, cfg, cache, par)
     cdt = _dtype(cfg.compute_dtype)
     dt_out = x.dtype
-    train = cache is None and not decode
-    if train:
-        x = enter(par, x, "ssm")
-    split = train and splits(par, "ssm")
+    x = enter(par, x, "ssm")
     n_heads = cfg.ssm_heads
     if split:
         p = dict(p)
@@ -320,9 +323,7 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     else:
         y = rmsnorm(p["norm"], y * F.silu(z.to(torch.float32)),
                     cfg.norm_eps)
-    out = dense(p["out_proj"], y, cdt)
-    if train:
-        out = leave(par, out, "ssm")
+    out = row_parallel(par, p["out_proj"], y, "ssm", cdt)
     new_cache = None
     if cache is not None or decode:
         ssm_dtype = x.dtype if cache is None else cache["ssm"].dtype

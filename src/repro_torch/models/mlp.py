@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense, dense_init
-from repro_torch.models.parallel import enter, leave, slice_dim, splits
+from repro_torch.models.parallel import (enter, row_parallel, slice_dim,
+                                         splits)
 
 Tensor = torch.Tensor
 
@@ -54,11 +55,10 @@ def mlp(p: Dict, x: Tensor, mlp_type: str, compute_dtype, par=None
     if mlp_type == "swiglu":
         gate = F.silu(dense(p["wg"], x, compute_dtype))
         up = dense(p["wu"], x, compute_dtype)
-        y = dense(p["wd"], gate * up, compute_dtype)
+        h = gate * up
     else:
-        up = F.gelu(dense(p["wu"], x, compute_dtype), approximate="tanh")
-        y = dense(p["wd"], up, compute_dtype)
-    y = leave(par, y, "ffn")
+        h = F.gelu(dense(p["wu"], x, compute_dtype), approximate="tanh")
+    y = row_parallel(par, p["wd"], h, "ffn", compute_dtype)
     if bias_d is not None:
         y = y + bias_d.to(compute_dtype)
     return y

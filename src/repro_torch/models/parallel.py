@@ -26,10 +26,17 @@ where nothing here runs):
   heads and the ``conv_x`` carry's channels.
 
 * ``tp`` and ``split``: tensor parallelism over ``model`` in the train
-  step — the parts of the model named in ``split`` ("attn", "ffn",
-  "experts", "moe", "ssm", "vocab"; ``tp_split``) arrive as the rank's block of
-  their matmul weights along the TP dimension of the reference's spec,
-  and each rank computes only its part.
+  step and the serving steps — the parts of the model named in ``split``
+  ("attn", "ffn", "experts", "moe", "ssm", "vocab"; ``tp_split``) arrive
+  as the rank's block of their matmul weights along the TP dimension of
+  the reference's spec, and each rank computes only its part.  Serving
+  runs the same regions under ``torch.no_grad`` (only their forwards:
+  nothing, or a sum or gather over ``tp``) with ``float32_sums``: a
+  row-parallel product's partial outputs are summed in float32 and
+  rounded once to the compute dtype (``row_parallel``), as one card's
+  product rounds — partials rounded to bfloat16 before their sum move
+  each output by up to an ulp and, decoding, flip MoE routes away from
+  one card's decode; training sums them in the compute dtype.
 
 Outside a split part the activations and their gradients are equal on
 every rank of one row of the mesh: a gather's backward keeps the rank's
@@ -61,6 +68,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import collectives
+from repro_torch.models.layers import dense
 
 Tensor = torch.Tensor
 
@@ -337,6 +345,7 @@ class Parallel:
     conv: Tuple[str, ...] = ()
     tp: Tuple[str, ...] = ()
     split: frozenset = frozenset()
+    float32_sums: bool = False
 
     def block_params(self, tree, stack: str, i: int, prefix=()):
         """Block ``i`` of ``stack`` (the subtree at ``prefix`` in it) from
@@ -410,7 +419,22 @@ def splits(par: Optional[Parallel], part: str) -> bool:
     return par is not None and par.splits(part)
 
 
+def row_parallel(par: Optional[Parallel], p, x: Tensor, part: str,
+                 compute_dtype) -> Tensor:
+    """``x @ w (+ b)`` of a row-parallel weight in ``compute_dtype``, left
+    to the residual's layout (``leave``).  Where ``part`` splits, ``p``
+    holds no bias; with ``par.float32_sums`` the rank's partial product
+    of the compute-dtype operands is taken in float32 (their products are
+    exact there), summed over ``tp`` and rounded once."""
+    if not (splits(par, part) and par.float32_sums):
+        return leave(par, dense(p, x, compute_dtype), part)
+    w = p["w"].to(compute_dtype).to(torch.float32)
+    y = torch.matmul(x.to(compute_dtype).to(torch.float32), w)
+    return leave(par, y, part).to(compute_dtype)
+
+
 __all__ = ["Parallel", "gather_dim", "slice_dim", "gather_param",
            "scatter_grad", "narrow_block", "block_of", "copy_to",
            "reduce_from", "sum_both", "gather_seq", "scatter_seq",
-           "heads_split", "tp_split", "enter", "leave", "splits"]
+           "heads_split", "tp_split", "enter", "leave", "splits",
+           "row_parallel"]

@@ -30,17 +30,32 @@ the rank runs its batch rows, each block's parameters are gathered from
 the rank's blocks inside the (checkpointed) block function, the residual
 is the rank's slice of the sequence under sequence parallelism (each
 sub-layer gathers it on entry and leaves its slice on exit), and the
-caches hold the rank's blocks.  In training the parts that split over
-``model`` (``par.split``) compute the rank's part: attention its whole
-heads (``wq`` by columns, ``wo`` by rows, ``wk`` / ``wv`` replicated and
-cut to the kv groups the rank's heads read), the MLP its hidden units,
-and the vocabulary its block — a masked embedding lookup summed over
-``model``, local logits and a vocab-parallel cross-entropy (float32
-all-reduces of the maximum, the sum of exponentials and the target
-logit).  Attention whose heads do not split whole over ``model`` (40,
-56, 14, 24 or 8 heads on 16 ranks) and a vocabulary that does not divide
-stay gathered whole on every rank, where the reference's GSPMD re-tiles
-half heads.  ``par`` None is the one-card path, unchanged.
+caches hold the rank's blocks.  The parts that split over ``model``
+(``par.split``) compute the rank's part, in training and serving alike:
+attention its whole heads (``wq`` by columns, ``wo`` by rows, ``wk`` /
+``wv`` replicated and cut to the kv groups the rank's heads read), the
+MLP its hidden units, and the vocabulary its block — a masked embedding
+lookup summed over ``model``, local logits and, in training, a
+vocab-parallel cross-entropy (float32 all-reduces of the maximum, the
+sum of exponentials and the target logit); serving gathers the logits'
+blocks over ``model`` at the end.  Attention whose heads do not split
+whole over ``model`` (40, 56, 14, 24 or 8 heads on 16 ranks) and a
+vocabulary that does not divide stay gathered whole on every rank, where
+the reference's GSPMD re-tiles half heads.  ``par`` None is the one-card
+path, unchanged.
+
+Serving keeps the reference's cache layout under a split "attn": a
+cache holds every kv head for the rank's block of its capacity (the
+reference's "kv never divides the model axis").  Prefill projects every
+kv head with the whole ``wk`` / ``wv`` (replicated by the spec), fills
+the rank's capacity block from them and attends with the rank's heads
+over their kv groups; decoding writes the new token's every kv head,
+all-gathers the rank's heads' queries over ``model`` to every head
+((B, 1, H, hd)), attends over the rank's capacity block with the
+log-sum-exp combine over the cache's axes, keeps the rank's heads of the
+output and runs the row-parallel ``wo``.  Cross-attention fills its
+cache (frames split) from the whole ``wk`` / ``wv`` and, decoding,
+gathers the frames and narrows them to the rank's kv groups.
 
 Public entry points:
   init_lm / init_lm_seeded / init_caches / cache_specs
@@ -72,7 +87,7 @@ from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.core import collectives
 from repro_torch.models.parallel import (enter, gather_dim, leave,
                                          narrow_block, reduce_from,
-                                         slice_dim, splits)
+                                         row_parallel, slice_dim, splits)
 
 Tensor = torch.Tensor
 AUX_LOSS_WEIGHT = 0.01
@@ -180,20 +195,32 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
     dt_out = x.dtype
     x = enter(par, x, "attn")
     b, s, _ = x.shape
-    p, n_h, n_kv = _heads_of(p, cfg, par)
+    # serving's caches hold every kv head: the projections stay whole
+    whole_kv = cache is not None and splits(par, "attn")
+    p, n_h, n_kv, kv0 = _heads_of(p, cfg, par, whole_kv)
     q = dense(p["wq"], x, cdt).reshape(b, s, n_h, cfg.head_dim)
-    k = dense(p["wk"], x, cdt).reshape(b, s, n_kv, cfg.head_dim)
-    v = dense(p["wv"], x, cdt).reshape(b, s, n_kv, cfg.head_dim)
+    k = dense(p["wk"], x, cdt).reshape(b, s, -1, cfg.head_dim)
+    v = dense(p["wv"], x, cdt).reshape(b, s, -1, cfg.head_dim)
+    mesh, kv = (par.mesh, par.kv) if par is not None else (None, ())
     if mode == "decode":
         q = apply_rope(q, pos[None, None], cfg.rope_theta)
         k = apply_rope(k, pos[None, None], cfg.rope_theta)
-        mesh, kv = (par.mesh, par.kv) if par is not None else (None, ())
         attn_lib.cache_write(cache, k, v, pos, mesh, kv)
+        if whole_kv:
+            # every head's query against the rank's capacity block, then
+            # the rank's heads of the combined output
+            q = collectives.all_gather_dim(q, mesh, par.tp, 2)
         out = attn_lib.decode_attend(q, cache, pos, window=window,
                                      mesh=mesh, axes=kv)
+        if whole_kv:
+            out = narrow_block(out, mesh, par.tp, 2)
     else:
         q = apply_rope(q, pos[None], cfg.rope_theta)
         k = apply_rope(k, pos[None], cfg.rope_theta)
+        if cache is not None:
+            attn_lib.cache_fill(cache, k, v, pos, mesh, kv)
+        if whole_kv:
+            k, v = k.narrow(2, kv0, n_kv), v.narrow(2, kv0, n_kv)
         if mode == "train" and s <= 8192:
             out = attn_lib.plain_attention(q, k, v, pos, pos, causal=causal,
                                            window=window)
@@ -201,11 +228,8 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
             out = attn_lib.chunked_attention(q, k, v, pos, pos,
                                              causal=causal, window=window,
                                              causal_skip=cfg.causal_skip)
-        if cache is not None:
-            mesh, kv = (par.mesh, par.kv) if par is not None else (None, ())
-            attn_lib.cache_fill(cache, k, v, pos, mesh, kv)
     out = out.reshape(b, s, n_h * cfg.head_dim)
-    return leave(par, dense(p["wo"], out, cdt), "attn").to(dt_out)
+    return row_parallel(par, p["wo"], out, "attn", cdt).to(dt_out)
 
 
 def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
@@ -219,7 +243,9 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     x = enter(par, x, "attn")
     b, s, _ = x.shape
     split = splits(par, "attn")
-    p, n_h, n_kv = _heads_of(p, cfg, par)
+    # a cross cache holds every kv head: the projections stay whole
+    whole_kv = cross_cache is not None and split
+    p, n_h, n_kv, kv0 = _heads_of(p, cfg, par, whole_kv)
     q = dense(p["wq"], x, cdt).reshape(b, s, n_h, cfg.head_dim)
     axes = par.cross if par is not None else ()
     if cross_cache is not None and enc_out is None:
@@ -233,41 +259,48 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
         # the encoder's output enters the region: the rank's heads give
         # it a partial gradient
         enc = par.partial(enc_out) if split else enc_out
-        k = dense(p["wk"], enc, cdt).reshape(b, t, n_kv, cfg.head_dim)
-        v = dense(p["wv"], enc, cdt).reshape(b, t, n_kv, cfg.head_dim)
+        k = dense(p["wk"], enc, cdt).reshape(b, t, -1, cfg.head_dim)
+        v = dense(p["wv"], enc, cdt).reshape(b, t, -1, cfg.head_dim)
         if cross_cache is not None:
             mesh = par.mesh if par is not None else None
             cross_cache["k"].copy_(narrow_block(k, mesh, axes, 1))
             cross_cache["v"].copy_(narrow_block(v, mesh, axes, 1))
+    if whole_kv:
+        k, v = k.narrow(2, kv0, n_kv), v.narrow(2, kv0, n_kv)
     # no mask: every query position sees every frame
     qpos = torch.zeros(s, dtype=torch.int32, device=x.device)
     kpos = torch.zeros(k.shape[1], dtype=torch.int32, device=x.device)
     out = attn_lib.chunked_attention(q, k, v, qpos, kpos, causal=False)
     out = out.reshape(b, s, n_h * cfg.head_dim)
-    return leave(par, dense(p["wo"], out, cdt), "attn").to(dt_out)
+    return row_parallel(par, p["wo"], out, "attn", cdt).to(dt_out)
 
 
-def _heads_of(p: Dict, cfg: ModelConfig, par) -> Tuple[Dict, int, int]:
-    """(the projections, heads, kv heads) the rank computes: all of them,
-    or under a split "attn" its whole heads — ``wq`` / ``wo`` arrive as
-    its columns / rows, ``wq``'s bias is sliced, and the replicated
-    ``wk`` / ``wv`` are cut to the kv groups its heads read, their
-    gradients summed over ``model``."""
+def _heads_of(p: Dict, cfg: ModelConfig, par, whole_kv: bool = False
+              ) -> Tuple[Dict, int, int, int]:
+    """(the projections, heads, kv heads, the first kv head) the rank
+    computes: all of them, or under a split "attn" its whole heads —
+    ``wq`` / ``wo`` arrive as its columns / rows, ``wq``'s bias is
+    sliced, and the replicated ``wk`` / ``wv`` are cut to the kv groups
+    its heads read, their gradients summed over ``model``; with
+    ``whole_kv`` (serving, whose caches hold every kv head) they stay
+    whole and the caller cuts the groups from their outputs."""
     if not splits(par, "attn"):
-        return p, cfg.n_heads, cfg.n_kv_heads
+        return p, cfg.n_heads, cfg.n_kv_heads, 0
     r, m = par.tp_index()
     n_h = cfg.n_heads // m
     per_group = cfg.n_heads // cfg.n_kv_heads
     n_kv = max(1, n_h // per_group)
-    cols = ((r * n_h // per_group) * cfg.head_dim, n_kv * cfg.head_dim)
+    kv0 = r * n_h // per_group
     out = dict(p)
     if "b" in p["wq"]:
         out["wq"] = {"w": p["wq"]["w"],
                      "b": slice_dim(p["wq"]["b"], par.mesh, par.tp, 0)}
-    for name in ("wk", "wv"):
-        out[name] = {key: par.partial(t).narrow(-1, *cols)
-                     for key, t in p[name].items()}
-    return out, n_h, n_kv
+    if not whole_kv:
+        for name in ("wk", "wv"):
+            out[name] = {key: par.partial(t).narrow(
+                -1, kv0 * cfg.head_dim, n_kv * cfg.head_dim)
+                for key, t in p[name].items()}
+    return out, n_h, n_kv, kv0
 
 
 # ---------------------------------------------------------------------------
@@ -492,6 +525,15 @@ def _logits(params, cfg: ModelConfig, x: Tensor, par=None) -> Tensor:
     return dense(params["head"], x, cdt)
 
 
+def _whole_logits(params, cfg: ModelConfig, x: Tensor, par=None) -> Tensor:
+    """Serving's logits over the whole vocabulary: under a split "vocab"
+    the ranks' blocks gathered over ``model``."""
+    logits = _logits(params, cfg, x, par)
+    if splits(par, "vocab"):
+        logits = collectives.all_gather_dim(logits, par.mesh, par.tp, -1)
+    return logits
+
+
 def _encode(params, cfg: ModelConfig, frames: Tensor, par=None) -> Tensor:
     """The encoder over the stub frame embeddings (B, T, D): non-causal,
     in training mode whatever the caller's mode (RoPE applied, as the
@@ -568,7 +610,7 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, caches,
             frames: Optional[Tensor] = None, window: int = 0, par=None):
     """Run the prompt through the stack, filling ``caches`` in place.
     Returns (the last position's logits (B, 1, V), caches)."""
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, par)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     enc_out = (_encode(params, cfg, frames, par) if frames is not None
@@ -578,7 +620,7 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, caches,
                       caches=caches, pos=pos, window=window, enc_out=enc_out,
                       par=par)
     x = _norm(cfg, params["final_norm"], x[:, -1:])
-    return _logits(params, cfg, x), caches
+    return _whole_logits(params, cfg, x, par), caches
 
 
 @torch.no_grad()
@@ -587,9 +629,9 @@ def decode_step(params, cfg: ModelConfig, token: Tensor, pos, caches,
     """One-token decode, ``caches`` updated in place. token: (B, 1);
     ``pos``: the global position, a 0-d int32 tensor on the device (an
     int is copied there).  Returns (logits (B, 1, V), caches)."""
-    x = _embed(params, cfg, token)
+    x = _embed(params, cfg, token, par)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x, _ = _run_stack(params["blocks"], x, cfg, mode="decode",
                       caches=caches, pos=pos, window=window, par=par)
     x = _norm(cfg, params["final_norm"], x)
-    return _logits(params, cfg, x), caches
+    return _whole_logits(params, cfg, x, par), caches

@@ -16,8 +16,8 @@ and ``granite-moe-3b-a800m`` on (4, 2) (the expert pin; single-token MoE
 decoding routes the global batch, gathered over ``data``).  Each rank's
 logits rows are held to the reference test's tolerances
 (``tests/test_sharded.py::test_decode_parity_sharded_vs_single``: 0.05
-dense and SSM, 0.5 MoE) against the single-process decode (they are
-equal here), and its caches are its blocks of the single-process caches
+dense and SSM, 0.5 MoE) against the single-process decode (the split
+products sum in another order), and its caches are its blocks of the single-process caches
 (positions exactly, values within the same tolerance).  Against the
 reference's sharded steps at the rank's rows the bound is twice that in
 bf16: over a prompt and 8 tokens the reference's sharded decode sits up
@@ -25,7 +25,17 @@ to 0.081 (dense) from its own one-device decode on these inputs, its
 partitioned reductions rounding otherwise; the bf16 MoE case is not held
 to it (0.789 there, a routing flip, and 1.18 from the port).
 ``qwen2.5-32b`` and ``granite-moe-3b-a800m`` again in float32 compute
-hold all three comparisons to 1e-4.
+hold all three comparisons to 1e-4, and so do two float32 cases of their
+own: ``jamba-1.5-large-398b`` on (2, 4), whose every part splits over
+``model`` (4 heads over 1 kv head, 4 experts, 16 SSM heads, a vocabulary
+of 512), and ``whisper-base`` on (2, 4) with seeded frames in the batch
+(the cross caches, their frames split over ``model``).
+
+The serving steps partition as the train step does
+(``parallel.tp_split``): each case asserts the parts its bundles name in
+``meta["tensor_parallel"]`` — qwen's heads (4 over 1 kv head on 4
+ranks), MLP and vocabulary; mamba2's SSM heads and vocabulary;
+granite-moe's heads, experts and vocabulary on 2 ranks.
 """
 
 import dataclasses
@@ -36,6 +46,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from rankutil import RANK_PRELUDE, _env
 
 from repro_torch import tree as tree_util
@@ -45,16 +56,26 @@ from repro_torch.models import transformer as tr
 pytestmark = pytest.mark.sharded
 
 PLEN, NDEC, CAP = 16, 8, 64
+QWEN_SPLIT = ["attn", "ffn", "vocab"]
+GRANITE_SPLIT = ["attn", "experts", "vocab"]
 CASES = {
-    "qwen": dict(arch="qwen2.5-32b", mesh=[2, 4], gb=8, tol=0.05),
-    "qwen_batch1": dict(arch="qwen2.5-32b", mesh=[2, 4], gb=1, tol=0.05),
-    "mamba2": dict(arch="mamba2-370m", mesh=[2, 4], gb=8, tol=0.05),
+    "qwen": dict(arch="qwen2.5-32b", mesh=[2, 4], gb=8, tol=0.05,
+                 split=QWEN_SPLIT),
+    "qwen_batch1": dict(arch="qwen2.5-32b", mesh=[2, 4], gb=1, tol=0.05,
+                        split=QWEN_SPLIT),
+    "mamba2": dict(arch="mamba2-370m", mesh=[2, 4], gb=8, tol=0.05,
+                   split=["ssm", "vocab"]),
     "granite_pin": dict(arch="granite-moe-3b-a800m", mesh=[4, 2], gb=8,
-                        tol=0.5),
+                        tol=0.5, split=GRANITE_SPLIT),
     "qwen_f32": dict(arch="qwen2.5-32b", mesh=[2, 4], gb=8, tol=1e-4,
-                     compute="float32"),
+                     compute="float32", split=QWEN_SPLIT),
     "granite_f32": dict(arch="granite-moe-3b-a800m", mesh=[4, 2], gb=8,
-                        tol=1e-4, compute="float32"),
+                        tol=1e-4, compute="float32", split=GRANITE_SPLIT),
+    "jamba_f32": dict(arch="jamba-1.5-large-398b", mesh=[2, 4], gb=8,
+                      tol=1e-4, compute="float32",
+                      split=["attn", "experts", "ffn", "ssm", "vocab"]),
+    "whisper_f32": dict(arch="whisper-base", mesh=[2, 4], gb=8, tol=1e-4,
+                        compute="float32", split=QWEN_SPLIT),
 }
 
 REFERENCE = r"""
@@ -78,8 +99,11 @@ for name, case in cases.items():
     init = np.load(os.path.join(work, f"init_{name}.npz"))
     leaves, treedef = jax.tree_util.tree_flatten(
         jsteps.abstract_params(cfg))
+    # bfloat16 leaves come as their bits
     params = jax.tree_util.tree_unflatten(
-        treedef, [jnp.asarray(init[f"p{i:03d}"], l.dtype)
+        treedef, [jnp.asarray(init[f"p{i:03d}"].view(jnp.bfloat16)
+                              if init[f"p{i:03d}"].dtype == np.uint16
+                              else init[f"p{i:03d}"], l.dtype)
                   for i, l in enumerate(leaves)])
     pre = jsteps.make_prefill_step(cfg, InputShape("p", CAP, gb, "prefill"),
                                    mesh)
@@ -91,8 +115,10 @@ for name, case in cases.items():
         srv_fn = jax.jit(srv.fn, in_shardings=srv.in_shardings,
                          out_shardings=srv.out_shardings)
         caches = tr.init_caches(cfg, gb, capacity=CAP)
-        logits, caches = pre_fn(params, caches,
-                                {"tokens": jnp.asarray(init["prompt"])})
+        batch = {"tokens": jnp.asarray(init["prompt"])}
+        if "frames" in init:
+            batch["frames"] = jnp.asarray(init["frames"])
+        logits, caches = pre_fn(params, caches, batch)
         # a batch of one decodes with the capacity over data as well
         caches = jax.device_put(caches, srv.in_shardings[1])
         outs = [np.asarray(logits, np.float32)]
@@ -126,14 +152,19 @@ for name, case in cases.items():
                               compute_dtype=case["compute"])
     init = np.load(os.path.join(work, f"init_{name}.npz"))
     pairs = tu.leaves(steps.abstract_params(cfg))
-    params = tu.unflatten([p for p, _ in pairs],
-                          [torch.from_numpy(init[f"p{i:03d}"])
-                           for i in range(len(pairs))])
+    leaves = [init[f"p{i:03d}"] for i in range(len(pairs))]
+    params = tu.unflatten([p for p, _ in pairs], [
+        torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        if a.dtype == np.uint16 else torch.from_numpy(a) for a in leaves])
     prompt = torch.from_numpy(init["prompt"])
     toks = torch.from_numpy(init["toks"])
+    batch = {"tokens": prompt}
+    if "frames" in init:
+        batch["frames"] = torch.from_numpy(init["frames"])
     # one process, the whole batch
     caches = tr.init_caches(cfg, gb, CAP, device="cpu")
-    single = [tr.prefill(params, cfg, prompt, caches)[0]]
+    single = [tr.prefill(params, cfg, prompt, caches,
+                         frames=batch.get("frames"))[0]]
     for t in range(NDEC):
         single.append(tr.decode_step(params, cfg, toks[:, t:t + 1], PLEN + t,
                                      caches)[0])
@@ -145,7 +176,7 @@ for name, case in cases.items():
     p_specs, c_specs = srv.in_specs[:2]
     local = sharding.local_tree(params, p_specs, mesh)
     mine = steps.init_sharded_caches(cfg, mesh, gb, CAP, device="cpu")
-    got = [pre.fn(local, mine, {"tokens": prompt})[0]]
+    got = [pre.fn(local, mine, batch)[0]]
     for t in range(NDEC):
         got.append(srv.fn(local, mine, toks[:, t:t + 1],
                           torch.tensor(PLEN + t, dtype=torch.int32))[0])
@@ -169,13 +200,22 @@ for name, case in cases.items():
                  "layouts_agree": pre.in_specs[1] == c_specs,
                  "vs_single": float((got - single).abs().max()),
                  "meta": {k: srv.meta[k] for k in ("shard_capacity",
-                                                    "rows_sharded")}}
+                                                    "rows_sharded",
+                                                    "tensor_parallel")},
+                 "prefill_split": pre.meta["tensor_parallel"]}
 print(json.dumps(res))
 """
 
 
 for _case in CASES.values():
     _case.setdefault("compute", "bfloat16")
+
+
+def _host(t):
+    """A leaf as numpy: a bfloat16 one as its bits (uint16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 @pytest.fixture(scope="module")
@@ -187,12 +227,16 @@ def runs(tmp_path_factory):
                                   compute_dtype=case["compute"])
         params = tr.init_lm_seeded(cfg, 0, "cpu")
         rng = np.random.default_rng(1)
-        arrays = {f"p{i:03d}": leaf.numpy()
+        arrays = {f"p{i:03d}": _host(leaf)
                   for i, (_, leaf) in enumerate(tree_util.leaves(params))}
         arrays["prompt"] = rng.integers(0, cfg.vocab,
                                         (case["gb"], PLEN)).astype("i4")
         arrays["toks"] = rng.integers(0, cfg.vocab,
                                       (case["gb"], NDEC)).astype("i4")
+        if cfg.family == "audio":
+            arrays["frames"] = (0.02 * rng.standard_normal(
+                (case["gb"], cfg.encoder_seq, cfg.d_model))).astype(
+                    case["compute"])
         np.savez(os.path.join(work, f"init_{name}.npz"), **arrays)
     consts = repr((PLEN, NDEC, CAP))
     args = [json.dumps(CASES), work]
@@ -232,6 +276,8 @@ def test_sharded_decode_matches_single_process_and_reference(runs, name):
         assert got["meta"]["shard_capacity"] == (case["gb"] == 1)
         assert got["layouts_agree"], f"rank {r}: prefill and serve caches"
         assert got["meta"]["rows_sharded"] == (case["gb"] == 8)
+        assert got["meta"]["tensor_parallel"] == case["split"], r
+        assert got["prefill_split"] == case["split"], r
         assert got["caches_equal"], f"rank {r}: cache positions"
         assert got["cache_err"] < case["tol"], (r, got["cache_err"])
         assert got["vs_single"] < case["tol"], (r, got["vs_single"])

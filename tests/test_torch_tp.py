@@ -236,3 +236,62 @@ def test_one_expert_a_rank_matches_the_single_process(results, name):
 def test_gathered_leaf_gradient_goes_only_to_the_sink(results, name):
     for res in results:
         assert res[name] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the serving steps' gather plan on the production meshes (no process group)
+# ---------------------------------------------------------------------------
+
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _serving_and_train(arch, mesh_name):
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import transformer as tr
+    mesh = AbstractMesh(*MESHES[mesh_name])
+    cfg = get_config(arch)
+    shape = SHAPES["decode_32k"]
+    cache_abs = tr.cache_specs(cfg, shape.global_batch, shape.seq_len)
+    serving = steps._sharded_serving(cfg, mesh, shape.global_batch,
+                                     cache_abs)
+    train = steps.make_train_step(cfg, SHAPES["train_4k"], mesh, oac=None,
+                                  device="cpu")
+    return mesh, serving, train
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", [
+    "arctic-480b", "deepseek-67b", "granite-34b", "granite-moe-3b-a800m",
+    "internvl2-1b", "jamba-1.5-large-398b", "mamba2-370m",
+    "mistral-large-123b", "qwen2.5-32b", "whisper-base"])
+def test_serving_plan_keeps_split_leaves_on_their_model_block(arch,
+                                                              mesh_name):
+    """The sharded serving steps' gather plan on a fake production mesh:
+    no leaf of a part in ``tp_split`` is gathered over ``model`` (an
+    expert leaf belongs to "experts" or "moe"), the plan is the train
+    step's leaf by leaf (``steps._partition`` of the pinned config, the
+    train step's parameter specs and split), and ``model`` carries the
+    split parts as ``tp``."""
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models.parallel import tp_split
+    mesh, (cfg, p_specs, _, plan, par), train = _serving_and_train(
+        arch, mesh_name)
+    split = tp_split(cfg, mesh)
+    assert par.split == split and split
+    assert par.tp == ("model",) and par.float32_sums
+    assert train.meta["tensor_parallel"] == sorted(split)
+    assert train.in_specs[0] == p_specs
+    assert plan == steps._partition(cfg, mesh)[4]
+    pairs = tree_util.leaves(steps.abstract_params(cfg))
+    assert len(plan) == len(pairs)
+    kept = 0
+    for (path, leaf), (_, entries) in zip(pairs, plan):
+        part = steps._tp_part(sharding.path_str(path), leaf.dim())
+        if part in split or (part == "moe" and "experts" in split):
+            kept += 1
+            assert all("model" not in axes for _, axes in entries), path
+    assert kept > 0
