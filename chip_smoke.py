@@ -205,16 +205,22 @@ failure):
    single-process decode, qwen2.5's heads, MLP and vocabulary split over
    ``model`` (correctness only); (d) four spawned gloo ranks on the one
    card as a (1, 4) mesh: ``granite-moe-3b-a800m`` (heads and experts
-   split) and ``whisper-base`` (heads and MLP split, the cross caches) at
-   full width and depth in float32 compute, a 64-token prompt (whisper
-   with seeded frames) and 8 teacher-forced tokens through the sharded
+   split), ``whisper-base`` (heads and MLP split, the cross caches) and
+   ``internvl2-1b`` (14 heads in uneven runs of 3 / 4 / 3 / 4, MLP
+   split) at full width and depth in float32 compute, a 64-token prompt
+   (whisper with seeded frames, internvl2 after 256 seeded patches) and
+   8 teacher-forced tokens through the sharded
    prefill and serve steps — each rank's logits within 1e-4 of one
    process's ``prefill`` / ``decode_step`` on the card, its cache blocks
    its blocks of one process's caches (positions exactly, values within
    1e-4), finite, 0 kernel launches; prefill ms and ms per token of the
    ranks and of one process, each rank's warm peak beside the dry-run
    counter's for the same step on a fake (1, 4) group (correctness
-   only);
+   only); then on the same ranks ``internvl2-1b``'s train step at full
+   width and depth in float32, its loss within 1e-5 and its gradient
+   blocks within 1e-5 relative L2 of one process's, one
+   ``fairk_update`` launch a rank in the server phase, finite weights
+   after the update, each rank's warm peak beside the counter's;
 21. the dry run and the roofline (``launch/dryrun.py``, ``roofline/``):
    (a) ``internvl2-1b``'s launch step, route (i), at the launch phase's
    shape, traced once on fake CUDA and once on fake CPU tensors under
@@ -3731,13 +3737,22 @@ SHARDED_TP_PEAK_TOL = 0.15
 SHARDED_SERVE_SPLIT = {"qwen2.5-32b": ["attn", "ffn", "vocab"]}
 # (d): serving under tensor parallelism at full width and depth, float32
 # compute, four gloo ranks on the one card as a (1, 4) mesh against one
-# process on the card
+# process on the card; internvl2-1b's 14 heads split in uneven runs of
+# 3 / 4 / 3 / 4 whole heads (ranks 0-1 and 2-3 each share a kv group)
 TP_SERVE_MESH = (1, 4)
 TP_SERVE_MODELS = {"granite-moe-3b-a800m": ["attn", "experts"],
-                   "whisper-base": ["attn", "ffn"]}
+                   "whisper-base": ["attn", "ffn"],
+                   "internvl2-1b": ["attn", "ffn"]}
 TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_NEW = 4, 64, 8
 TP_SERVE_CAP = 128                  # the caches' capacity, 32 slots a rank
 TP_SERVE_TOL = 1e-4
+# (d)'s train step on the same ranks: internvl2-1b at full width and
+# depth in float32 (compute and parameters), its heads in the uneven runs
+# above, the packed server phase (one fairk_update a rank), against the
+# single process's grads_fn to (b)'s tensor-parallel bounds
+TP_TRAIN_ARCH, TP_TRAIN_SPLIT = "internvl2-1b", ["attn", "ffn"]
+TP_TRAIN_SEQ = 512                  # 256 patches + 256 text tokens
+TP_TRAIN_BATCH, TP_TRAIN_MICRO = 4, 2
 
 
 def _sharded_full_width(dev, mesh, name, oac, profile):
@@ -4241,6 +4256,11 @@ def _sharded_gloo_phase(counted):
     return {"seconds": seconds, "ranks": results}
 
 
+def _tp_serve_cap(cfg) -> int:
+    """(d)'s cache capacity for ``cfg``: a VLM's patches come first."""
+    return TP_SERVE_CAP + (cfg.n_patches or 0)
+
+
 def _tp_serve_case(arch: str, mesh=None):
     """(d)'s model ``arch`` at full width and depth in float32 compute:
     (cfg, the prefill and serve bundles on ``mesh``, None without one)."""
@@ -4250,17 +4270,18 @@ def _tp_serve_case(arch: str, mesh=None):
     cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
     if mesh is None:
         return cfg, None, None
-    gb = TP_SERVE_BATCH
+    gb, cap = TP_SERVE_BATCH, _tp_serve_cap(cfg)
     return (cfg,
             steps.make_prefill_step(
-                cfg, InputShape("p", TP_SERVE_CAP, gb, "prefill"), mesh),
+                cfg, InputShape("p", cap, gb, "prefill"), mesh),
             steps.make_serve_step(
-                cfg, InputShape("d", TP_SERVE_CAP, gb, "decode"), mesh))
+                cfg, InputShape("d", cap, gb, "decode"), mesh))
 
 
 def _tp_serve_inputs(cfg, dev):
-    """(d)'s prompt batch (with seeded frames for an encoder-decoder) and
-    teacher-forced tokens, from a seeded generator on the host."""
+    """(d)'s prompt batch (with seeded frames for an encoder-decoder and
+    seeded patch embeddings for a VLM) and teacher-forced tokens, from a
+    seeded generator on the host."""
     import torch
     gen = torch.Generator().manual_seed(11)
     gb = TP_SERVE_BATCH
@@ -4271,7 +4292,96 @@ def _tp_serve_inputs(cfg, dev):
     if cfg.is_encdec:
         batch["frames"] = 0.02 * torch.randn(gb, cfg.encoder_seq,
                                              cfg.d_model, generator=gen)
+    if cfg.family == "vlm":
+        batch["embeds"] = 0.02 * torch.randn(gb, cfg.n_patches, cfg.d_model,
+                                             generator=gen)
     return {k: v.to(dev) for k, v in batch.items()}, toks.to(dev)
+
+
+def _tp_train_case(dev, mesh=None):
+    """(d)'s train step: (cfg, the step on ``mesh`` with the packed server
+    phase — without a mesh the single process's step, no server —, the
+    global batch drawn from a seeded generator on the host)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(get_config(TP_TRAIN_ARCH),
+                              compute_dtype="float32", param_dtype="float32")
+    shape = InputShape("t", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train")
+    bundle = steps.make_train_step(
+        cfg, shape, mesh, n_micro=TP_TRAIN_MICRO,
+        oac=steps.OacServerConfig(rho=0.1) if mesh is not None else None,
+        device=dev)
+    specs = steps.train_input_specs(cfg, shape, TP_TRAIN_MICRO,
+                                    TP_TRAIN_BATCH // TP_TRAIN_MICRO)
+    gen = torch.Generator().manual_seed(5)
+    batch = {k: (torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                               dtype=torch.int32)
+                 if v.dtype == torch.int32 else
+                 0.02 * torch.randn(v.shape, generator=gen)).to(dev)
+             for k, v in specs.items()}
+    return cfg, bundle, batch
+
+
+def _tp_train_rank(mesh, dev, rank: int, world: int) -> dict:
+    """(d)'s train step on one rank: the single process's loss and
+    gradients (made one rank at a time: one whole model on the card at
+    once), then the split step — a cold ``grads_fn``, the warm one with
+    its peak (``max_memory_allocated`` less what was allocated before,
+    plus the inputs), the server phase and AdamW (``update``) — with the
+    launch counts set to 0 just before the warm step and read just
+    after."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import make_optimizer
+    t0 = time.time()
+    cfg, bundle, batch = _tp_train_case(dev, mesh)
+    specs = bundle.in_specs[0]
+    for r in range(world):
+        if r == rank:
+            _, single, _ = _tp_train_case(dev)
+            params = tr.init_lm_seeded(cfg, 0, dev)
+            loss1, g1 = single.grads_fn(params, batch)
+            single_loss = float(loss1)
+            want = sharding.local_tree(g1, specs, mesh)
+            local = sharding.local_tree(params, specs, mesh)
+            del params, g1, loss1, single
+            torch.cuda.empty_cache()
+        dist.barrier()
+    oac = steps.OacServerConfig(rho=0.1)
+    opt_state = make_optimizer(cfg.optimizer, 1e-3).init(local)
+    server = steps.init_server_state(steps.abstract_params(cfg), mesh, cfg,
+                                     oac, local=True, device=dev)
+    bundle.grads_fn(local, batch)                       # cold
+    torch.cuda.synchronize()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    loss2, g2 = bundle.grads_fn(local, batch)
+    torch.cuda.synchronize()
+    inputs = sum(t.untyped_storage().nbytes()
+                 for _, t in tree_util.leaves(local)) + sum(
+        t.untyped_storage().nbytes() for t in batch.values())
+    peak = torch.cuda.max_memory_allocated(dev) - before + inputs
+    bundle.update(local, opt_state, server, g2, 0)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    num = den = 0.0
+    for (_, a), (_, b) in zip(tree_util.leaves(g2), tree_util.leaves(want)):
+        num += float(((a.double() - b.double()) ** 2).sum())
+        den += float((b.double() ** 2).sum())
+    finite = all(bool(torch.isfinite(t).all())
+                 for _, t in tree_util.leaves(local))
+    return {"loss": float(loss2), "single_loss": single_loss,
+            "grad_rel_l2": (num / den) ** 0.5, "peak_bytes": peak,
+            "launches": launches, "finite_after_update": finite,
+            "split": bundle.meta["tensor_parallel"],
+            "sp": bundle.meta["sequence_parallel"],
+            "seconds": time.time() - t0}
 
 
 def _tp_serve_run(prefill, decode, new_caches, batch, toks, dev):
@@ -4329,7 +4439,8 @@ def _host_tree(tree):
 def _tp_serve_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """(d) one rank of a (1, 4) mesh of gloo ranks on ``cuda:0``: each
     model of ``TP_SERVE_MODELS`` through the sharded prefill and serve
-    steps; the logits, the rank's cache blocks, times and peaks written
+    steps, then the train step (``_tp_train_rank``); the logits, the
+    rank's cache blocks, the train step's checks, times and peaks written
     to ``out_dir`` for the main process to hold against one process."""
     import datetime
     sys.path.insert(0, str(ROOT / "src"))
@@ -4374,7 +4485,8 @@ def _tp_serve_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 lambda c, b: pre.fn(local, c, b),
                 lambda c, t, p: srv.fn(local, c, t, p),
                 lambda: steps.init_sharded_caches(cfg, mesh, TP_SERVE_BATCH,
-                                                  TP_SERVE_CAP, device=dev),
+                                                  _tp_serve_cap(cfg),
+                                                  device=dev),
                 batch, toks, dev)
             cache_bytes = sum(t.untyped_storage().nbytes()
                               for _, t in tree_util.leaves(run["caches"]))
@@ -4390,14 +4502,18 @@ def _tp_serve_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 json.dumps(run))
             del local
             torch.cuda.empty_cache()
+        train = _tp_train_rank(mesh, dev, rank, world)
+        Path(out_dir, f"rank_{rank}_train.json").write_text(
+            json.dumps(train))
     finally:
         dist.destroy_process_group()
 
 
 def _tp_serve_counted(dev) -> dict:
-    """The dry-run counter's per-rank peak of (d)'s prefill step and of
-    one decode step on a fake group of four laid out as
-    ``TP_SERVE_MESH`` (fake CUDA tensors; rank 0's blocks)."""
+    """The dry-run counter's per-rank peak of (d)'s prefill step, of one
+    decode step and of the train step's ``grads_fn`` on a fake group of
+    four laid out as ``TP_SERVE_MESH`` (fake CUDA tensors; rank 0's
+    blocks)."""
     import torch
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -4420,9 +4536,14 @@ def _tp_serve_counted(dev) -> dict:
                     batch["frames"] = torch.zeros(
                         (TP_SERVE_BATCH, cfg.encoder_seq, cfg.d_model),
                         device=dev)
+                if cfg.family == "vlm":
+                    batch["embeds"] = torch.zeros(
+                        (TP_SERVE_BATCH, cfg.n_patches, cfg.d_model),
+                        device=dev)
                 params = dryrun._empty_tree(steps.abstract_params(cfg),
                                             srv.in_specs[0], mesh, dev)
-                cache_abs = tr.cache_specs(cfg, TP_SERVE_BATCH, TP_SERVE_CAP)
+                cache_abs = tr.cache_specs(cfg, TP_SERVE_BATCH,
+                                           _tp_serve_cap(cfg))
 
                 def caches():
                     return dryrun._empty_tree(cache_abs, srv.in_specs[1],
@@ -4438,9 +4559,67 @@ def _tp_serve_counted(dev) -> dict:
                              p["collective_bytes_per_device"],
                          "decode_collective_bytes":
                              d["collective_bytes_per_device"]}
+        with FakeTensorMode():
+            cfg, bundle, batch = _tp_train_case(dev, mesh)
+            params = dryrun._empty_tree(steps.abstract_params(cfg),
+                                        bundle.in_specs[0], mesh, dev)
+            _, t = count(bundle.grads_fn, params, batch)
+        out["train"] = {"peak": t["peak_bytes"],
+                        "collective_bytes": t["collective_bytes_per_device"]}
     finally:
         dist.destroy_process_group()
     return out
+
+
+def _tp_train_checks(tmp, world: int, counted: dict) -> dict:
+    """(d)'s train step on the ranks: the parts split over ``model``, the
+    sequence parallel, the loss within ``SHARDED_TP_LOSS_RTOL`` of the
+    single process's and equal on every rank, the rank's gradient blocks
+    within ``SHARDED_TP_GRAD_TOL`` relative L2 of its, one
+    ``fairk_update`` launch a rank in the warm step's server phase and
+    finite parameters after it; each rank's warm peak beside the
+    counter's."""
+    rows = [json.loads((tmp / f"rank_{r}_train.json").read_text())
+            for r in range(world)]
+    for r, row in enumerate(rows):
+        check(row["split"] == TP_TRAIN_SPLIT and row["sp"],
+              f"tp train (d) rank {r}: split {row['split']}, sequence "
+              f"parallel {row['sp']}")
+        check(abs(row["loss"] - row["single_loss"])
+              <= SHARDED_TP_LOSS_RTOL * abs(row["single_loss"])
+              and row["loss"] == rows[0]["loss"],
+              f"tp train (d) rank {r}: loss {row['loss']} against the "
+              f"single process's {row['single_loss']} (rank 0: "
+              f"{rows[0]['loss']})")
+        check(row["grad_rel_l2"] <= SHARDED_TP_GRAD_TOL,
+              f"tp train (d) rank {r}: gradients {row['grad_rel_l2']:.3e} "
+              "relative L2 from the single process's")
+        check(row["launches"]["fairk_update"] == 1
+              and not any(v for k, v in row["launches"].items()
+                          if k != "fairk_update"),
+              f"tp train (d) rank {r}: launches {row['launches']}")
+        check(row["finite_after_update"],
+              f"tp train (d) rank {r}: non-finite parameters after the "
+              "update")
+        row["counted_peak_bytes"] = counted["peak"]
+        row["peak_rel"] = row["peak_bytes"] / counted["peak"] - 1.0
+    print(f"sharded (d) train {TP_TRAIN_ARCH}: full width and depth in "
+          f"float32 on {world} gloo ranks as a {TP_SERVE_MESH} mesh (split "
+          f"over model: {TP_TRAIN_SPLIT}, the 14 heads in runs of 3 / 4 / "
+          f"3 / 4, sequence parallel), batch {TP_TRAIN_BATCH} as "
+          f"{TP_TRAIN_MICRO} microbatches of {TP_TRAIN_SEQ} positions; loss "
+          f"{rows[0]['loss']:.7f} against the single process's "
+          f"{rows[0]['single_loss']:.7f}, gradients "
+          + "/".join(f"{x['grad_rel_l2']:.2e}" for x in rows)
+          + " relative L2; fairk_update launches "
+          + "/".join(str(x["launches"]["fairk_update"]) for x in rows)
+          + "; warm grads_fn peaks "
+          + "/".join(str(x["peak_bytes"]) for x in rows)
+          + f" bytes against the counted {counted['peak']} ("
+          + "/".join(f"{100 * x['peak_rel']:+.2f}%" for x in rows)
+          + f"); {rows[0]['seconds']:.1f} s on rank 0 (correctness only)",
+          flush=True)
+    return {"ranks": rows, "counted": counted}
 
 
 def _tp_serve_phase(dev):
@@ -4452,9 +4631,11 @@ def _tp_serve_phase(dev):
     rows: ``data`` has one rank) within ``TP_SERVE_TOL`` of one process's,
     its cache blocks its blocks of one process's caches (positions
     exactly, values within ``TP_SERVE_TOL``), finite values, 0 kernel
-    launches.  Reports prefill ms, ms per token and each rank's warm peak
-    beside the dry-run counter's (correctness only: gloo on one card is
-    no speed)."""
+    launches.  Then the same ranks run the train step of
+    ``TP_TRAIN_ARCH`` held against one process (``_tp_train_checks``).
+    Reports prefill ms, ms per token and each rank's warm peaks beside
+    the dry-run counter's (correctness only: gloo on one card is no
+    speed)."""
     import shutil
     import torch
     import torch.multiprocessing as mp
@@ -4472,9 +4653,10 @@ def _tp_serve_phase(dev):
         params = tr.init_lm_seeded(cfg, 0, dev)
         run = _tp_serve_run(
             lambda c, b: tr.prefill(params, cfg, b["tokens"], c,
+                                    embeds=b.get("embeds"),
                                     frames=b.get("frames")),
             lambda c, t, p: tr.decode_step(params, cfg, t, p, c),
-            lambda: tr.init_caches(cfg, TP_SERVE_BATCH, TP_SERVE_CAP,
+            lambda: tr.init_caches(cfg, TP_SERVE_BATCH, _tp_serve_cap(cfg),
                                    device=dev),
             batch, toks, dev)
         run["logits"] = [x.cpu() for x in run["logits"]]
@@ -4509,6 +4691,7 @@ def _tp_serve_phase(dev):
     summary = {"mesh": list(TP_SERVE_MESH), "batch": TP_SERVE_BATCH,
                "prompt": TP_SERVE_PROMPT, "decoded": TP_SERVE_NEW,
                "capacity": TP_SERVE_CAP, "ranks_seconds": ranks_s}
+    summary["train"] = _tp_train_checks(tmp, world, counted["train"])
     for arch, want_split in TP_SERVE_MODELS.items():
         one = single[arch]
         check(not any(one["launches"].values()),
@@ -4601,7 +4784,9 @@ def sharded_phase(dev):
     card as a (2, 2) mesh at reduced width, the tensor-parallel cases'
     peaks counted first on a fake group of four; (d) serving under tensor
     parallelism at full width on four gloo ranks as a (1, 4) mesh against
-    one process.  Returns (launches of (a), summary)."""
+    one process, and ``internvl2-1b``'s train step there (uneven runs of
+    heads).  Returns (launches of (a) and of (d)'s train step on rank 0,
+    summary)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
@@ -4636,6 +4821,10 @@ def sharded_phase(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     summary["tp_serve"] = _tp_serve_phase(dev)
+    # (d)'s train step: rank 0's launches
+    for key, n in summary["tp_serve"]["train"]["ranks"][0][
+            "launches"].items():
+        launches[key] += n
     summary["seconds"] = time.perf_counter() - t0
     print(f"sharded phase: {summary['seconds']:.1f} s ((a) "
           f"{summary['full_width_seconds']:.1f} s, (b) "

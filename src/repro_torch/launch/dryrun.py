@@ -3,11 +3,14 @@ on the production meshes, show what one rank holds and moves, and dump the
 roofline artifacts (``repro.launch.dryrun`` for PyTorch).
 
 A fake process group of 256 ranks (512 with ``--multi-pod``) stands in for
-the cluster: this process is rank 0, ``launch.mesh.make_production_mesh``
-lays the mesh on it, and its collectives return at once.  The step comes
+the cluster: this process is rank 0 — or, where a model's heads split over
+``model`` in uneven runs (``parallel.head_range``), the first rank with the
+longest run, whose step is the slowest (``traced_rank``) —,
+``launch.mesh.make_production_mesh`` lays the mesh on it, and its
+collectives return at once.  The step comes
 from the same builders a user calls (``make_train_step`` with
 ``kernel_mode="kernel"``, ``make_prefill_step``, ``make_serve_step``,
-``make_fl_oac_step``) and runs once on rank 0's inputs under
+``make_fl_oac_step``) and runs once on the rank's inputs under
 ``FakeTensorMode``, where tensors hold no memory, inside
 ``roofline.dispatch.StepCounter``: FLOPs by dtype, bytes, the collective
 schedule and the peak of the bytes alive on the rank, then
@@ -40,12 +43,15 @@ from repro_torch import tree as tree_util
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import sharding
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (MULTI_POD_AXES, MULTI_POD_SHAPE,
+                                     PRODUCTION_AXES, PRODUCTION_SHAPE,
+                                     AbstractMesh, make_production_mesh)
 from repro_torch.launch.steps import (OacServerConfig, abstract_params,
                                       init_server_state, make_fl_oac_step,
                                       make_prefill_step, make_serve_step,
                                       make_train_step, train_input_specs)
 from repro_torch.models import transformer as tr
+from repro_torch.models.parallel import head_range, heads_split, tp_split
 from repro_torch.optim import make_optimizer
 from repro_torch.roofline import build_report, suggestion
 from repro_torch.roofline.dispatch import count
@@ -57,15 +63,32 @@ SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 FL_LOCAL_BATCH, FL_SEQ_LEN = 1, 1024
 
 
-def start_fake_group(world: int) -> None:
+def start_fake_group(world: int, rank: int = 0) -> None:
     """A ``fake`` process group of ``world`` ranks in this process, which
-    is rank 0 (its collectives do nothing); replaces one started
+    is ``rank`` (its collectives do nothing); replaces one started
     before."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
+
+
+def traced_rank(cfg, multi_pod: bool = False) -> int:
+    """The rank whose step the dry run traces: 0, or where "attn" splits
+    over ``model`` in uneven runs of heads the first rank (``model``
+    coordinate, the mesh's last axis; row-major ranks) with the most
+    heads — the ranks' steps differ there only by their heads, and the
+    slowest sets the step."""
+    mesh = (AbstractMesh(MULTI_POD_SHAPE, MULTI_POD_AXES) if multi_pod
+            else AbstractMesh(PRODUCTION_SHAPE, PRODUCTION_AXES))
+    m = mesh.shape[-1]
+    if ("attn" not in tp_split(cfg, mesh)
+            or heads_split(cfg.n_heads, cfg.n_kv_heads, m)):
+        return 0
+    runs = [hi - lo for lo, hi in (head_range(cfg.n_heads, r, m)
+                                   for r in range(m))]
+    return runs.index(max(runs))
 
 
 def make_step(cfg, shape, mesh, oac_packed: bool = True, device=None):
@@ -91,7 +114,7 @@ def _empty_tree(tree_abs: Any, specs: Any, mesh, device) -> Any:
 
 def step_inputs(bundle, cfg, shape, mesh, device, oac_packed: bool = True
                 ) -> Tuple:
-    """Rank 0's positional arguments of ``bundle.fn`` (call it under
+    """The rank's positional arguments of ``bundle.fn`` (call it under
     ``FakeTensorMode``): the rank's blocks of the parameters, optimizer
     and server state or caches, and the global batch."""
     kind = bundle.meta["kind"]
@@ -190,6 +213,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
 
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
+    rank = 0 if fl_mode else traced_rank(cfg, multi_pod)
+    if dist.get_rank() != rank:
+        start_fake_group(dist.get_world_size(), rank)
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=dev.type)
     t0 = time.time()
     with FakeTensorMode():
@@ -213,7 +239,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     result = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "fl_mode": fl_mode, "fl_baseline": fl_baseline,
-        "device": dev.type,
+        "device": dev.type, "rank": rank,
         "meta": {k: v for k, v in bundle.meta.items() if k != "scans"}
         | {"scans": bundle.meta.get("scans", {})},
         "trace_s": t_trace,

@@ -31,13 +31,15 @@ gathered over the FSDP axes inside the checkpointed block function
 (``models.parallel``) — and over ``model`` too where the part they
 belong to does not split (``parallel.tp_split``): the split parts
 compute only the rank's heads, hidden units, SSM heads or vocabulary
-block —, reduce-scatters each block's gradient over the batch axes in
-the backward pass into float32 accumulators of its local shape (leaves
-gathered over no batch axis are all-reduced once, at the end), and runs
-the reference's per-shard server phase on its blocks: one
-``fairk_update`` over its ``d_packed`` with ``reduce_axes`` = every mesh
-axis and ``n_clients`` the number of batch shards, then the optimizer in
-place.  ``sequence_parallel`` keeps the residual as the rank's slice of
+block; heads that do not split evenly gather ``wq`` / ``wo`` over
+``model`` in the layer and compute the rank's uneven run of whole heads
+(``parallel.head_range``) —, reduce-scatters each block's gradient over
+the batch axes in the backward pass into float32 accumulators of its
+local shape (leaves gathered over no batch axis are all-reduced once,
+at the end), and runs the reference's per-shard server phase on its
+blocks: one ``fairk_update`` over its ``d_packed`` with ``reduce_axes``
+= every mesh axis and ``n_clients`` the number of batch shards, then
+the optimizer in place.  ``sequence_parallel`` keeps the residual as the rank's slice of
 the sequence over ``model`` (gathered on entry to each sub-layer and
 reduce-scattered on its exit); ``_with_expert_axis`` pins the experts to
 ``model`` (each rank runs its ``E/M`` experts).  The sharded prefill and
@@ -856,7 +858,9 @@ def _gather_plan(params_abs: Any, p_specs: Any, pinned: bool, mesh,
     stacked leaf is gathered per block, so its dims count from the block;
     a pinned expert leaf keeps its experts split over ``model``, and so
     does a leaf of a part in ``split`` (``parallel.tp_split``) its
-    ``model`` block, whose dimension the spec must split over ``model``."""
+    ``model`` block, whose dimension the spec must split over ``model``
+    (uneven heads gather their ``wq`` / ``wo`` blocks over ``model`` in
+    the layer, ``transformer._heads_of``)."""
     plan = []
     for (path, leaf), spec in zip(tree_util.leaves(params_abs),
                                   sharding.spec_leaves(p_specs)):

@@ -87,10 +87,11 @@ def _normalize(out: Tensor, l: Tensor) -> Tensor:
 def plain_attention(q: Tensor, k: Tensor, v: Tensor, qpos: Tensor,
                     kpos: Tensor, *, causal: bool = True, window: int = 0
                     ) -> Tensor:
-    """Single-tile masked attention. q: (B,S,H,hd); k,v: (B,T,KV,hd)."""
+    """Single-tile masked attention. q: (B,S,H,hd); k,v: (B,T,KV,hd)
+    (KV = H = 0 on a rank with no heads: empty outputs)."""
     b, s_len, n_heads, hd = q.shape
     n_kv = k.shape[2]
-    g = n_heads // n_kv
+    g = n_heads // max(n_kv, 1)
     scale = 1.0 / (hd ** 0.5)
     qh = q.reshape(b, s_len, n_kv, g, hd)
     out, _, l = _chunk_attend(qh, k, v, qpos, kpos, causal=causal,
@@ -107,7 +108,7 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, qpos: Tensor,
     visits only the kv blocks at or below each q block."""
     b, s_len, n_heads, hd = q.shape
     t_len, n_kv = k.shape[1], k.shape[2]
-    g = n_heads // n_kv
+    g = n_heads // max(n_kv, 1)
     scale = 1.0 / (hd ** 0.5)
     q = q.reshape(b, s_len, n_kv, g, hd)
 

@@ -29,14 +29,18 @@ where nothing here runs):
   step and the serving steps — the parts of the model named in ``split``
   ("attn", "ffn", "experts", "moe", "ssm", "vocab"; ``tp_split``) arrive
   as the rank's block of their matmul weights along the TP dimension of
-  the reference's spec, and each rank computes only its part.  Serving
-  runs the same regions under ``torch.no_grad`` (only their forwards:
-  nothing, or a sum or gather over ``tp``) with ``float32_sums``: a
-  row-parallel product's partial outputs are summed in float32 and
-  rounded once to the compute dtype (``row_parallel``), as one card's
-  product rounds — partials rounded to bfloat16 before their sum move
-  each output by up to an ulp and, decoding, flip MoE routes away from
-  one card's decode; training sums them in the compute dtype.
+  the reference's spec, and each rank computes only its part (heads
+  that do not split evenly: ``head_range``'s uneven runs of whole heads,
+  ``wq`` / ``wo`` gathered over ``tp`` in the layer and narrowed to
+  them, the gather's backward a reduce-scatter of the ranks' partial
+  gradients to each rank's block).  Serving runs the same regions under
+  ``torch.no_grad`` (only their forwards: nothing, or a sum or gather
+  over ``tp``) with ``float32_sums``: a row-parallel product's partial
+  outputs are summed in float32 and rounded once to the compute dtype
+  (``row_parallel``), as one card's product rounds — partials rounded
+  to bfloat16 before their sum move each output by up to an ulp and,
+  decoding, flip MoE routes away from one card's decode; training sums
+  them in the compute dtype.
 
 Outside a split part the activations and their gradients are equal on
 every rank of one row of the mesh: a gather's backward keeps the rank's
@@ -295,27 +299,38 @@ def scatter_seq(x: Tensor, mesh, axes, dim: int = 1) -> Tensor:
 
 def heads_split(n_heads: int, n_kv: int, m: int) -> bool:
     """Whether ``n_heads`` split into whole heads over ``m`` ranks with
-    every rank's heads reading a contiguous run of whole kv groups."""
+    every rank's heads reading a contiguous run of whole kv groups (the
+    even path: the spec's blocks of ``wq`` / ``wo`` are the rank's
+    heads)."""
     if not n_heads or n_heads % m:
         return False
     per, hpg = n_heads // m, n_heads // max(n_kv, 1)
     return per % hpg == 0 or hpg % per == 0
 
 
+def head_range(n_heads: int, r: int, m: int) -> Tuple[int, int]:
+    """Rank ``r`` of ``m``'s whole heads ``[h0, h1)`` where they do not
+    split evenly (``heads_split`` false): ``h0 = floor(r·H/m)``, ⌊H/m⌋ or
+    ⌈H/m⌉ heads each — none on some ranks where H < m."""
+    return r * n_heads // m, (r + 1) * n_heads // m
+
+
 def tp_split(cfg, mesh) -> frozenset:
     """The parts of ``cfg`` that split over ``model`` on ``mesh`` (none
-    when ``model`` has one rank): "attn" where the heads split whole
-    (``heads_split``), "ffn" (dense MLPs) where ``d_ff`` divides,
-    "experts" where the experts divide (each rank runs its experts, as
-    under the expert pin, which the reference sets only from two experts
-    a rank on), else "moe" where ``moe_d_ff`` divides, "ssm" where the
-    SSM heads divide, "vocab" where the vocabulary divides — each where
-    the reference's spec puts ``model`` on that dimension."""
+    when ``model`` has one rank): "attn" wherever the spec splits ``wq``'s
+    columns, ``n_heads·head_dim`` dividing ``model`` — its whole heads
+    evenly (``heads_split``), else in ``head_range``'s uneven runs —,
+    "ffn" (dense MLPs) where ``d_ff`` divides, "experts" where the
+    experts divide (each rank runs its experts, as under the expert pin,
+    which the reference sets only from two experts a rank on), else "moe"
+    where ``moe_d_ff`` divides, "ssm" where the SSM heads divide, "vocab"
+    where the vocabulary divides — each where the reference's spec puts
+    ``model`` on that dimension."""
     m = collectives.axis_size(mesh, collectives.spread(mesh, ("model",)))
     if m == 1:
         return frozenset()
     parts = set()
-    if heads_split(cfg.n_heads, cfg.n_kv_heads, m):
+    if cfg.n_heads and (cfg.n_heads * cfg.head_dim) % m == 0:
         parts.add("attn")
     dense_ffn = cfg.dense_residual or not all(
         cfg.layer_is_moe(i) for i in range(cfg.n_layers))
@@ -436,5 +451,5 @@ def row_parallel(par: Optional[Parallel], p, x: Tensor, part: str,
 __all__ = ["Parallel", "gather_dim", "slice_dim", "gather_param",
            "scatter_grad", "narrow_block", "block_of", "copy_to",
            "reduce_from", "sum_both", "gather_seq", "scatter_seq",
-           "heads_split", "tp_split", "enter", "leave", "splits",
-           "row_parallel"]
+           "heads_split", "head_range", "tp_split", "enter", "leave",
+           "splits", "row_parallel"]

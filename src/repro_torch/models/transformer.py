@@ -32,17 +32,21 @@ is the rank's slice of the sequence under sequence parallelism (each
 sub-layer gathers it on entry and leaves its slice on exit), and the
 caches hold the rank's blocks.  The parts that split over ``model``
 (``par.split``) compute the rank's part, in training and serving alike:
-attention its whole heads (``wq`` by columns, ``wo`` by rows, ``wk`` /
-``wv`` replicated and cut to the kv groups the rank's heads read), the
-MLP its hidden units, and the vocabulary its block — a masked embedding
-lookup summed over ``model``, local logits and, in training, a
-vocab-parallel cross-entropy (float32 all-reduces of the maximum, the
-sum of exponentials and the target logit); serving gathers the logits'
-blocks over ``model`` at the end.  Attention whose heads do not split
-whole over ``model`` (40, 56, 14, 24 or 8 heads on 16 ranks) and a
-vocabulary that does not divide stay gathered whole on every rank, where
-the reference's GSPMD re-tiles half heads.  ``par`` None is the one-card
-path, unchanged.
+attention its whole heads wherever the spec splits ``wq`` (``wq`` by
+columns, ``wo`` by rows, ``wk`` / ``wv`` replicated and cut to the kv
+groups the rank's heads read), the MLP its hidden units, and the
+vocabulary its block — a masked embedding lookup summed over ``model``,
+local logits and, in training, a vocab-parallel cross-entropy (float32
+all-reduces of the maximum, the sum of exponentials and the target
+logit); serving gathers the logits' blocks over ``model`` at the end.
+Heads that do not split evenly over ``model`` (40, 56, 14, 24 or 8 heads
+on 16 ranks) split as uneven runs of whole heads
+(``parallel.head_range``: ⌊H/m⌋ or ⌈H/m⌉ a rank, none on some where
+H < m): ``wq`` / ``wo`` are gathered over ``model`` in the layer and
+narrowed to the rank's heads, and each head reads its own kv head (a run
+may start or end inside a kv group); the reference's GSPMD re-tiles
+half heads instead.  A vocabulary that does not divide stays whole on
+every rank.  ``par`` None is the one-card path, unchanged.
 
 Serving keeps the reference's cache layout under a split "attn": a
 cache holds every kv head for the rank's block of its capacity (the
@@ -53,7 +57,8 @@ over their kv groups; decoding writes the new token's every kv head,
 all-gathers the rank's heads' queries over ``model`` to every head
 ((B, 1, H, hd)), attends over the rank's capacity block with the
 log-sum-exp combine over the cache's axes, keeps the rank's heads of the
-output and runs the row-parallel ``wo``.  Cross-attention fills its
+output and runs the row-parallel ``wo`` (uneven runs are padded to
+⌈H/m⌉ heads for the gather).  Cross-attention fills its
 cache (frames split) from the whole ``wk`` / ``wv`` and, decoding,
 gathers the frames and narrows them to the rank's kv groups.
 
@@ -85,7 +90,8 @@ from repro_torch.models.layers import (apply_rope, dense, dense_init,
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.core import collectives
-from repro_torch.models.parallel import (enter, gather_dim, leave,
+from repro_torch.models.parallel import (enter, gather_dim, gather_seq,
+                                         head_range, heads_split, leave,
                                          narrow_block, reduce_from,
                                          row_parallel, slice_dim, splits)
 
@@ -197,10 +203,10 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
     b, s, _ = x.shape
     # serving's caches hold every kv head: the projections stay whole
     whole_kv = cache is not None and splits(par, "attn")
-    p, n_h, n_kv, kv0 = _heads_of(p, cfg, par, whole_kv)
-    q = dense(p["wq"], x, cdt).reshape(b, s, n_h, cfg.head_dim)
-    k = dense(p["wk"], x, cdt).reshape(b, s, -1, cfg.head_dim)
-    v = dense(p["wv"], x, cdt).reshape(b, s, -1, cfg.head_dim)
+    p, heads = _heads_of(p, cfg, par, whole_kv)
+    q = dense(p["wq"], x, cdt).reshape(b, s, heads.n, cfg.head_dim)
+    k = dense(p["wk"], x, cdt).reshape(b, s, heads.n_kv_in, cfg.head_dim)
+    v = dense(p["wv"], x, cdt).reshape(b, s, heads.n_kv_in, cfg.head_dim)
     mesh, kv = (par.mesh, par.kv) if par is not None else (None, ())
     if mode == "decode":
         q = apply_rope(q, pos[None, None], cfg.rope_theta)
@@ -209,18 +215,17 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
         if whole_kv:
             # every head's query against the rank's capacity block, then
             # the rank's heads of the combined output
-            q = collectives.all_gather_dim(q, mesh, par.tp, 2)
+            q = heads.gather(q, par)
         out = attn_lib.decode_attend(q, cache, pos, window=window,
                                      mesh=mesh, axes=kv)
         if whole_kv:
-            out = narrow_block(out, mesh, par.tp, 2)
+            out = heads.mine(out)
     else:
         q = apply_rope(q, pos[None], cfg.rope_theta)
         k = apply_rope(k, pos[None], cfg.rope_theta)
         if cache is not None:
             attn_lib.cache_fill(cache, k, v, pos, mesh, kv)
-        if whole_kv:
-            k, v = k.narrow(2, kv0, n_kv), v.narrow(2, kv0, n_kv)
+        k, v = heads.cut(k), heads.cut(v)
         if mode == "train" and s <= 8192:
             out = attn_lib.plain_attention(q, k, v, pos, pos, causal=causal,
                                            window=window)
@@ -228,7 +233,7 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
             out = attn_lib.chunked_attention(q, k, v, pos, pos,
                                              causal=causal, window=window,
                                              causal_skip=cfg.causal_skip)
-    out = out.reshape(b, s, n_h * cfg.head_dim)
+    out = out.reshape(b, s, heads.n * cfg.head_dim)
     return row_parallel(par, p["wo"], out, "attn", cdt).to(dt_out)
 
 
@@ -245,8 +250,8 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
     split = splits(par, "attn")
     # a cross cache holds every kv head: the projections stay whole
     whole_kv = cross_cache is not None and split
-    p, n_h, n_kv, kv0 = _heads_of(p, cfg, par, whole_kv)
-    q = dense(p["wq"], x, cdt).reshape(b, s, n_h, cfg.head_dim)
+    p, heads = _heads_of(p, cfg, par, whole_kv)
+    q = dense(p["wq"], x, cdt).reshape(b, s, heads.n, cfg.head_dim)
     axes = par.cross if par is not None else ()
     if cross_cache is not None and enc_out is None:
         k, v = cross_cache["k"], cross_cache["v"]
@@ -259,48 +264,124 @@ def _cross_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *,
         # the encoder's output enters the region: the rank's heads give
         # it a partial gradient
         enc = par.partial(enc_out) if split else enc_out
-        k = dense(p["wk"], enc, cdt).reshape(b, t, -1, cfg.head_dim)
-        v = dense(p["wv"], enc, cdt).reshape(b, t, -1, cfg.head_dim)
+        k = dense(p["wk"], enc, cdt).reshape(b, t, heads.n_kv_in,
+                                             cfg.head_dim)
+        v = dense(p["wv"], enc, cdt).reshape(b, t, heads.n_kv_in,
+                                             cfg.head_dim)
         if cross_cache is not None:
             mesh = par.mesh if par is not None else None
             cross_cache["k"].copy_(narrow_block(k, mesh, axes, 1))
             cross_cache["v"].copy_(narrow_block(v, mesh, axes, 1))
-    if whole_kv:
-        k, v = k.narrow(2, kv0, n_kv), v.narrow(2, kv0, n_kv)
+    k, v = heads.cut(k), heads.cut(v)
     # no mask: every query position sees every frame
     qpos = torch.zeros(s, dtype=torch.int32, device=x.device)
     kpos = torch.zeros(k.shape[1], dtype=torch.int32, device=x.device)
     out = attn_lib.chunked_attention(q, k, v, qpos, kpos, causal=False)
-    out = out.reshape(b, s, n_h * cfg.head_dim)
+    out = out.reshape(b, s, heads.n * cfg.head_dim)
     return row_parallel(par, p["wo"], out, "attn", cdt).to(dt_out)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Heads:
+    """The heads a rank computes: ``n`` of ``total`` from head ``h0``
+    (groups of ``group`` heads a kv head), reading kv heads ``[kv0, kv0 +
+    n_kv)``; the kv projections give ``n_kv_in`` heads (every kv head
+    with ``whole_kv``).  ``even``: the heads split evenly over ``model``
+    with whole kv groups (``heads_split``) or not at all, and attention
+    reads the groups as one card's GQA reshape does; else each head's kv
+    head is picked out for it (an uneven run can start or end inside a
+    group)."""
+    n: int
+    total: int
+    group: int
+    n_kv_in: int
+    h0: int = 0
+    kv0: int = 0
+    n_kv: int = 0
+    whole_kv: bool = False
+    even: bool = True
+
+    def cut(self, k: Tensor) -> Tensor:
+        """(B, T, ``n_kv_in``, hd) -> the kv heads the rank's heads read:
+        its groups, or (uneven) one kv head per head."""
+        if self.whole_kv:
+            k = k.narrow(2, self.kv0, self.n_kv)
+        if self.even:
+            return k
+        idx = (torch.arange(self.h0, self.h0 + self.n, device=k.device)
+               // self.group - self.kv0)
+        return k.index_select(2, idx)
+
+    def gather(self, q: Tensor, par) -> Tensor:
+        """Decoding: the rank's heads' queries (B, 1, n, hd) gathered over
+        ``model`` to every head (B, 1, total, hd); uneven runs are padded
+        to ⌈total/m⌉ heads for the gather and the padding dropped."""
+        if self.even:
+            return collectives.all_gather_dim(q, par.mesh, par.tp, 2)
+        _, m = par.tp_index()
+        per = -(-self.total // m)
+        q = F.pad(q, (0, 0, 0, per - self.n))
+        q = collectives.all_gather_dim(q, par.mesh, par.tp, 2)
+        keep = []
+        for i in range(m):
+            h0, h1 = head_range(self.total, i, m)
+            keep += range(i * per, i * per + h1 - h0)
+        return q[:, :, keep]
+
+    def mine(self, out: Tensor) -> Tensor:
+        """Every head's output (B, 1, total, hd) -> the rank's heads."""
+        return out.narrow(2, self.h0, self.n)
+
+
 def _heads_of(p: Dict, cfg: ModelConfig, par, whole_kv: bool = False
-              ) -> Tuple[Dict, int, int, int]:
-    """(the projections, heads, kv heads, the first kv head) the rank
-    computes: all of them, or under a split "attn" its whole heads —
-    ``wq`` / ``wo`` arrive as its columns / rows, ``wq``'s bias is
-    sliced, and the replicated ``wk`` / ``wv`` are cut to the kv groups
-    its heads read, their gradients summed over ``model``; with
-    ``whole_kv`` (serving, whose caches hold every kv head) they stay
-    whole and the caller cuts the groups from their outputs."""
+              ) -> Tuple[Dict, _Heads]:
+    """(the projections, the heads) the rank computes: all of them, or
+    under a split "attn" its whole heads.  Evenly (``heads_split``)
+    ``wq`` / ``wo`` arrive as its columns / rows; else they arrive as the
+    spec's even blocks, are gathered over ``model`` here (inside the
+    layer's checkpointed function) and narrowed to the rank's
+    ``head_range`` — the gather's backward reduce-scatters the ranks'
+    partial gradients, so each block's gradient lands on its rank.
+    ``wq``'s replicated bias is cut to the rank's heads and the
+    replicated ``wk`` / ``wv`` to the kv groups its heads read, their
+    gradients summed over ``model``; with ``whole_kv`` (serving, whose
+    caches hold every kv head) they stay whole and ``_Heads.cut`` cuts
+    the groups from their outputs."""
+    n_heads, n_kv_all = cfg.n_heads, cfg.n_kv_heads
+    group = n_heads // n_kv_all
     if not splits(par, "attn"):
-        return p, cfg.n_heads, cfg.n_kv_heads, 0
+        return p, _Heads(n_heads, n_heads, group, n_kv_all)
     r, m = par.tp_index()
-    n_h = cfg.n_heads // m
-    per_group = cfg.n_heads // cfg.n_kv_heads
-    n_kv = max(1, n_h // per_group)
-    kv0 = r * n_h // per_group
+    hd = cfg.head_dim
     out = dict(p)
-    if "b" in p["wq"]:
-        out["wq"] = {"w": p["wq"]["w"],
-                     "b": slice_dim(p["wq"]["b"], par.mesh, par.tp, 0)}
+    even = heads_split(n_heads, n_kv_all, m)
+    if even:
+        n_h = n_heads // m
+        h0 = r * n_h
+        n_kv = max(1, n_h // group)
+        kv0 = h0 // group
+        if "b" in p["wq"]:
+            out["wq"] = {"w": p["wq"]["w"],
+                         "b": slice_dim(p["wq"]["b"], par.mesh, par.tp, 0)}
+    else:
+        h0, h1 = head_range(n_heads, r, m)
+        n_h = h1 - h0
+        kv0 = h0 // group
+        n_kv = (h1 - 1) // group + 1 - kv0 if n_h else 0
+        cols = (h0 * hd, n_h * hd)
+        out["wq"] = {"w": gather_seq(p["wq"]["w"], par.mesh, par.tp, 1)
+                     .narrow(1, *cols)}
+        if "b" in p["wq"]:
+            out["wq"]["b"] = par.partial(p["wq"]["b"]).narrow(0, *cols)
+        out["wo"] = dict(p["wo"], w=gather_seq(p["wo"]["w"], par.mesh,
+                                               par.tp, 0).narrow(0, *cols))
     if not whole_kv:
         for name in ("wk", "wv"):
             out[name] = {key: par.partial(t).narrow(
-                -1, kv0 * cfg.head_dim, n_kv * cfg.head_dim)
-                for key, t in p[name].items()}
-    return out, n_h, n_kv, kv0
+                -1, kv0 * hd, n_kv * hd) for key, t in p[name].items()}
+    return out, _Heads(n_h, n_heads, group,
+                       n_kv_all if whole_kv else n_kv, h0, kv0, n_kv,
+                       whole_kv, even)
 
 
 # ---------------------------------------------------------------------------

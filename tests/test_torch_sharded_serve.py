@@ -29,7 +29,13 @@ hold all three comparisons to 1e-4, and so do two float32 cases of their
 own: ``jamba-1.5-large-398b`` on (2, 4), whose every part splits over
 ``model`` (4 heads over 1 kv head, 4 experts, 16 SSM heads, a vocabulary
 of 512), and ``whisper-base`` on (2, 4) with seeded frames in the batch
-(the cross caches, their frames split over ``model``).
+(the cross caches, their frames split over ``model``).  Two more float32
+cases hold heads that do not split evenly over ``model``
+(``parallel.head_range``; a case's ``overrides`` replace fields of the
+reduced configuration on both sides) to the same 1e-4: ``qwen2.5-32b``
+with 6 heads over 2 kv heads (runs of 1 / 2 / 1 / 2 heads, a kv group of
+3 split between ranks) and ``whisper-base`` with 2 heads (fewer heads
+than ranks: two ranks compute none; the cross caches).
 
 The serving steps partition as the train step does
 (``parallel.tp_split``): each case asserts the parts its bundles name in
@@ -76,6 +82,16 @@ CASES = {
                       split=["attn", "experts", "ffn", "ssm", "vocab"]),
     "whisper_f32": dict(arch="whisper-base", mesh=[2, 4], gb=8, tol=1e-4,
                         compute="float32", split=QWEN_SPLIT),
+    # heads that do not split evenly over ``model``: 6 heads in runs of
+    # 1 / 2 / 1 / 2, whose kv groups of 3 split inside a rank's run
+    "qwen_uneven_f32": dict(arch="qwen2.5-32b", mesh=[2, 4], gb=8,
+                            tol=1e-4, compute="float32", split=QWEN_SPLIT,
+                            overrides={"n_heads": 6, "n_kv_heads": 2}),
+    # fewer heads than ranks: 2 heads, ranks 0 and 2 compute none; the
+    # cross caches
+    "whisper_h2_f32": dict(arch="whisper-base", mesh=[2, 4], gb=8,
+                           tol=1e-4, compute="float32", split=QWEN_SPLIT,
+                           overrides={"n_heads": 2, "n_kv_heads": 2}),
 }
 
 REFERENCE = r"""
@@ -95,7 +111,8 @@ for name, case in cases.items():
     mesh = jax.make_mesh((dm, mm), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     cfg = dataclasses.replace(get_config(case["arch"], reduced_variant=True),
-                              compute_dtype=case["compute"])
+                              compute_dtype=case["compute"],
+                              **case.get("overrides", {}))
     init = np.load(os.path.join(work, f"init_{name}.npz"))
     leaves, treedef = jax.tree_util.tree_flatten(
         jsteps.abstract_params(cfg))
@@ -149,7 +166,8 @@ for name, case in cases.items():
     gb = case["gb"]
     mesh = mesh_lib.make_mesh((dm, mm), ("data", "model"), "cpu")
     cfg = dataclasses.replace(get_config(case["arch"], reduced_variant=True),
-                              compute_dtype=case["compute"])
+                              compute_dtype=case["compute"],
+                              **case.get("overrides", {}))
     init = np.load(os.path.join(work, f"init_{name}.npz"))
     pairs = tu.leaves(steps.abstract_params(cfg))
     leaves = [init[f"p{i:03d}"] for i in range(len(pairs))]
@@ -224,7 +242,8 @@ def runs(tmp_path_factory):
     for name, case in CASES.items():
         cfg = dataclasses.replace(get_config(case["arch"],
                                              reduced_variant=True),
-                                  compute_dtype=case["compute"])
+                                  compute_dtype=case["compute"],
+                                  **case.get("overrides", {}))
         params = tr.init_lm_seeded(cfg, 0, "cpu")
         rng = np.random.default_rng(1)
         arrays = {f"p{i:03d}": _host(leaf)

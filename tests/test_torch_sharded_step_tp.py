@@ -14,7 +14,15 @@ global batch 8 as 2 microbatches, sequence 64, 3 steps, each on a
 * ``granite-moe-3b-a800m`` with 6 experts, which do not divide the 4
   ranks of ``model``: the reference's fallback spec splits the experts'
   hidden units (``wg`` / ``wu``) and ``wd``'s output columns, sequence
-  parallel.
+  parallel;
+* ``qwen2.5-32b`` with 6 heads over 2 kv heads, which do not split
+  evenly over the 4 ranks of ``model`` (384 columns of ``wq`` do):
+  uneven runs of 1 / 2 / 1 / 2 whole heads (``parallel.head_range``),
+  ``wq`` / ``wo`` gathered over ``model`` in the layer and narrowed to
+  them, a kv group of 3 split between ranks, ``wq``'s bias cut to the
+  run, sequence parallel; ``wk``'s bias is held to the 2.2e-3 bound only,
+  as in ``tests/test_torch_sharded_step.py``'s qwen cases (its gradient
+  is zero but for rounding, which AdamW scales up to the learning rate).
 
 Held after every step to ``tests/test_torch_sharded_step.py``'s
 tolerances per rank (``shardstep.check_whole_step``: the loss within
@@ -42,6 +50,10 @@ CASES = {
     "moe_hidden": dict(arch="granite-moe-3b-a800m", mesh=[2, 4], sp=True,
                        overrides={"n_experts": 6},
                        split=["attn", "moe", "vocab"]),
+    "qwen_uneven_heads": dict(arch="qwen2.5-32b", mesh=[2, 4], sp=True,
+                              overrides={"n_heads": 6, "n_kv_heads": 2},
+                              noise_leaves=["blocks/0/mixer/wk/b"],
+                              split=["attn", "ffn", "vocab"]),
 }
 
 

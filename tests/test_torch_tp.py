@@ -295,3 +295,91 @@ def test_serving_plan_keeps_split_leaves_on_their_model_block(arch,
             kept += 1
             assert all("model" not in axes for _, axes in entries), path
     assert kept > 0
+
+
+# ---------------------------------------------------------------------------
+# attention's split over ``model``: even heads and uneven runs of whole heads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [4, 16])
+@pytest.mark.parametrize("n_heads", [2, 6, 8, 14, 24, 40, 56])
+def test_head_ranges_cover_every_head_once(n_heads, m):
+    """``parallel.head_range``: the ranks' runs are contiguous, in rank
+    order, cover every head exactly once and hold ⌊H/m⌋ or ⌈H/m⌉ heads
+    each (none on some ranks where H < m)."""
+    from repro_torch.models.parallel import head_range
+    runs = [head_range(n_heads, r, m) for r in range(m)]
+    assert runs[0][0] == 0 and runs[-1][1] == n_heads
+    for (_, h1), (h0, _) in zip(runs, runs[1:]):
+        assert h1 == h0
+    sizes = {h1 - h0 for h0, h1 in runs}
+    assert sizes <= {n_heads // m, -(-n_heads // m)}
+    covered = [h for h0, h1 in runs for h in range(h0, h1)]
+    assert covered == list(range(n_heads))
+
+
+# the parts split over ``model`` on the production meshes: "attn"
+# wherever ``n_heads·head_dim`` divides the 16 ranks
+SPLITS = {
+    "arctic-480b": ["attn", "experts", "ffn", "vocab"],
+    "deepseek-67b": ["attn", "ffn", "vocab"],
+    "granite-34b": ["attn", "ffn", "vocab"],
+    "granite-moe-3b-a800m": ["attn", "moe"],
+    "internvl2-1b": ["attn", "ffn"],
+    "jamba-1.5-large-398b": ["attn", "experts", "ffn", "ssm", "vocab"],
+    "mamba2-370m": ["ssm"],
+    "mistral-large-123b": ["attn", "ffn", "vocab"],
+    "qwen2.5-32b": ["attn", "ffn", "vocab"],
+    "whisper-base": ["attn", "ffn"],
+}
+# heads that split evenly over 16 with whole kv groups (the even path)
+EVEN_HEADS = ("deepseek-67b", "granite-34b", "jamba-1.5-large-398b",
+              "mistral-large-123b")
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", sorted(SPLITS))
+def test_attention_splits_wherever_the_spec_splits_wq(arch, mesh_name):
+    """On a fake production mesh ``tp_split`` names "attn" exactly where
+    the spec puts ``model`` on ``wq``'s columns (``n_heads·head_dim``
+    dividing it) — the even path (``heads_split``) for the models whose
+    heads divide, uneven runs for qwen2.5-32b, arctic-480b, internvl2-1b,
+    granite-moe-3b-a800m and whisper-base — and the plan keeps every
+    ``wq`` / ``wo`` on its ``model`` block, gathered over the FSDP axes
+    only, as the even path's always was.  The dry run traces rank 0, or
+    for uneven runs the first rank with the most heads."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, sharding, steps
+    from repro_torch.launch.mesh import AbstractMesh, fsdp_axes
+    from repro_torch.models.parallel import head_range, heads_split
+    mesh = AbstractMesh(*MESHES[mesh_name])
+    cfg = steps._with_expert_axis(get_config(arch), mesh)
+    params_abs, p_specs, split, _, plan = steps._partition(cfg, mesh)
+    assert sorted(split) == SPLITS[arch]
+    divides = bool(cfg.n_heads) and cfg.n_heads * cfg.head_dim % 16 == 0
+    assert ("attn" in split) == divides
+    even = heads_split(cfg.n_heads, cfg.n_kv_heads, 16)
+    assert even == (arch in EVEN_HEADS)
+    rank = dryrun.traced_rank(cfg, multi_pod=mesh_name == "2x16x16")
+    if even or "attn" not in split:
+        assert rank == 0
+    else:
+        runs = [hi - lo for lo, hi in (head_range(cfg.n_heads, r, 16)
+                                       for r in range(16))]
+        assert runs[rank] == max(runs) > runs[0]
+    fsdp = fsdp_axes(mesh)
+    seen = 0
+    for (path, _), spec, (_, entries) in zip(tree_util.leaves(params_abs),
+                                             sharding.spec_leaves(p_specs),
+                                             plan):
+        s = sharding.path_str(path)
+        if not s.endswith(("wq/w", "wo/w")):
+            continue
+        seen += 1
+        # (stack, D, H·hd) / (stack, H·hd, D): model on the heads' side
+        body = tuple(spec)[1:]
+        heads_dim = 1 if s.endswith("wq/w") else 0
+        assert sharding.entry_axes(body[heads_dim]) == ("model",), s
+        assert entries == [(1 - heads_dim, fsdp)], (s, entries)
+    assert (seen > 0) == (arch != "mamba2-370m")
