@@ -97,6 +97,7 @@ from repro_torch.launch.sharding import P
 from repro_torch.models import transformer as tr
 from repro_torch.models.parallel import Parallel, gather_param, tp_split
 from repro_torch.optim import make_optimizer
+from repro_torch.tracing import span
 
 Tensor = torch.Tensor
 
@@ -686,6 +687,10 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
         accumulators of the local shapes; a gathered block's gradient is
         reduce-scattered and added as the backward pass leaves it; a
         chunk's gradients are summed before they join)."""
+        with span("step.grads"):
+            return _grads(params, batch)
+
+    def _grads(params, batch):
         local = [p for _, p in tree_util.leaves(params)]
         acc = [torch.zeros(sh, dtype=torch.float32, device=p.device)
                for sh, p in zip(acc_shapes, local)]
@@ -696,45 +701,55 @@ def make_train_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
                      [torch.zeros_like(a) for a in acc])
             loss_c = None
             for i in range(c0, c0 + chunk):
-                mbatch = {k: my_rows(v[i]) for k, v in batch.items()}
-                with torch.enable_grad():
-                    xs = [(p.detach().to(gdt) if gdt is not None
-                           and p.dim() > 1 else p.detach())
-                          .requires_grad_(True) for p in local]
-                    whole = [x if plan[k][0] is not None
-                             else gather_param(x, grid, plan[k][1], sinks[k],
-                                               rows, rs_dtype)
-                             for k, x in enumerate(xs)]
-                    par = Parallel(grid, rows=rows, seq=seq, experts=experts,
-                                   tp=tp, split=split,
-                                   gather=_block_gather(grid, paths, plan,
-                                                        sinks, rows,
-                                                        rs_dtype))
-                    loss, _ = tr.loss_fn(tree_util.unflatten(paths, whole),
-                                         cfg, mbatch, par=par)
-                    gs = torch.autograd.grad(loss, xs, allow_unused=True)
-                # a leaf gathered over no axis gets its gradient here; the
-                # others have added theirs into ``sinks`` block by block
-                for sink, g in zip(sinks, gs):
-                    if g is not None:
-                        sink.add_(g.to(torch.float32))
-                del gs
-                loss = loss.detach()
+                with span("step.micro"):
+                    loss = _micro(local, batch, i, sinks)
                 loss_c = loss if loss_c is None else loss_c + loss
             loss_acc = loss_acc + loss_c
             if chunk > 1:
-                for a, g in zip(acc, sinks):
-                    a.add_(g)
+                with span("step.accumulate"):
+                    for a, g in zip(acc, sinks):
+                        a.add_(g)
                 del sinks
-        # the mean over every rank: the model ranks of one row agree
-        # unless a replicated leaf's copies have drifted apart (noise,
-        # fades and the channel draw per shard), and then every rank
-        # still reports the same loss
-        loss = collectives.pmean(loss_acc * inv_micro, grid, loss_axes)
-        grads = [reduce_grad(a.mul_(inv_micro), k).to(p.dtype)
-                 for k, (a, p) in enumerate(zip(acc, local))]
+        with span("step.accumulate"):
+            # the mean over every rank: the model ranks of one row agree
+            # unless a replicated leaf's copies have drifted apart (noise,
+            # fades and the channel draw per shard), and then every rank
+            # still reports the same loss
+            loss = collectives.pmean(loss_acc * inv_micro, grid, loss_axes)
+            grads = [reduce_grad(a.mul_(inv_micro), k).to(p.dtype)
+                     for k, (a, p) in enumerate(zip(acc, local))]
         del acc
         return loss, tree_util.unflatten(paths, grads)
+
+    def _micro(local, batch, i, sinks):
+        """Microbatch ``i``: its loss, its gradients added into ``sinks``."""
+        mbatch = {k: my_rows(v[i]) for k, v in batch.items()}
+        with torch.enable_grad():
+            xs = [(p.detach().to(gdt) if gdt is not None
+                   and p.dim() > 1 else p.detach())
+                  .requires_grad_(True) for p in local]
+            whole = [x if plan[k][0] is not None
+                     else gather_param(x, grid, plan[k][1], sinks[k],
+                                       rows, rs_dtype)
+                     for k, x in enumerate(xs)]
+            par = Parallel(grid, rows=rows, seq=seq, experts=experts,
+                           tp=tp, split=split,
+                           gather=_block_gather(grid, paths, plan,
+                                                sinks, rows,
+                                                rs_dtype))
+            with span("step.forward"):
+                loss, _ = tr.loss_fn(tree_util.unflatten(paths, whole),
+                                     cfg, mbatch, par=par)
+            with span("step.backward"):
+                gs = torch.autograd.grad(loss, xs, allow_unused=True)
+        # a leaf gathered over no axis gets its gradient here; the
+        # others have added theirs into ``sinks`` block by block
+        with span("step.accumulate"):
+            for sink, g in zip(sinks, gs):
+                if g is not None:
+                    sink.add_(g.to(torch.float32))
+        del gs
+        return loss.detach()
 
     layout = (server_layout(params_abs, p_specs, mesh)
               if oac is not None and oac.packed else None)
@@ -788,13 +803,15 @@ def _update_and_step(oac, n_shards, layout, opt, grads_fn, kernel_mode, dev,
 
     def update(params, opt_state, server, grads, seed, draws=None):
         """The server phase and the optimizer, in place."""
-        with torch.no_grad():
+        with span("step.update"), torch.no_grad():
             g_t, new_server = server_fn(server, grads, int(seed), draws)
-            g_t = tree_util.tree_map(lambda gt, p: gt.to(p.dtype), g_t,
-                                     params)
-            opt.apply_(g_t, opt_state, params)
+            with span("optim.apply"):
+                g_t = tree_util.tree_map(lambda gt, p: gt.to(p.dtype), g_t,
+                                         params)
+                opt.apply_(g_t, opt_state, params)
             if new_server is not None:
-                _assign(server, new_server)
+                with span("server.carry"):
+                    _assign(server, new_server)
         return params, opt_state, server
 
     def fn(params, opt_state, server, batch, seed, draws=None):
@@ -1163,7 +1180,8 @@ def _packed_phase(oac: OacServerConfig, layout: packing.PackedLayout,
             kmf = cstate["k_m_frac"]
         noise = drawn.get("noise")
         pop_stats = drawn.get("pop")
-        g_flat = layout.pack(grads)            # the only pack per step
+        with span("server.pack"):
+            g_flat = layout.pack(grads)        # the only pack per step
         new_fad = wl_erase = None
         if oac.wireless is not None:
             new_fad, wl_erase = chan.block_outage(server["fad"],
@@ -1188,13 +1206,14 @@ def _packed_phase(oac: OacServerConfig, layout: packing.PackedLayout,
             age_lag = oac.straggler_lag
         fresh = None
         if oac.one_bit:
-            eff = g_flat
-            if "res" in server:
-                eff = eff + server["res"]
-            vote_noise = (oac.noise_std * noise if oac.noise_std > 0.0
-                          else None)
-            fresh, _ = ops.sign_mv(eff[None, :], noise=vote_noise,
-                                   mode=kernel_mode)
+            with span("server.vote"):
+                eff = g_flat
+                if "res" in server:
+                    eff = eff + server["res"]
+                vote_noise = (oac.noise_std * noise if oac.noise_std > 0.0
+                              else None)
+                fresh, _ = ops.sign_mv(eff[None, :], noise=vote_noise,
+                                       mode=kernel_mode)
             noise = None
         erase = None
         if oac.fade > 0.0:
@@ -1209,31 +1228,35 @@ def _packed_phase(oac: OacServerConfig, layout: packing.PackedLayout,
         if wl_erase is not None:
             erase = (wl_erase if erase is None
                      else torch.maximum(erase, wl_erase))
-        g_t, age_next, stats = eng.select_and_merge(
-            g_flat, server["g"], server["age"], noise=noise, tstate=tstate,
-            residual=server.get("res"), fresh=fresh, k_m_frac=kmf,
-            age_lag=age_lag, erase=erase, sanitize=oac.sanitize)
-        new_server = {"g": g_t.to(torch.bfloat16),
-                      "age": age_next.to(torch.int8),
-                      "theta": packing.threshold_state_to_vec(
-                          stats["tstate"])}
-        if "res" in server:
-            new_server["res"] = stats["residual"]
-        if oac.wireless is not None:
-            new_server["fad"] = new_fad
-        if oac.adaptive_km:
-            cstate = bctrl.update(cstate, stats["age_hist"],
-                                  stats["mag_hist"])
-            new_server["ctrl"] = budget.controller_state_to_vec(cstate)
-        if oac.async_agg:
-            # the optimizer consumes LAST round's merged gradient
-            out = server["pending"].to(torch.float32)
-            new_server["shadow"] = new_shadow.to(torch.bfloat16)
-            new_server["pending"] = g_t.to(torch.bfloat16)
-        else:
-            out = g_t
+        with span("server.select"):
+            g_t, age_next, stats = eng.select_and_merge(
+                g_flat, server["g"], server["age"], noise=noise,
+                tstate=tstate, residual=server.get("res"), fresh=fresh,
+                k_m_frac=kmf, age_lag=age_lag, erase=erase,
+                sanitize=oac.sanitize)
+        with span("server.carry"):
+            new_server = {"g": g_t.to(torch.bfloat16),
+                          "age": age_next.to(torch.int8),
+                          "theta": packing.threshold_state_to_vec(
+                              stats["tstate"])}
+            if "res" in server:
+                new_server["res"] = stats["residual"]
+            if oac.wireless is not None:
+                new_server["fad"] = new_fad
+            if oac.adaptive_km:
+                cstate = bctrl.update(cstate, stats["age_hist"],
+                                      stats["mag_hist"])
+                new_server["ctrl"] = budget.controller_state_to_vec(cstate)
+            if oac.async_agg:
+                # the optimizer consumes LAST round's merged gradient
+                out = server["pending"].to(torch.float32)
+                new_server["shadow"] = new_shadow.to(torch.bfloat16)
+                new_server["pending"] = g_t.to(torch.bfloat16)
+            else:
+                out = g_t
         # the optimizer consumes per-leaf trees: ONE unpack per step
-        return layout.unpack(out, cast=False), new_server
+        with span("server.unpack"):
+            return layout.unpack(out, cast=False), new_server
 
     return phase
 

@@ -56,6 +56,7 @@ from repro_torch.models.layers import (_normal, dense, dense_init, gen_device,
 from repro_torch.models.parallel import (block_of, enter, narrow_block,
                                          row_parallel, slice_dim, splits,
                                          sum_both)
+from repro_torch.tracing import span
 
 Tensor = torch.Tensor
 
@@ -180,11 +181,12 @@ def ssd_chunked(x: Tensor, dt: Tensor, a: Tensor, b: Tensor, c: Tensor,
                          device=x.device) if init_state is None
              else init_state.to(torch.float32))
     entering = []
-    for ci in range(nc):
-        entering.append(state)
-        state = (state * chunk_decay[:, ci, :, None, None]
-                 + chunk_states[:, ci])
-    entering = torch.stack(entering, dim=1)                     # (B,C,H,P,N)
+    with span("model.ssd.link"):
+        for ci in range(nc):
+            entering.append(state)
+            state = (state * chunk_decay[:, ci, :, None, None]
+                     + chunk_states[:, ci])
+        entering = torch.stack(entering, dim=1)                 # (B,C,H,P,N)
 
     # inter-chunk contribution
     in_decay = torch.exp(da_cs)                                 # (B,C,Q,H)
@@ -312,8 +314,10 @@ def mamba_layer(p: Dict, x: Tensor, cfg: ModelConfig, *,
                                b[:, 0], c[:, 0])
         y = y1[:, None]
     else:
-        y, new_ssm = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk,
-                                 cache["ssm"] if cache is not None else None)
+        with span("model.ssd"):
+            y, new_ssm = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk,
+                                     cache["ssm"] if cache is not None
+                                     else None)
 
     y = y + p["d_skip"][:, None] * xh.to(torch.float32)
     y = y.reshape(x.shape[0], x.shape[1], n_heads * cfg.ssm_head_dim)

@@ -94,6 +94,7 @@ from repro_torch.models.parallel import (enter, gather_dim, gather_seq,
                                          head_range, heads_split, leave,
                                          narrow_block, reduce_from,
                                          row_parallel, slice_dim, splits)
+from repro_torch.tracing import span
 
 Tensor = torch.Tensor
 AUX_LOSS_WEIGHT = 0.01
@@ -216,8 +217,9 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
             # every head's query against the rank's capacity block, then
             # the rank's heads of the combined output
             q = heads.gather(q, par)
-        out = attn_lib.decode_attend(q, cache, pos, window=window,
-                                     mesh=mesh, axes=kv)
+        with span("model.attention"):
+            out = attn_lib.decode_attend(q, cache, pos, window=window,
+                                         mesh=mesh, axes=kv)
         if whole_kv:
             out = heads.mine(out)
     else:
@@ -226,13 +228,14 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
         if cache is not None:
             attn_lib.cache_fill(cache, k, v, pos, mesh, kv)
         k, v = heads.cut(k), heads.cut(v)
-        if mode == "train" and s <= 8192:
-            out = attn_lib.plain_attention(q, k, v, pos, pos, causal=causal,
-                                           window=window)
-        else:
-            out = attn_lib.chunked_attention(q, k, v, pos, pos,
-                                             causal=causal, window=window,
-                                             causal_skip=cfg.causal_skip)
+        with span("model.attention"):
+            if mode == "train" and s <= 8192:
+                out = attn_lib.plain_attention(q, k, v, pos, pos,
+                                               causal=causal, window=window)
+            else:
+                out = attn_lib.chunked_attention(
+                    q, k, v, pos, pos, causal=causal, window=window,
+                    causal_skip=cfg.causal_skip)
     out = out.reshape(b, s, heads.n * cfg.head_dim)
     return row_parallel(par, p["wo"], out, "attn", cdt).to(dt_out)
 
@@ -653,7 +656,8 @@ def forward_train(params, cfg: ModelConfig, tokens: Tensor,
         x = x[:, n_prefix:]
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, cfg, x, par), aux
+    with span("model.logits"):
+        return _logits(params, cfg, x, par), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict,
@@ -661,13 +665,14 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict,
     logits, aux = forward_train(params, cfg, batch["tokens"],
                                 embeds=batch.get("embeds"),
                                 frames=batch.get("frames"), par=par)
-    if splits(par, "vocab"):
-        nll = _vocab_parallel_nll(logits, batch["labels"], par)
-    else:
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        nll = -torch.gather(logp, -1,
-                            batch["labels"].long()[..., None])[..., 0]
-    loss = nll.mean() + AUX_LOSS_WEIGHT * aux
+    with span("model.loss"):
+        if splits(par, "vocab"):
+            nll = _vocab_parallel_nll(logits, batch["labels"], par)
+        else:
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            nll = -torch.gather(logp, -1,
+                                batch["labels"].long()[..., None])[..., 0]
+        loss = nll.mean() + AUX_LOSS_WEIGHT * aux
     return loss, {"nll": nll.mean(), "aux": aux}
 
 

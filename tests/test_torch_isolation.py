@@ -72,7 +72,8 @@ def test_every_port_module_imports_without_jax():
         "aou_analysis", "fl_cifar_sim", "fl_prototype_onebit", "quickstart",
         "serve_lm", "train_lm")] + [os.path.join("tools", f"torch_{n}.py")
                                     for n in ("check_bench_regression",
-                                              "dryrun_peak", "kernel_ab")]
+                                              "dryrun_peak", "kernel_ab",
+                                              "trace_cell")]
     code = (
         "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
