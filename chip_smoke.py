@@ -11,11 +11,14 @@ Phases (any failed check exits non-zero; no phase catches its own
 failure):
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name, count;
-2. build: the five kernels' four sources from
+2. build: the kernels' five sources from
    ``src/repro_torch/kernels/csrc`` for ``sm_90a``, compiled in parallel,
    with the build time and the ``-Xptxas -v`` report;
 3. kernels against their plain versions at the shapes their paths give
-   them (d = 109,210 and the exact one-bit row of k = 21,842; the sweep's
+   them (the train step's fused attention at ``ATTN_SHAPE`` in bf16,
+   forward and backward, within ``ATTN_TOL`` of the plain bf16 error,
+   timed beside its FLOP bound, the plain version and SDPA's flash;
+   d = 109,210 and the exact one-bit row of k = 21,842; the sweep's
    80 × 2,048 block for ``aou_merge``'s mask form; fig 9's fold of 50 ×
    112,346 at 22,469 and its detection at 22,469; 2^24 for
    ``fairk_update``, ``aou_merge`` and ``block_topk``, ties included, and
@@ -224,7 +227,9 @@ failure):
 21. the dry run and the roofline (``launch/dryrun.py``, ``roofline/``):
    (a) ``internvl2-1b``'s launch step, route (i), at the launch phase's
    shape, traced once on fake CUDA and once on fake CPU tensors under
-   ``roofline.dispatch.StepCounter`` — equal counts; its three terms,
+   ``roofline.dispatch.StepCounter`` — equal counts (the CPU trace
+   takes the fused attention too), a fused attention forward a layer
+   a pass and a backward a layer; its three terms,
    FLOPs by dtype, model FLOPs, usefulness and peak beside the same
    step's device time (one profiled step), steady wall step and warm
    peak on the card: the roofline at most the device time, the fake
@@ -284,6 +289,9 @@ SWEEP_LANES = 2 * len(SWEEP_RATIOS) * SWEEP_SEEDS   # fairk + fairk_auto
 TOPK_CASES = ((4096, 16), (4096, 164), (1024, 8))   # (block_size, m)
 KERNELS = ("fairk_update", "sign_mv", "sign_from_energy", "aou_merge",
            "block_topk")
+# the train step's attention at internvl2-1b's train cell: B, S, H, KV, hd
+ATTN_SHAPE = (8, 4096, 14, 2, 64)
+ATTN_TOL, ATTN_SLACK = 1.1, 2e-4    # x the plain bf16 error, + relative L2
 THRESH_ROUNDS = 3                   # threshold and async rounds per run
 ASYNC_LAG = 2
 TREE = (24, 320, 32_000)            # torch_packed_bench --full tree
@@ -328,6 +336,27 @@ def _time_ms(fn, blocks: int = 50, per_block: int = 20):
     """``torch_timing.time_ms``: (device ms, eager ms) per call."""
     from benchmarks.torch_timing import time_ms
     return time_ms(fn, blocks, per_block)
+
+
+def _eager_ms(fn, calls: int = 3):
+    """(device ms, the same) per call of ``fn`` launched from Python: the
+    median of ``calls`` calls each between two CUDA events, after one
+    warm call.  For calls of milliseconds whose allocations a CUDA
+    graph's private pool would hold twice over (the plain attention's
+    score tensors), where ``_time_ms``'s capture does not fit."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(calls):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b))
+    ms = statistics.median(per)
+    return ms, ms
 
 
 def _device_ops(fn, sessions: int = 5):
@@ -604,6 +633,7 @@ def kernel_phase(dev):
         bound, by = _bound_ms(n_bytes, 2 * width)
         records[name] = _record(err, ms, n_bytes, bound, by)
     extras.update(merge_and_topk_checks(dev, rng, records))
+    attention_records(dev, records)
     # the card's floor for one graph-replayed launch, to subtract from the
     # kernels' device times when ranking them
     one = torch.zeros(1, device=dev)
@@ -619,7 +649,10 @@ def kernel_phase(dev):
         if "parent_device_ops" in rec:
             n_ops += (f" (plain, the parent's composition: "
                       f"{rec['parent_device_ops']})")
-        print(f"kernel {name}: exact match; device {rec['ms'] * 1e3:.2f} us "
+        match = ("exact match" if "rel_l2" not in rec else
+                 f"relative L2 {rec['rel_l2']} (plain bf16 "
+                 f"{rec['plain_rel_l2']})")
+        print(f"kernel {name}: {match}; device {rec['ms'] * 1e3:.2f} us "
               f"(plain {rec['plain_ms'] * 1e3:.2f} us{lib}), eager "
               f"{rec['eager_ms'] * 1e3:.2f} us (plain "
               f"{rec['plain_eager_ms'] * 1e3:.2f} us), bound "
@@ -630,6 +663,126 @@ def kernel_phase(dev):
           f"{two['ms'] * 1e3:.2f} us (block_topk + stage 2), torch.topk of "
           f"|x| {two['library_ms'] * 1e3:.2f} us", flush=True)
     return records, extras
+
+
+def attention_records(dev, records):
+    """The train step's fused attention (``kernels/flash_attention.py``) at
+    the main path's shape, ``ATTN_SHAPE`` (internvl2-1b's train cell: 8 x
+    4,096 positions, 14 query heads over 2 kv heads of 64, causal), in
+    bf16 against ``plain_attention``: the output and the q / k / v
+    gradients against the plain version in float32 on the same inputs,
+    each within ``ATTN_TOL`` x the plain bf16 version's error plus
+    ``ATTN_SLACK`` (both round the output and the gradients to bf16 and p
+    before PV; the slack covers the other order of the sums).  Timed per
+    call, forward and backward apart: the kernels' launches replayed in a
+    CUDA graph, the plain and library versions between CUDA events, their
+    backward as forward + backward less forward: the bound is
+    the function's products at the bf16 tensor-core peak (2 forward, 7
+    backward; the kernels run 10 backward, the bf16 hi / lo halves of P
+    and dS, which ``products_run`` records), the library is PyTorch's
+    flash SDPA with the kv heads repeated (a yardstick; the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    from repro_torch.roofline.analysis import PEAK_FLOPS
+
+    b, s, h, kv, hd = ATTN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v, do = draw(b, s, h, hd), draw(b, s, kv, hd), draw(b, s, kv, hd), \
+        draw(b, s, h, hd)
+    pos = torch.arange(s, device=dev)
+
+    def plain(q_, k_, v_):
+        return attention.plain_attention(q_, k_, v_, pos, pos)
+
+    def grads(fn, *ts):
+        ts = [t.detach().clone().requires_grad_(True) for t in ts[:3]] + \
+            [ts[3]]
+        out = fn(*ts[:3])
+        return [out.detach(), *torch.autograd.grad(out, ts[:3], ts[3])]
+
+    def rel(a, w):
+        a, w = a.double(), w.double()
+        return float((a - w).norm() / w.norm())
+
+    want = grads(plain, q.float(), k.float(), v.float(), do.float())
+    got = grads(fa.flash_attention, q, k, v, do)
+    base = grads(plain, q, k, v, do)
+    errs = {n: (rel(a, w), rel(p_, w)) for n, a, p_, w in zip(
+        ("out", "dq", "dk", "dv"), got, base, want)}
+    del want, got, base
+    torch.cuda.empty_cache()
+    for n, (e, e_plain) in errs.items():
+        check(e <= ATTN_TOL * e_plain + ATTN_SLACK,
+              f"flash_attention {n}: relative L2 {e:.3e} against the "
+              f"plain version in float32, the plain bf16 version's "
+              f"{e_plain:.3e}")
+
+    out, out32, lse = fa.flash_attn_fwd_op(q, k, v, True, 0)
+    leaf = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd(fn):
+        def call():
+            o = fn(*leaf)
+            return torch.autograd.grad(o, leaf, do)
+        return call
+    ms_fwd = {"kernel": _time_ms(lambda: fa.flash_attn_fwd_op(
+                  q, k, v, True, 0), blocks=10, per_block=5),
+              "plain": _eager_ms(lambda: plain(q, k, v))}
+    ms_bwd = {"kernel": _time_ms(lambda: fa.flash_attn_bwd_op(
+                  do, q, k, v, out32, lse, True, 0), blocks=10, per_block=5)}
+    plain_fb = _eager_ms(fwd_bwd(plain))
+    ms_bwd["plain"] = tuple(x - y for x, y in zip(plain_fb,
+                                                  ms_fwd["plain"]))
+    torch.cuda.empty_cache()
+    g = h // kv
+
+    def sdpa(q_, k_, v_):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.repeat_interleave(g, 2).transpose(
+                    1, 2), v_.repeat_interleave(g, 2).transpose(1, 2),
+                is_causal=True).transpose(1, 2)
+    try:
+        lib_fwd = _eager_ms(lambda: sdpa(q, k, v), 10)[0]
+        lib_bwd = _eager_ms(fwd_bwd(sdpa), 10)[0] - lib_fwd
+    except RuntimeError as err:      # a yardstick only: no backend here
+        print(f"flash_attention: no SDPA flash yardstick ({err})",
+              flush=True)
+        lib_fwd = lib_bwd = None
+    n_fwd = fa._fwd_flops(q, k, v, True, 0)
+    n_bwd = fa._bwd_flops(do, q, k, v, out32, lse, True, 0)
+    el = q.element_size()
+    qo = q.numel() * el
+    kvb = 2 * k.numel() * el
+    lse_b = lse.numel() * 4
+    # forward: q, k, v read, o, o32 and the log-sum-exp written; backward:
+    # q, k, v, dO, o32 and the log-sum-exp read, D written and read, dq,
+    # dk, dv written
+    fwd_bytes = 2 * qo + kvb + 2 * qo + lse_b
+    bwd_bytes = 3 * qo + kvb + 2 * qo + 3 * lse_b + qo + kvb
+    for name, ms, flops, n_bytes, lib, err in (
+            (f"flash_attention[fwd {ATTN_SHAPE}]", ms_fwd, n_fwd, fwd_bytes,
+             lib_fwd, errs["out"]),
+            (f"flash_attention[bwd {ATTN_SHAPE}]", ms_bwd, n_bwd, bwd_bytes,
+             lib_bwd, max(errs[n] for n in ("dq", "dk", "dv")))):
+        bound = max(flops / PEAK_FLOPS, n_bytes / 3.35e12) * 1e3
+        rec = _record(None, ms, n_bytes, bound, "operations", lib)
+        rec.update(rel_l2=err[0], plain_rel_l2=err[1], flops=flops,
+                   tflops=flops / ms["kernel"][0] / 1e9,
+                   errors=errs)
+        records[name] = rec
+    records[f"flash_attention[bwd {ATTN_SHAPE}]"]["products_run"] = (
+        fa.BWD_PRODUCTS_RUN, fa.BWD_PRODUCTS)
+    del out, out32, lse, leaf
+    torch.cuda.empty_cache()
 
 
 def one_bit_call_sites(dev, rng, records):
@@ -980,12 +1133,32 @@ def run_configs():
 
 def reset_counters():
     from repro_torch.kernels import aou_merge, block_topk, fairk_update
-    from repro_torch.kernels import sign_mv
+    from repro_torch.kernels import flash_attention, sign_mv
     fairk_update.LAUNCHES = 0
     sign_mv.SIGN_MV_LAUNCHES = 0
     sign_mv.SIGN_FROM_ENERGY_LAUNCHES = 0
     aou_merge.LAUNCHES = 0
     block_topk.LAUNCHES = 0
+    flash_attention.ATTENTION_FWD_LAUNCHES = 0
+    flash_attention.ATTENTION_BWD_LAUNCHES = 0
+
+
+def read_attention():
+    """The fused attention's launches since ``reset_counters``."""
+    from repro_torch.kernels import flash_attention
+    return {"flash_attn_fwd": flash_attention.ATTENTION_FWD_LAUNCHES,
+            "flash_attn_bwd": flash_attention.ATTENTION_BWD_LAUNCHES}
+
+
+def attention_launches(cfg, n_micro: int, n_steps: int) -> dict:
+    """The fused attention's launches ``n_steps`` train steps of ``cfg``
+    make: each self-attention of the forward pass (the decoder's attention
+    layers, the encoder's layers) one forward launch, again in the
+    checkpoint's recompute, and three backward launches, a microbatch."""
+    calls = (sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+             + cfg.encoder_layers) * n_micro * n_steps
+    return {"flash_attn_fwd": (2 if cfg.remat else 1) * calls,
+            "flash_attn_bwd": 3 * calls}
 
 
 def read_counters():
@@ -2613,6 +2786,10 @@ def _train_run(dev, label, cfg, shape, oac, n_steps, batch, n_micro,
     want["fairk_update"] = n_steps
     want["sign_mv"] = n_steps if oac.one_bit else 0
     check(got == want, f"{label}: launches {got}, expected {want}")
+    attn = read_attention()
+    want_attn = attention_launches(cfg, n_micro, n_steps)
+    check(attn == want_attn, f"{label}: fused attention launches {attn}, "
+          f"expected {want_attn}")
     check(counts == (n_steps, n_steps, n_steps),
           f"{label}: (packs, unpacks, reads of g) {counts} in {n_steps} "
           f"steps")
@@ -2666,7 +2843,7 @@ def _train_run(dev, label, cfg, shape, oac, n_steps, batch, n_micro,
            "server_share": update_ms / (grads_ms + update_ms),
            "tokens_per_s": tokens / (steady / 1e3),
            "n_selected": n_sel, "launches": got,
-           "packs_unpacks_reads": counts, "steps_peak_gb": steps_peak_gb,
+           "attention_launches": attn, "packs_unpacks_reads": counts, "steps_peak_gb": steps_peak_gb,
            "kernel_vs_plain": "identical" if compare else "not compared"}
     if syncs:
         b = batch(t)                 # the batch's upload is not the step's
@@ -2705,7 +2882,8 @@ def _train_run(dev, label, cfg, shape, oac, n_steps, batch, n_micro,
         t += 3
     print(f"{label}: {n_params} parameters, {lay.d_packed} packed "
           f"coordinates, {n_steps} steps, losses "
-          f"{[round(x, 4) for x in losses]}; launches {got}; (packs, "
+          f"{[round(x, 4) for x in losses]}; launches {got}, fused "
+          f"attention {attn}; (packs, "
           f"unpacks, reads of g) {counts}; selected {n_sel:.0f}; kernel "
           f"and plain update phases {row['kernel_vs_plain']}; steady step "
           f"{steady:.1f} ms (CUDA events; steps "
@@ -4944,6 +5122,10 @@ def _dryrun_real(dev, cfg, shape, oac):
         step_ms.append(a.elapsed_time(e))
         check(math.isfinite(float(loss)), f"dryrun (a): loss {loss}")
     got = read_counters()
+    attn = read_attention()
+    want_attn = attention_launches(cfg, LAUNCH_MICRO, DRYRUN_STEPS)
+    check(attn == want_attn, f"dryrun (a): fused attention launches {attn},"
+          f" expected {want_attn}")
     t = DRYRUN_STEPS
     b = batch(t)
     inputs = (*state, b)
@@ -4968,7 +5150,8 @@ def _dryrun_real(dev, cfg, shape, oac):
 def dryrun_phase(dev, procs):
     """The dry run and the roofline.  (a) ``internvl2-1b``'s launch step,
     route (i), at the launch phase's shape, traced on fake CUDA tensors
-    and on fake CPU tensors (equal counts), its roofline beside the card's
+    and on fake CPU tensors (equal counts; the CPU trace takes the fused
+    attention too), its roofline beside the card's
     measurements of the same step: the roofline's step time at most the
     measured device time, the fake peak within ``DRYRUN_PEAK_TOL`` of the
     card's, ``fairk_update`` counted once with its bytes within
@@ -4987,8 +5170,24 @@ def dryrun_phase(dev, procs):
                        "train")
     oac = OacServerConfig(rho=0.1)
     parsed, memory, trace_s = _launch_trace(dev, cfg, shape, oac)
-    parsed_cpu, memory_cpu, trace_cpu_s = _launch_trace(
-        torch.device("cpu"), cfg, shape, oac)
+    # the train step's attention is the fused op on CUDA tensors and the
+    # plain version on CPU tensors; the CPU trace takes the fused op too
+    # (its fake implementation runs on any device), so that the two
+    # traces of one step must agree in every count
+    from repro_torch.kernels import flash_attention as fused_attn
+    from repro_torch.models import attention as attn_lib
+    plain_train = attn_lib.train_attention
+
+    def fused_train(q, k, v, pos, *, causal=True, window=0,
+                    causal_skip=False):
+        return fused_attn._FlashAttention.apply(q, k, v, bool(causal),
+                                                int(window))
+    attn_lib.train_attention = fused_train
+    try:
+        parsed_cpu, memory_cpu, trace_cpu_s = _launch_trace(
+            torch.device("cpu"), cfg, shape, oac)
+    finally:
+        attn_lib.train_attention = plain_train
     keys = ("flops_by_dtype", "bytes_per_device", "collective_breakdown",
             "collective_counts", "n_ops", "peak_bytes", "ops", "op_bytes")
     for key in keys:
@@ -4997,6 +5196,14 @@ def dryrun_phase(dev, procs):
               f"tensors: {parsed[key]} vs {parsed_cpu[key]}")
     check(memory == memory_cpu, f"dryrun (a): memory {memory} vs "
           f"{memory_cpu}")
+    # a fused forward a layer in each pass (forward and recompute) and a
+    # fused backward a layer, a microbatch
+    fused = {op: parsed["ops"].get(f"repro_torch.flash_attn_{op}", 0)
+             for op in ("fwd", "bwd")}
+    layers = cfg.n_layers * LAUNCH_MICRO
+    check(fused == {"fwd": 2 * layers, "bwd": layers},
+          f"dryrun (a): fused attention ops {fused} for {layers} layer "
+          f"passes")
     report = build_report(cfg, shape, "1", 1, parsed)
     real, launches = _dryrun_real(dev, cfg, shape, oac)
     want = dict.fromkeys(KERNELS, 0)
@@ -5215,6 +5422,19 @@ def paths(dev, card, kind, count, records, extras, dryruns) -> None:
                                              if v.startswith(name + "[")],
                         "launches_by_path": {p: c[name]
                                              for p, c in by_path.items()}})
+    for part in ("fwd", "bwd"):
+        rec = records[f"flash_attention[{part} {ATTN_SHAPE}]"]
+        kernels.append({"name": f"flash_attention_{part}", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/"
+                                  "flash_attention.cu",
+                        "replaces": "none (plain_attention is jnp)",
+                        "rel_l2": rec["rel_l2"],
+                        "plain_rel_l2": rec["plain_rel_l2"],
+                        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"],
+                        "variant": f"flash_attention[{part} {ATTN_SHAPE}]"})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

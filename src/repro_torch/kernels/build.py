@@ -28,7 +28,7 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("fairk_update.cu", "sign_mv.cu", "aou_merge.cu",
-           "block_topk.cu")
+           "block_topk.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -63,6 +63,10 @@ _SIGNATURES = {
     # x, vals, idxs, scratch, nb, block_size, m, stream
     "repro_block_topk": [_P] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_int, _P],
+    # q, k, v, o, o32, lse, dims, stream
+    "repro_flash_attn_fwd": [_P] * 8,
+    # dout, q, k, v, o32, lse, delta, dq, dk, dv, dims, stream
+    "repro_flash_attn_bwd": [_P] * 12,
 }
 
 

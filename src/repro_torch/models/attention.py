@@ -7,6 +7,9 @@ of compute-dtype operands: here float32 products of the upcast values (a
 product of two bf16 values is exact in float32), the ``NEG_INF`` mask and
 the online-softmax rescale as the reference writes them.  Plain matrix
 products, not ``scaled_dot_product_attention``: its rounding differs.
+``train_attention`` is the train step's choice: these plain versions on a
+CPU tensor, the fused kernels (``kernels/flash_attention.py``) on a CUDA
+tensor.
 
 A cache is ``{"k", "v"}`` (B, capacity, KV, hd) in the cache dtype,
 ``pos`` (capacity,) int32 with -1 where empty, ``idx`` an int32 scalar
@@ -36,10 +39,12 @@ from typing import Dict
 import torch
 
 from repro_torch.core import collectives
+from repro_torch.kernels import flash_attention as fused
 from repro_torch.models.layers import dense_init
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
+PLAIN_MAX_LEN = 8192          # the CPU train step's single tile up to here
 
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
@@ -148,6 +153,23 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, qpos: Tensor,
     outs = [one_q_block(iq, nk if visit_all else iq + 1) for iq in range(nq)]
     out = torch.stack(outs, dim=1)                 # (b, nq, q_chunk, kv, g, hd)
     return out.reshape(b, s_len, n_heads, hd)
+
+
+def train_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    causal_skip: bool = False) -> Tensor:
+    """The train step's self-attention at positions ``pos`` (the
+    ``arange`` of the sequence).  On a CUDA tensor the fused kernels
+    (``kernels/flash_attention.py``), which raise on what they do not
+    take; on a CPU tensor the plain versions: the single tile up to
+    ``PLAIN_MAX_LEN`` positions, the chunked form above."""
+    if q.device.type != "cpu":
+        return fused.flash_attention(q, k, v, causal=causal, window=window)
+    if q.shape[1] <= PLAIN_MAX_LEN:
+        return plain_attention(q, k, v, pos, pos, causal=causal,
+                               window=window)
+    return chunked_attention(q, k, v, pos, pos, causal=causal, window=window,
+                             causal_skip=causal_skip)
 
 
 # ---------------------------------------------------------------------------

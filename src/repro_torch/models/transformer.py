@@ -229,9 +229,10 @@ def _attn_mixer(p: Dict, x: Tensor, cfg: ModelConfig, *, mode: str,
             attn_lib.cache_fill(cache, k, v, pos, mesh, kv)
         k, v = heads.cut(k), heads.cut(v)
         with span("model.attention"):
-            if mode == "train" and s <= 8192:
-                out = attn_lib.plain_attention(q, k, v, pos, pos,
-                                               causal=causal, window=window)
+            if mode == "train":
+                out = attn_lib.train_attention(
+                    q, k, v, pos, causal=causal, window=window,
+                    causal_skip=cfg.causal_skip)
             else:
                 out = attn_lib.chunked_attention(
                     q, k, v, pos, pos, causal=causal, window=window,

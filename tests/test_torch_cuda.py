@@ -1028,3 +1028,192 @@ def test_launch_entry_points_on_the_card(cuda, tmp_path):
     out = train.main(["--arch", "qwen2.5-32b", "--steps", "2", "--batch",
                       "2", "--seq", "16"])
     assert out["params"]["embed"].is_cuda and len(out["losses"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# the fused attention of the train step (kernels/flash_attention.py)
+# ---------------------------------------------------------------------------
+
+def _attn_case(b, s, h, kv, hd, dtype, dev, seed):
+    """q, k, v and an output gradient, drawn with numpy at unit scale (the
+    scores' spread that of a trained model's, softmax neither flat nor
+    one-hot), rounded to ``dtype`` on the card."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(dtype)
+    return draw(b, s, h, hd), draw(b, s, kv, hd), draw(b, s, kv, hd), \
+        draw(b, s, h, hd)
+
+
+def _attn_grads(fn, q, k, v, dout):
+    """(out, dq, dk, dv) of ``fn`` by autograd."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def _plain_fn(causal, window):
+    from repro_torch.models import attention
+
+    def fn(q, k, v):
+        pos = torch.arange(q.shape[1], device=q.device)
+        return attention.plain_attention(q, k, v, pos, pos, causal=causal,
+                                         window=window)
+    return fn
+
+
+def _fused_fn(causal, window):
+    from repro_torch.kernels import flash_attention
+
+    def fn(q, k, v):
+        return flash_attention.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+    return fn
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+# causal, non-causal (the encoder) and a sliding window
+_MASKS = {"causal": (True, 0), "full": (False, 0), "window": (True, 100)}
+
+
+def _attn_errors(cuda, b, s, h, kv, hd, mask, seed):
+    """Relative L2 errors of (out, dq, dk, dv) against the plain version
+    in float32 on the same (bf16-valued) inputs: the fused kernel in bf16,
+    the plain version in bf16, the fused kernel in float32."""
+    causal, window = _MASKS[mask]
+    q, k, v, do = _attn_case(b, s, h, kv, hd, torch.bfloat16, cuda, seed)
+    f32 = [t.float() for t in (q, k, v, do)]
+    want = _attn_grads(_plain_fn(causal, window), *f32)
+    fused = _attn_grads(_fused_fn(causal, window), q, k, v, do)
+    plain = _attn_grads(_plain_fn(causal, window), q, k, v, do)
+    fused32 = _attn_grads(_fused_fn(causal, window), *f32)
+    for got, ref in zip(fused, plain):
+        assert got.dtype == ref.dtype == torch.bfloat16
+        assert got.shape == ref.shape
+    return ([_rel_l2(a, w) for a, w in zip(fused, want)],
+            [_rel_l2(a, w) for a, w in zip(plain, want)],
+            [_rel_l2(a, w) for a, w in zip(fused32, want)])
+
+
+def _check_attn_errors(errs):
+    """The kernel's precision is the plain version's, no lower: in bf16
+    its error against the float32 plain version is at most 1.1x the
+    plain bf16 version's plus 2e-4 (both round the output and the
+    gradients to bf16, 2^-9 relative, and ``p`` before PV; the kernel
+    rounds ``p`` against the running max and keeps P and dS as hi / lo
+    pairs in the backward where the plain version rounds dP once; the
+    slack covers the other rounding order); in float32 (no bf16 rounding
+    anywhere, IEEE products) it differs from the plain version only by
+    the order of its sums and exp2's approximation (2 ulp): 2e-5
+    relative L2."""
+    fused, plain, fused32 = errs
+    for name, a, p_, a32 in zip(("out", "dq", "dk", "dv"), fused, plain,
+                                fused32):
+        assert a <= 1.1 * p_ + 2e-4, (name, a, p_)
+        assert a32 <= 2e-5, (name, a32)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 7, 8])
+@pytest.mark.parametrize("mask", list(_MASKS))
+def test_fused_attention_matches_plain(cuda, hd, g, mask):
+    """2 x 333 positions (no block size divides them), 2 kv heads of g
+    query heads each, every mask."""
+    _check_attn_errors(_attn_errors(cuda, 2, 333, 2 * g, 2, hd, mask,
+                                    seed=hd + g))
+
+
+def test_fused_attention_takes_head_dim_16(cuda):
+    _check_attn_errors(_attn_errors(cuda, 1, 200, 4, 2, 16, "causal", 3))
+
+
+def test_fused_attention_at_internvl2_train_shape(cuda):
+    """The benchmark cell's shape: 8 x 4,096 positions, 14 heads over 2
+    kv heads of 64, causal."""
+    errs = _attn_errors(cuda, 8, 4096, 14, 2, 64, "causal", seed=7)
+    print("internvl2 shape: fused / plain / fused f32 errors", errs)
+    _check_attn_errors(errs)
+
+
+def test_fused_attention_reads_strided_operands(cuda):
+    """q / k / v as views (a narrowed kv projection, a head slice) give
+    the bits of their contiguous copies."""
+    from repro_torch.kernels import flash_attention
+    q, k, v, do = _attn_case(2, 130, 8, 4, 64, torch.bfloat16, cuda, 5)
+    kk = k[:, :, 1:3]                          # two of four kv heads
+    vv = v[:, :, 1:3]
+    got = _attn_grads(lambda a, b_, c: flash_attention.flash_attention(
+        a, b_, c), q, kk, vv, do)
+    want = _attn_grads(lambda a, b_, c: flash_attention.flash_attention(
+        a, b_, c), q, kk.contiguous(), vv.contiguous(), do)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
+
+
+def test_fused_attention_is_deterministic_and_counts(cuda):
+    """Two runs give the same bits (no atomics); a call makes one forward
+    launch and three backward launches."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _attn_case(2, 777, 14, 2, 64, torch.bfloat16, cuda, 11)
+    f0, b0 = fa.ATTENTION_FWD_LAUNCHES, fa.ATTENTION_BWD_LAUNCHES
+    one = _attn_grads(_fused_fn(True, 0), q, k, v, do)
+    two = _attn_grads(_fused_fn(True, 0), q, k, v, do)
+    assert (fa.ATTENTION_FWD_LAUNCHES - f0, fa.ATTENTION_BWD_LAUNCHES - b0) \
+        == (2, 6)
+    for a, b_ in zip(one, two):
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
+
+
+def test_fused_attention_with_no_heads_launches_nothing(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _attn_case(2, 64, 0, 0, 64, torch.bfloat16, cuda, 1)
+    f0, b0 = fa.ATTENTION_FWD_LAUNCHES, fa.ATTENTION_BWD_LAUNCHES
+    out, dq, _, _ = _attn_grads(_fused_fn(True, 0), q, k, v, do)
+    assert out.shape == (2, 64, 0, 64) and dq.shape == (2, 64, 0, 64)
+    assert (fa.ATTENTION_FWD_LAUNCHES, fa.ATTENTION_BWD_LAUNCHES) == (f0, b0)
+
+
+def test_fused_attention_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _attn_case(1, 32, 4, 2, 64, torch.bfloat16, cuda, 2)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="bfloat16 or all float32"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                           v)
+    # a view whose rows start 2 bytes off a 16-byte boundary
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    odd = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(odd, k, v)
+
+
+def test_train_step_attention_runs_the_fused_kernels(cuda):
+    """The train step on the card takes the fused op for its attention:
+    one forward launch a layer in the forward pass and one in the
+    checkpoint's recompute, three backward launches a layer."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps, train
+    cfg = get_config("internvl2-1b", reduced_variant=True)
+    from repro_torch.models import transformer
+    params = transformer.init_lm_seeded(cfg, 0)
+    bundle = steps.make_train_step(
+        cfg, InputShape("custom", 40 + cfg.n_patches, 2, "train"), n_micro=1)
+    batch = train.make_batch(cfg, 0, 0, 2, 40, 1, cuda)
+    f0, b0 = fa.ATTENTION_FWD_LAUNCHES, fa.ATTENTION_BWD_LAUNCHES
+    loss, _ = bundle.grads_fn(params, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    passes = 2 if cfg.remat else 1
+    assert fa.ATTENTION_FWD_LAUNCHES - f0 == passes * cfg.n_layers
+    assert fa.ATTENTION_BWD_LAUNCHES - b0 == 3 * cfg.n_layers

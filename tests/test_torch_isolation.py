@@ -45,6 +45,7 @@ def test_every_port_module_imports_without_jax():
                  "repro_torch.configs.internvl2_1b",
                  "repro_torch.data.tokens", "repro_torch.models.layers",
                  "repro_torch.models.mlp", "repro_torch.models.attention",
+                 "repro_torch.kernels.flash_attention",
                  "repro_torch.models.transformer", "repro_torch.optim",
                  "repro_torch.optim.optimizers",
                  "repro_torch.optim.schedule", "repro_torch.checkpoint",
@@ -86,6 +87,32 @@ def test_every_port_module_imports_without_jax():
         "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
         "or k.startswith('repro.') for k, v in sys.modules.items() "
         "if v is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_fused_attention_imports_without_triton_or_jax():
+    """The fused attention's CUDA kernels are built at their first launch:
+    the module and the model that dispatches to it import where neither
+    Triton nor JAX is installed, build nothing on import, and the CPU
+    train step runs there."""
+    code = (
+        "import sys\n"
+        "for name in ('triton', 'jax', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from repro_torch.kernels import build\n"
+        "from repro_torch.kernels import flash_attention as fa\n"
+        "from repro_torch.models import attention\n"
+        "q = torch.ones(1, 8, 2, 16)\n"
+        "out = attention.train_attention(q, q[:, :, :1], q[:, :, :1],\n"
+        "                                torch.arange(8))\n"
+        "assert build._LIB is None and out.shape == q.shape\n"
+        "assert fa.ATTENTION_FWD_LAUNCHES == 0\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
