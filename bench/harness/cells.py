@@ -205,7 +205,8 @@ def _check_tree(made: Any, port: Any) -> None:
 
 
 def trace_window(cell: Cell, seconds: float) -> Dict[str, Any]:
-    """The window under ``torch.profiler`` (kept in memory), reduced."""
+    """The window under ``torch.profiler`` (kept in memory), reduced to
+    the trace summary and, under its ``"spans"``, the program's spans."""
     from torch.profiler import ProfilerActivity, profile
     from bench.harness import trace
     acts = [ProfilerActivity.CPU]
@@ -215,5 +216,5 @@ def trace_window(cell: Cell, seconds: float) -> Dict[str, Any]:
     with profile(activities=acts) as prof:
         out = cell.window(seconds)
     cell.traced = False
-    out["trace"] = trace.from_profiler(prof)
+    out["trace"] = trace.summarize(prof)
     return out

@@ -38,6 +38,8 @@ from bench.harness import trace
 PREFIX = "repro_torch."
 BACKWARD = "autograd::engine::evaluate_function:"
 LONG_GAP_S = 0.02
+# the host events the link reads, by the start of their names
+_KEEP = (PREFIX, BACKWARD, "bench.", "cu")
 
 # (start, end, name, correlation id) of a device operation
 Device = Tuple[float, float, str, int]
@@ -252,25 +254,43 @@ def reduce(device: Sequence[Device], host: Sequence[Host]) -> Optional[Dict]:
             "idle_by_label": dict(by_label)}
 
 
+def take(ev, name: str, cuda: bool, device: List[Device],
+         host: List[Host]) -> None:
+    """Keep one raw profiler event for ``reduce``: every device operation
+    but user annotations (a user-scope span's mirror on the device's
+    timeline), and the host events that the link reads."""
+    if cuda:
+        if not ev.is_user_annotation():
+            device.append((ev.start_ns() * 1e-9, ev.end_ns() * 1e-9, name,
+                           ev.correlation_id()))
+    elif name.startswith(_KEEP) or ev.sequence_nr() >= 0:
+        host.append((ev.start_ns() * 1e-9, ev.end_ns() * 1e-9, name,
+                     ev.start_thread_id(), ev.correlation_id(),
+                     ev.sequence_nr(), ev.fwd_thread_id()))
+
+
 def from_profiler(prof) -> Optional[Dict]:
     """``reduce`` over a finished ``torch.profiler.profile``, read from its
-    raw events.  The device's operations leave out user annotations (a
-    user-scope span's mirror on the device's timeline)."""
+    raw events."""
     from torch.autograd import DeviceType
     device: List[Device] = []
     host: List[Host] = []
     for ev in prof.profiler.kineto_results.events():
-        name = ev.name()
-        if ev.device_type() == DeviceType.CUDA:
-            if not ev.is_user_annotation():
-                device.append((ev.start_ns() * 1e-9, ev.end_ns() * 1e-9,
-                               name, ev.correlation_id()))
-            continue
-        keep = (name.startswith((PREFIX, BACKWARD, "bench.", "cu"))
-                or ev.sequence_nr() >= 0)
-        if keep:
-            host.append((ev.start_ns() * 1e-9, ev.end_ns() * 1e-9, name,
-                         ev.start_thread_id(), ev.correlation_id(),
-                         ev.sequence_nr(), ev.fwd_thread_id()))
+        take(ev, ev.name(), ev.device_type() == DeviceType.CUDA, device,
+             host)
     return reduce(device, host)
 
+
+def per_round(ctx: Dict, names: Sequence[str], field: str
+              ) -> Optional[float]:
+    """A traced run's ``field`` summed over the spans ``names`` (without
+    the prefix), per round of the window: None without the span
+    reduction, or where none of the spans ran in it."""
+    red = (ctx.get("trace") or {}).get("spans")
+    if not red:
+        return None
+    hits = [red["spans"][PREFIX + n][field] for n in names
+            if PREFIX + n in red["spans"]]
+    if not hits:
+        return None
+    return sum(hits) / ctx["rounds"]

@@ -3,7 +3,7 @@ activity, kept in memory) over the traced window: the device's busy
 time (the union of its operations' intervals inside the window), the
 device operations by total time, the idle gaps labelled by the
 benchmark's host span they fell in, and each kernel's device time and
-calls."""
+calls; ``summarize`` adds the program's spans (``spans.py``)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 WINDOW = "bench.window"
 SPANS = ("bench.stage_batch", "bench.grads_fn", "bench.update")
+NAMES = frozenset(SPANS) | {WINDOW}
 TOP = 10
 
 Interval = Tuple[float, float]
@@ -80,22 +81,44 @@ def reduce(device: Sequence[Tuple[float, float, str]],
             "kernels": {n: (v[0], v[1]) for n, v in by_name.items()}}
 
 
+def take(ev, name: str, cuda: bool, device: list, host: list) -> None:
+    """Keep one raw profiler event for ``reduce``: the benchmark's spans
+    on the host, every other device event."""
+    if name in NAMES:
+        # a span is also mirrored on the device's timeline
+        if not cuda:
+            host.append((ev.start_ns() * 1e-9, ev.end_ns() * 1e-9, name))
+    elif cuda:
+        device.append((ev.start_ns() * 1e-9, ev.end_ns() * 1e-9, name))
+
+
 def from_profiler(prof) -> Optional[Dict]:
     """``reduce`` over a finished ``torch.profiler.profile``, read from its
     raw events (building the profiler's own event tree takes minutes on a
     window of some 10^5 device operations)."""
     from torch.autograd import DeviceType
     device, host = [], []
-    names = set(SPANS) | {WINDOW}
     for ev in prof.profiler.kineto_results.events():
-        a, b, name = ev.start_ns() * 1e-9, ev.end_ns() * 1e-9, ev.name()
-        if name in names:
-            # a span is also mirrored on the device's timeline
-            if ev.device_type() != DeviceType.CUDA:
-                host.append((a, b, name))
-        elif ev.device_type() == DeviceType.CUDA:
-            device.append((a, b, name))
+        take(ev, ev.name(), ev.device_type() == DeviceType.CUDA, device,
+             host)
     return reduce(device, host)
+
+
+def summarize(prof) -> Optional[Dict]:
+    """``from_profiler``'s summary with the span reduction
+    (``spans.from_profiler``'s, or None) under ``"spans"``, both from one
+    pass over the raw events; None where the summary is."""
+    from torch.autograd import DeviceType
+    from bench.harness import spans
+    device, host, s_device, s_host = [], [], [], []
+    for ev in prof.profiler.kineto_results.events():
+        name, cuda = ev.name(), ev.device_type() == DeviceType.CUDA
+        take(ev, name, cuda, device, host)
+        spans.take(ev, name, cuda, s_device, s_host)
+    summary = reduce(device, host)
+    if summary is not None:
+        summary["spans"] = spans.reduce(s_device, s_host)
+    return summary
 
 
 def kernel_time(summary: Optional[Dict], needle: str

@@ -3,11 +3,13 @@ a round (6 · active parameters · tokens, no recompute) and the bytes a
 kernel call must move (each input read once, each output written once).
 Copied from ``repro_torch.roofline.analysis`` / ``configs.base`` and the
 kernel table's bounds, so that a later change to the port cannot move
-what is measured."""
+what is measured.  A family this file does not count is counted by its
+configuration's reference module (``active_params``), which lies with
+the benchmark too."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -37,9 +39,25 @@ def param_count(m: Dict[str, Any]) -> int:
     return total + m["n_layers"] * layer
 
 
-def model_flops(m: Dict[str, Any], tokens: int) -> float:
-    """6 · N · tokens: a training round's useful FLOPs."""
-    return 6.0 * param_count(m) * tokens
+# the families ``param_count`` counts
+COUNTED = ("dense", "vlm", "ssm")
+
+
+def model_flops(m: Dict[str, Any], tokens: int,
+                active_params: Optional[Callable[[Dict[str, Any]], int]]
+                = None) -> Optional[float]:
+    """6 · N · tokens: a training round's useful FLOPs.  N is
+    ``active_params(m)`` where the configuration's reference module
+    defines it (the parameters one token uses, norms excluded, experts
+    counted at ``experts_per_token``), else ``param_count(m)`` for the
+    families it counts; None for any other family."""
+    if active_params is not None:
+        n = active_params(m)
+    elif m["family"] in COUNTED:
+        n = param_count(m)
+    else:
+        return None
+    return 6.0 * n * tokens
 
 
 def fairk_update_bytes(d: int, residual: bool, fresh: bool) -> int:

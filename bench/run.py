@@ -53,11 +53,23 @@ def parse(argv):
     return ap.parse_args(argv)
 
 
+def round_flops(config, wl):
+    """A round's model FLOPs (``yardstick.model_flops``), counted by the
+    configuration's reference module where it defines ``active_params``;
+    None where neither it nor the yardstick counts the family."""
+    from bench.harness import yardstick
+    from bench.reference.follow import family
+    tokens = wl.get("batch", 0) * wl.get("seq_len", 0)
+    return yardstick.model_flops(
+        config["model"], tokens,
+        getattr(family(config), "active_params", None))
+
+
 def run(args, root=ROOT, device=None, t0=T0):
     """The run's result (a dict) and the compared numbers' lines.
     ``device`` None means the card, which must be there."""
     import torch
-    from bench.harness import cells, compare, yardstick
+    from bench.harness import cells, compare
     from bench.harness.registry import Registry
     from bench.reference.follow import follow
 
@@ -85,10 +97,9 @@ def run(args, root=ROOT, device=None, t0=T0):
            "count": 1,
            "memory_peak_bytes": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else 0)}
-    tokens = wl.get("batch", 0) * wl.get("seq_len", 0)
     ctx = dict(win, workload=wl, model=config["model"], setup_s=setup_s,
                d_packed=cell.d_packed, trace=win.get("trace"),
-               flops_per_round=yardstick.model_flops(config["model"], tokens))
+               flops_per_round=round_flops(config, wl))
     metrics = {}
     for m in reg.metrics(args.workload, bool(args.trace)):
         value = reg.reader(m["name"])(ctx)

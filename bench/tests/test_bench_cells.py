@@ -46,12 +46,14 @@ def test_result_line_schema(tmp_path, trace):
     units = {m["name"]: m["unit"] for m in
              manifest["end_to_end"] + manifest["per_layer"]}
     for name, m in result["metrics"].items():
-        assert m["unit"] == units[name] and m["value"] > 0
+        # a collection's idle reads 0 in a window without one
+        assert m["unit"] == units[name] and (
+            m["value"] > 0 or name == "gc_idle_ms" and m["value"] == 0)
     if trace:
         assert {"busy_s", "window_s"} <= set(dev)
-        assert set(result["metrics"]) <= {"update_ms", "idle_pct",
-                                          "fairk_update_roofline",
-                                          "sign_mv_roofline"}
+        assert set(result["metrics"]) <= {
+            m["name"] for m in manifest["per_layer"]
+            if "internvl2-1b.update" in m["workloads"]}
     else:
         # the p95 needs twenty rounds in the window
         expect = {"round_ms", "setup_s"} | (
